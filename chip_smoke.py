@@ -5,13 +5,20 @@
 
 Phases, each fatal on failure (exit code 1):
   1. the card's name and power limit, torch and CUDA versions; TF32 off;
-  2. build the kernels (lsenerf_tpu_torch/csrc) with nvcc;
+  2. build the kernels (lsenerf_tpu_torch/csrc/*.cu) with nvcc, one
+     process per source, all started together;
   3. hold K1 (blocked_encode_fwd) and K2 (blocked_encode_bwd) against their
      plain PyTorch versions at flagship shapes and time both; then one
      small train step on the card against the same step on the CPU through
      the plain versions;
+  3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
+     scripts/pallas_probe*.py) on the card, with the gather kernels' launch
+     counters set to 0 just before and read just after; then G1 (row_gather),
+     G2 (take_along) and G3 (gather_sum) against their plain versions at the
+     probes' shapes, each timed beside its plain version and the PyTorch
+     call that computes the same function;
   4. the flagship train step (flagship.py) for STEPS steps on the card, with
-     every kernel launch counter set to 0 just before and read just after;
+     K1's and K2's launch counters set to 0 just before and read just after;
   5. a `kernels` JSON line, the card line, and the result line
      {"ok": true, "device": {...}} last.
 
@@ -47,29 +54,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over reps, each between CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
-
-
 def check_kernels(dev):
     """Phase 3a: K1/K2 against their plain versions at flagship shapes."""
     import torch
 
     from lsenerf_tpu_torch.flagship import flagship_model_config
+    from lsenerf_tpu_torch.gather_probe import time_ms
     from lsenerf_tpu_torch.ops import combine
     from lsenerf_tpu_torch.ops import hash_encoding as he
 
@@ -110,10 +100,6 @@ def check_kernels(dev):
     k2_bytes = n * 3 * 4 + row_bytes + m * combine.F * 4 + n * 3 * 4 + hcfg.total_rows * 64 * 4
     k2_ops = m * (3 * 4 + 27 * 4 + 27 * 3 * 3 + 27 * 2 + 8 * 2 * 2 + 3 * 4)
 
-    def bound(b, ops):
-        tb, to = b / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
-
     res = {}
     for k, err, fn, plain, (b_ms, b_by) in (
         (combine.K1, err1, lambda: combine.encode_fwd(pos, table, lv),
@@ -130,6 +116,13 @@ def check_kernels(dev):
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}); "
               f"{rows} distinct rows at n={n}, L={L}")
     return res
+
+
+def bound(nbytes, ops):
+    """The least time for the work: the larger of bytes over the memory rate
+    and f32 operations over the peak f32 rate, in ms, and which bounds it."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def check_small_step(dev):
@@ -178,6 +171,126 @@ def check_small_step(dev):
             fail(f"small step: gradient {p} differs by {rel:.2e} (relative L2)")
     print(f"small step card vs CPU: loss {l1:.6f} vs {l0:.6f}, worst gradient "
           f"relative L2 difference {worst:.2e}")
+
+
+def check_gathers(dev):
+    """Phase 3c: the gather probe on the card, then G1-G3 against their plain
+    versions and library calls at the probes' shapes. Returns the per-kernel
+    results and the launch counts of the probe's run."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as tF
+
+    from lsenerf_tpu_torch import gather_probe
+    from lsenerf_tpu_torch.gather_probe import time_ms
+    from lsenerf_tpu_torch.ops import gather as g
+
+    t0 = time.time()
+    for k in g.KERNELS:
+        k.launches = 0
+    cases = gather_probe.run(dev)
+    launches = {k.name: k.launches for k in g.KERNELS}
+    wrong = [c["name"] for c in cases if not c["ok"]]
+    if wrong:
+        fail(f"gather probe: WRONG {wrong}")
+    if min(launches.values()) == 0:
+        fail(f"gather probe: a kernel was never launched: {launches}")
+    print(f"gather probe: {len(cases)}/{len(cases)} cases OK in {time.time() - t0:.1f} s; "
+          f"launches {launches}")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    def exact(name, got, want):
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+            fail(f"{name}: kernel and plain version differ")
+        return float((got.float() - want.float()).abs().max())
+
+    def distinct(idx):
+        return int(torch.unique(idx).numel())
+
+    res = {}
+
+    # G1 at P5-C: the flagship's 2,697,216 row gathers from a 199,680 x 64
+    # bf16 table, with a fresh index each launch
+    T, W, m = 199680, 64, gather_probe.P5_FLAGSHIP_ROWS
+    table = torch.randn((T, W), generator=gen, device=dev).to(torch.bfloat16)
+    idxs = [ints(T, (m,)) for _ in range(12)]
+    err = exact("row_gather", g.row_gather(table, idxs[0]), g.row_gather_plain(table, idxs[0]))
+    fresh = itertools.cycle(idxs)
+    res["row_gather"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: g.row_gather(table, next(fresh)), 10),
+        plain_ms=time_ms(lambda: g.row_gather_plain(table, next(fresh)), 10),
+        library_ms=time_ms(lambda: torch.index_select(table, 0, next(fresh)), 10),
+    )
+    res["row_gather"]["bound_ms"], res["row_gather"]["bound_by"] = bound(
+        m * 4 + m * W * 2 + distinct(idxs[0]) * W * 2, 0)
+    del idxs, fresh
+
+    # G2 at E2 (axis 0, the row index broadcast over 128 columns) and M3
+    # (axis 1); E2's numbers go in the kernels line
+    R = 2048
+    t_e2 = torch.randn((R, 128), generator=gen, device=dev)
+    i_e2 = ints(R, (R, 1)).expand(R, 128).contiguous()
+    t_m3 = torch.randn((1024, 128), generator=gen, device=dev)
+    i_m3 = ints(128, (1024, 128))
+    for name, t, idx, axis in (("E2", t_e2, i_e2, 0), ("M3", t_m3, i_m3, 1)):
+        err = exact(f"take_along {name}", g.take_along(t, idx, axis),
+                    g.take_along_plain(t, idx, axis))
+        idx64 = idx.long()
+        rows, cols = torch.arange(t.shape[0], device=dev)[:, None], torch.arange(t.shape[1], device=dev)
+        touched = idx64 * t.shape[1] + cols if axis == 0 else rows * t.shape[1] + idx64
+        r = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: g.take_along(t, idx, axis), 20),
+            plain_ms=time_ms(lambda: g.take_along_plain(t, idx, axis), 20),
+            library_ms=time_ms(lambda: torch.gather(t, axis, idx64), 20),
+        )
+        r["bound_ms"], r["bound_by"] = bound(idx.numel() * 8 + distinct(touched) * 4, 0)
+        print(f"take_along {name} {tuple(t.shape)} axis {axis}: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f}, torch.gather {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} ms by bytes)")
+        if name == "E2":
+            res["take_along"] = r
+    roll_idx = ((torch.arange(128, device=dev) - 64) % 128).int().expand(8, 128).contiguous()
+    t8 = torch.randn((8, 128), generator=gen, device=dev)
+    exact("take_along R1", g.take_along(t8, roll_idx, 1), torch.roll(t8, 64, 1))
+    print(f"take_along R1 (8, 128) roll: {time_ms(lambda: g.take_along(t8, roll_idx, 1), 20):.4f} ms "
+          f"(torch.roll {time_ms(lambda: torch.roll(t8, 64, 1), 20):.4f} ms)")
+
+    # G3 at H: 64 gathers of 8192 rows from 8192 x 128 f32, summed in order
+    TH, WH, REPS = 8192, 128, 64
+    th = torch.randn((TH, WH), generator=gen, device=dev)
+    ih = ints(TH, (REPS, TH))
+    err = exact("gather_sum", g.gather_sum(th, ih), g.gather_sum_plain(th, ih))
+    bags = ih.T.contiguous().long()
+    # embedding_bag sums in another order: two sums of the same 64 terms
+    # differ by at most 2 * 63 * 2^-24 * sum|x|
+    lib = tF.embedding_bag(bags, th, mode="sum")
+    atol = 2 * REPS * 2.0**-24 * float(g.gather_sum_plain(th.abs(), ih).max())
+    torch.testing.assert_close(lib, g.gather_sum_plain(th, ih), rtol=0, atol=atol)
+    res["gather_sum"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: g.gather_sum(th, ih), 20),
+        plain_ms=time_ms(lambda: g.gather_sum_plain(th, ih), 10),
+        library_ms=time_ms(lambda: tF.embedding_bag(bags, th, mode="sum"), 20),
+    )
+    res["gather_sum"]["bound_ms"], res["gather_sum"]["bound_by"] = bound(
+        ih.numel() * 4 + TH * WH * 4 + distinct(ih) * WH * 4, REPS * TH * WH)
+
+    for name in ("row_gather", "gather_sum"):
+        r = res[name]
+        print(f"{name}: max_abs_err {r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']})")
+    rows_per_s = m / (res["row_gather"]["ms"] * 1e-3)
+    print(f"row_gather at P5-C: {rows_per_s:.4e} rows/s; gather phase {time.time() - t0:.1f} s")
+    return res, launches
 
 
 def run_flagship(dev, card: str):
@@ -234,7 +347,8 @@ def main() -> int:
         fail("no CUDA device is available")
     sys.path.insert(0, ROOT)
     try:
-        from lsenerf_tpu_torch.ops import combine
+        from lsenerf_tpu_torch.ops import combine, cuda_build
+        from lsenerf_tpu_torch.ops import gather
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}: {e}")
 
@@ -246,14 +360,17 @@ def main() -> int:
     dev = torch.device("cuda")
 
     t0 = time.time()
-    path, log = combine.build()
-    print(f"kernels built in {time.time() - t0:.1f} s: {os.path.relpath(path, ROOT)}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    built = cuda_build.build_all()
+    print(f"kernels built in {time.time() - t0:.1f} s ({len(built)} sources, in parallel)")
+    for path, log in built.values():
+        print(f"  {os.path.relpath(path, ROOT)}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("    " + line.strip())
 
     res = check_kernels(dev)
     check_small_step(dev)
+    g_res, g_launches = check_gathers(dev)
     launches = run_flagship(dev, card)
 
     kernels = []
@@ -262,6 +379,25 @@ def main() -> int:
             name=k.name, route="cuda", source="lsenerf_tpu_torch/csrc/blocked_encode.cu",
             replaces=f"lsenerf_tpu/ops/pallas_combine.py:{src_line}",
             launches=launches[k.name], **res[k.name],
+        ))
+    # each gather kernel replaces several probe kernels; `replaces` names the
+    # first of them and `also_replaces` the rest
+    for k, (first, *rest) in (
+        (gather.G1, ["scripts/pallas_probe4.py:33", "scripts/pallas_probe.py:44",
+                     "scripts/pallas_probe.py:58", "scripts/pallas_probe.py:73",
+                     "scripts/pallas_probe.py:91", "scripts/pallas_probe.py:108",
+                     "scripts/pallas_probe2.py:73", "scripts/pallas_probe3.py:92",
+                     "scripts/pallas_probe3.py:116"]),
+        (gather.G2, ["scripts/pallas_probe2.py:40", "scripts/pallas_probe2.py:59",
+                     "scripts/pallas_probe2.py:90", "scripts/pallas_probe3.py:41",
+                     "scripts/pallas_probe3.py:57", "scripts/pallas_probe3.py:74",
+                     "scripts/pallas_probe3.py:136"]),
+        (gather.G3, ["scripts/pallas_probe2.py:108"]),
+    ):
+        kernels.append(dict(
+            name=k.name, route="cuda", source="lsenerf_tpu_torch/csrc/gather.cu",
+            replaces=first, also_replaces=rest, launches=g_launches[k.name],
+            **g_res[k.name],
         ))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

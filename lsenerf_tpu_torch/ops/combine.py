@@ -10,26 +10,22 @@ dtable (rows, 64)). It replaces the Pallas position-gradient kernel P2
 (pallas_combine.py:76) and the sorted, windowed table gradient
 (hash_encoding.py:527-639) with exact atomics.
 
-The sources are csrc/blocked_encode.cu. They are compiled with nvcc at
-first use into `_build/` beside this package, keyed by a hash of the source
-and the flags, and loaded with ctypes. A wrapper runs the plain PyTorch
-version for CPU tensors only; for CUDA tensors it launches its kernel or
-raises. F = 2 features per level and a row width of 64 are fixed, as in the
-flagship configuration.
+The sources are csrc/blocked_encode.cu, built and loaded by cuda_build. A
+wrapper runs the plain PyTorch version for CPU tensors only; for CUDA
+tensors it launches its kernel or raises. F = 2 features per level and a
+row width of 64 are fixed, as in the flagship configuration.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
-from pathlib import Path
 
 import torch
+
+from . import cuda_build
+from .cuda_build import BUILD_DIR, NVCC_FLAGS, Kernel  # noqa: F401 (kept public)
 
 F = 2
 ROW_WIDTH = 64
@@ -37,21 +33,7 @@ _USED = 27 * F
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "blocked_encode.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
-
-
-class Kernel:
-    """A kernel's name and its launch count (one per launch, nowhere else)."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
+SOURCE = cuda_build.CSRC / "blocked_encode.cu"
 
 
 K1 = Kernel("blocked_encode_fwd")
@@ -170,40 +152,19 @@ def encode_bwd_plain(positions, table, gfeat, levels: Levels):
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return nvcc
+def library_path():
+    return cuda_build.library_path(SOURCE)
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libblocked_encode_{digest.hexdigest()[:16]}.so"
-
-
-def build() -> tuple[Path, str]:
-    """Compile the kernels unless a library of these sources exists.
-    Returns the library path and the compiler's report (ptxas registers,
-    shared memory and spills; empty when nothing was built)."""
-    out = library_path()
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr
+def build():
+    """Compile the kernels unless a library of these sources exists; returns
+    the library path and the compiler's report (see cuda_build.build_all)."""
+    return cuda_build.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+def _library():
+    lib = cuda_build.load(SOURCE)
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.blocked_encode_fwd.argtypes = [p, p, i, p, p, p, i, i, u, p]
     lib.blocked_encode_fwd.restype = i
@@ -212,33 +173,17 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name, t, dtypes, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_common(positions, table, levels):
     dev = positions.device
     if dev.type != "cuda":
         raise ValueError(f"the kernels take CUDA tensors, got {dev}")
     n = positions.shape[0]
-    _check("positions", positions, (torch.float32,), (n, 3), dev)
-    _check("table", table, (torch.bfloat16, torch.float32),
-           (levels.total_rows, ROW_WIDTH), dev)
-    _check("levels.scale", levels.scale, (torch.float32,), (levels.num,), dev)
-    _check("levels.params", levels.params, (torch.int32,), (levels.num, 4), dev)
+    cuda_build.check("positions", positions, (torch.float32,), (n, 3), dev)
+    cuda_build.check("table", table, (torch.bfloat16, torch.float32),
+                     (levels.total_rows, ROW_WIDTH), dev)
+    cuda_build.check("levels.scale", levels.scale, (torch.float32,), (levels.num,), dev)
+    cuda_build.check("levels.params", levels.params, (torch.int32,), (levels.num, 4), dev)
     return n
-
-
-def _raise_on(err: int, kernel: Kernel):
-    if err != 0:
-        raise RuntimeError(f"{kernel.name} launch failed: cudaError {err}")
 
 
 def encode_fwd(positions, table, levels: Levels) -> torch.Tensor:
@@ -250,14 +195,13 @@ def encode_fwd(positions, table, levels: Levels) -> torch.Tensor:
                       device=positions.device)
     if n == 0:
         return out
-    stream = torch.cuda.current_stream(positions.device).cuda_stream
+    stream = cuda_build.stream(positions.device)
     err = _library().blocked_encode_fwd(
         positions.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16),
         levels.scale.data_ptr(), levels.params.data_ptr(), out.data_ptr(),
         n, levels.num, levels.hash_mask, stream,
     )
-    _raise_on(err, K1)
-    K1.launches += 1
+    K1.count(err)
     return out
 
 
@@ -266,19 +210,18 @@ def encode_bwd(positions, table, gfeat, levels: Levels):
     if positions.device.type == "cpu":
         return encode_bwd_plain(positions, table, gfeat, levels)
     n = _check_common(positions, table, levels)
-    _check("gfeat", gfeat, (torch.float32,), (n, levels.num * F), positions.device)
+    cuda_build.check("gfeat", gfeat, (torch.float32,), (n, levels.num * F), positions.device)
     dpos = torch.empty((n, 3), dtype=torch.float32, device=positions.device)
     dtable = torch.zeros((levels.total_rows, ROW_WIDTH), dtype=torch.float32,
                          device=positions.device)
     if n == 0:
         return dpos, dtable
-    stream = torch.cuda.current_stream(positions.device).cuda_stream
+    stream = cuda_build.stream(positions.device)
     err = _library().blocked_encode_bwd(
         positions.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16),
         levels.scale.data_ptr(), levels.params.data_ptr(), gfeat.data_ptr(),
         dpos.data_ptr(), dtable.data_ptr(), n, levels.num, levels.hash_mask,
         stream,
     )
-    _raise_on(err, K2)
-    K2.launches += 1
+    K2.count(err)
     return dpos, dtable

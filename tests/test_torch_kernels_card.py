@@ -1,5 +1,7 @@
-"""K1 and K2 (lsenerf_tpu_torch/ops/combine.py) against their plain PyTorch
-versions on the card, in an f32-table and a bf16-table arm.
+"""The port's kernels against their plain PyTorch versions on the card: K1
+and K2 (lsenerf_tpu_torch/ops/combine.py) in an f32-table and a bf16-table
+arm, and the gathers G1-G3 (lsenerf_tpu_torch/ops/gather.py), held to
+exact equality.
 
 This file imports neither JAX nor the JAX package, so a machine with the
 card and without JAX runs it on its own, skipping the JAX conftest:
@@ -12,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from lsenerf_tpu_torch.ops import combine
+from lsenerf_tpu_torch.ops import combine, gather
 from lsenerf_tpu_torch.ops import hash_encoding as the
 
 # 5 levels, res 4..64: levels 0-2 dense, 3-4 hashed (2^10 rows)
@@ -47,3 +49,58 @@ def test_kernels_match_plain_on_card():
             dtab, wdtab, rtol=0, atol=1e-5 * float(wdtab.abs().max())
         )
         assert not dtab[:, 54:].any()
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _same(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want.cpu()), "not bit-identical"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [64, 128])
+def test_row_gather_matches_plain_on_card(dtype, width):
+    """G1; every fifth index lies outside the table and gives a zero row."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    T, m = 1000, 4099
+    table = torch.from_numpy(rng.standard_normal((T, width)).astype(np.float32)).to(dev, dtype)
+    idx_np = rng.integers(0, T, m).astype(np.int32)
+    idx_np[::5] = rng.choice([-1, T, T + 7, -(2**31)], size=idx_np[::5].shape)
+    idx = torch.from_numpy(idx_np).to(dev)
+    got = gather.row_gather(table, idx)
+    _same(got, gather.row_gather_plain(table, idx))
+    assert (got[::5] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_take_along_matches_plain_on_card(dtype, axis):
+    """G2 on a ragged shape; some indices lie outside the axis."""
+    dev = _card()
+    rng = np.random.default_rng(6)
+    R, C = 517, 131
+    t = torch.from_numpy(rng.standard_normal((R, C)).astype(np.float32)).to(dev, dtype)
+    n = (R, C)[axis]
+    idx = torch.from_numpy(rng.integers(-3, n + 3, (R, C)).astype(np.int32)).to(dev)
+    _same(gather.take_along(t, idx, axis), gather.take_along_plain(t, idx, axis))
+
+
+@pytest.mark.cuda
+def test_gather_sum_matches_plain_on_card():
+    """G3 sums in the plain version's order, so the two are bit-identical."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    T, W, R, n = 3000, 128, 64, 2053
+    table = torch.from_numpy(rng.standard_normal((T, W)).astype(np.float32)).to(dev)
+    idx_np = rng.integers(0, T, (R, n)).astype(np.int32)
+    idx_np[3, ::7] = T  # zero rows, added in order all the same
+    idx = torch.from_numpy(idx_np).to(dev)
+    _same(gather.gather_sum(table, idx), gather.gather_sum_plain(table, idx))
