@@ -17,19 +17,41 @@
 //
 // What bounds them on the card: bytes. Per sample-level K1 reads one
 // 112-byte row prefix and writes 8 bytes, for ~200 f32 operations; K2 reads
-// the same row and adds 8 nonzero 2-wide updates into an f32 gradient table.
+// the 16 values of the same row that carry weight and adds 8 nonzero 2-wide
+// updates into an f32 gradient table, which its wrapper first zero-fills.
 // The bf16 table (27 MB at the flagship size) fits in the 50 MB L2, so rows
-// mostly come from L2, not HBM.
+// mostly come from L2, not HBM; what holds K2 back in practice is L2's rate
+// of atomic requests (below).
 //
 // Design:
 // - K1: one thread per (sample, level). Keys and fractions are computed in
 //   the kernel from the positions, so nothing but the output is written.
-// - K2: one thread per sample looping over the levels, so the position
-//   gradient is a plain register sum. It recomputes keys and fractions
-//   instead of reading rows saved by the forward. The table gradient is
-//   atomicAdd into f32: an exact sum with no per-window cap and no bf16
-//   rounding of the factors (the JAX backward has both). Adds of an exact
-//   zero weight (19 of the 27 vertices of a trilinear stencil) are skipped.
+// - K2: one lane per (sample, level), 899,072 at the flagship's shape. A
+//   warp holds 32 neighbouring samples of one level (the samples of a ray
+//   are neighbours, so a warp's samples share coarse rows), and a block
+//   holds the same 32 samples at every level, one warp per level (up to
+//   kBwdWarps warps, each then taking every kBwdWarps-th level).
+//   - Only the 2x2x2 cube of vertices in slots {o, o+1} per dimension has
+//     weight (19 of the 27 vertices of a stencil weigh exactly zero, and are
+//     skipped). For each of its 4 (x, y) pairs the two z-neighbours' 2
+//     features are 4 contiguous values of the row, read as two 32-bit
+//     (bf16) or 64-bit (f32) loads: 16 values, not the row's 54.
+//   - What bounds K2 is the rate at which L2 takes atomic requests: about
+//     79 G requests/s for scattered atomics on an H100, whatever their width
+//     (scalar, float2 or float4), while the lanes of one warp instruction on
+//     one 32-byte sector make one request. So lanes of a warp with the same
+//     row and parities (the same 16 targets) are found with
+//     __match_any_sync and summed into one of them by shuffles in a fixed
+//     tree order; then the warp adds its distinct entries two at a time, 16
+//     lanes on the 16 values of each, so that each entry costs ~4-5 sector
+//     requests, where one float4 or two float2 atomics per (x, y) pair
+//     would cost 6, and 16 scalar atomics per sample-level 16.
+//   - The position gradient's level terms go through shared memory and are
+//     summed over the levels in level order, so dpos is the same from run
+//     to run (the table gradient's atomics add in no fixed order).
+//   - Keys and fractions are recomputed, not read from rows saved by the
+//     forward. The table gradient is an exact f32 sum, with no per-window
+//     cap and no bf16 rounding of the factors (the JAX backward has both).
 // - s = p * scale uses __fmul_rn and w = s - b uses __fsub_rn: a fused
 //   multiply-add would change w, and so the keys at cell boundaries.
 // - The hash multiplies in uint32_t and wraps exactly as the JAX uint32 code.
@@ -45,27 +67,29 @@ constexpr uint32_t kPrime1 = 2654435761u;
 constexpr uint32_t kPrime2 = 805459861u;
 constexpr int kUsed = 54;  // 27 vertices x 2 features
 constexpr int kThreads = 128;
+constexpr int kBwdWarps = 16;  // K2: warps (levels) per block
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kEntry = 18;  // K2's entry: 16 gradient values, row, parities
+
+size_t bwd_smem_bytes(int L, int warps) {
+  return (size_t)(96 + 64 * L + 96 * L + warps * 32 * kEntry) * sizeof(float);
+}
 
 // lp = (res, bdim, dense flag, global row offset) of one level. Fills the
-// three slot weights per dimension (u[d][0..2]) and the parities, returns
-// the global row key.
-__device__ __forceinline__ int level_setup(const float* __restrict__ pos,
-                                           long i, float scale, int4 lp,
-                                           uint32_t hash_mask, float u[3][3],
-                                           int o[3]) {
+// fraction w and the parity o per dimension, returns the global row key.
+__device__ __forceinline__ int level_key(const float* __restrict__ pos,
+                                         long i, float scale, int4 lp,
+                                         uint32_t hash_mask, float w[3],
+                                         int o[3]) {
   int k[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     float s = __fmul_rn(pos[i * 3 + d], scale);
     int b = (int)floorf(s);
     b = min(max(b, 0), lp.x - 1);
-    float w = __fsub_rn(s, (float)b);
-    float om = 1.0f - w;
+    w[d] = __fsub_rn(s, (float)b);
     k[d] = b >> 1;
     o[d] = b & 1;
-    u[d][0] = o[d] ? 0.0f : om;
-    u[d][1] = o[d] ? om : w;
-    u[d][2] = o[d] ? w : 0.0f;
   }
   int key;
   if (lp.z) {
@@ -76,6 +100,24 @@ __device__ __forceinline__ int level_setup(const float* __restrict__ pos,
     key = (int)(h & hash_mask);
   }
   return key + lp.w;
+}
+
+// level_key, with the three slot weights per dimension (u[d][0..2]): slot o
+// weighs 1 - w, slot o + 1 weighs w, the third slot 0.
+__device__ __forceinline__ int level_setup(const float* __restrict__ pos,
+                                           long i, float scale, int4 lp,
+                                           uint32_t hash_mask, float u[3][3],
+                                           int o[3]) {
+  float w[3];
+  int key = level_key(pos, i, scale, lp, hash_mask, w, o);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    float om = 1.0f - w[d];
+    u[d][0] = o[d] ? 0.0f : om;
+    u[d][1] = o[d] ? om : w[d];
+    u[d][2] = o[d] ? w[d] : 0.0f;
+  }
+  return key;
 }
 
 // The 54 used values of one row, as f32.
@@ -145,8 +187,51 @@ __global__ void __launch_bounds__(kThreads)
   reinterpret_cast<float2*>(out)[t] = make_float2(acc0, acc1);
 }
 
+// Columns 2v .. 2v+3 of row `key` as f32: vertices v and v + 1 (z
+// neighbours), 2 features each.
 template <bool kBF16>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float4 load_pair(const void* __restrict__ table,
+                                            int key, int v) {
+  if (kBF16) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(table) + (long)key * 32 + v;
+    uint32_t a = __ldg(p), b = __ldg(p + 1);
+    return make_float4(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
+                       __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
+  }
+  const float2* p = reinterpret_cast<const float2*>(table) + (long)key * 32 + v;
+  float2 a = __ldg(p), b = __ldg(p + 1);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Sums x over the lanes in `peers` (this lane's group, itself included)
+// into the lowest of them, as a tree over the peers' ranks in a fixed order
+// (after Westphal's warp-aggregated atomics). Every lane of the warp calls
+// it; the other lanes' x are left partly summed.
+template <int kN>
+__device__ __forceinline__ void sum_peers(unsigned peers, float (&x)[kN]) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & ~((2u << lane) - 1u);  // peers above this lane
+  while (__any_sync(kAll, above != 0u)) {
+    const int next = __ffs(above);  // the next peer up, 1-based; 0 if none
+    const int src = next ? next - 1 : lane;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      float y = __shfl_sync(kAll, x[k], src);
+      if (next) x[k] += y;
+    }
+    // odd ranks have just been added into the peer below: drop them
+    above &= ~__ballot_sync(kAll, rank & 1);
+    rank >>= 1;
+  }
+}
+
+// Block b: samples 32b .. 32b+31, lane = sample; warp w takes levels w,
+// w + warps, ... Dynamic shared memory (bwd_smem_bytes): the block's
+// positions (32 x 3) and cotangent (L x 32 x 2), each read once, coalesced;
+// the dpos terms (L x 32 x 3); each warp's table-gradient entries.
+template <bool kBF16>
+__global__ void __launch_bounds__(kBwdWarps * 32)
     encode_bwd_kernel(const float* __restrict__ pos,
                       const void* __restrict__ table,
                       const float* __restrict__ scale,
@@ -154,47 +239,104 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ gfeat,
                       float* __restrict__ dpos, float* __restrict__ dtable,
                       int n, int L, uint32_t hash_mask) {
-  long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float dp[3] = {0.0f, 0.0f, 0.0f};
-  for (int l = 0; l < L; ++l) {
-    float sc = __ldg(scale + l);
-    float u[3][3];
-    int o[3];
-    int key = level_setup(pos, i, sc, __ldg(lvl + l), hash_mask, u, o);
-    float2 g = __ldg(reinterpret_cast<const float2*>(gfeat) + i * L + l);
-    float r[kUsed];
-    load_row<kBF16>(table, key, r);
-    float* drow = dtable + (long)key * 64;
-    float du[3][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  extern __shared__ float smem[];
+  float* pos_s = smem;                // (32, 3)
+  float2* g_s = reinterpret_cast<float2*>(smem + 96);  // (L, 32)
+  float* part = smem + 96 + 64 * L;   // (L, 32, 3): each level's dpos term
+  float* scatter = part + 96 * L;     // per warp: 32 entries of kEntry
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const long i0 = (long)blockIdx.x * 32;
+  const int live_n = (int)min((long)32, (long)n - i0);
+  for (int e = threadIdx.x; e < live_n * 3; e += blockDim.x) pos_s[e] = __ldg(pos + i0 * 3 + e);
+  for (int e = threadIdx.x; e < live_n * L; e += blockDim.x)  // transposed
+    g_s[(e % L) * 32 + e / L] = __ldg(reinterpret_cast<const float2*>(gfeat) + i0 * L + e);
+  __syncthreads();
+  const bool live = lane < live_n;
+  for (int l = threadIdx.x >> 5; l < L; l += warps) {
+    const float sc = __ldg(scale + l);
+    float w[3] = {0.0f, 0.0f, 0.0f};
+    int o[3] = {0, 0, 0};
+    int key = 0;
+    float2 g = make_float2(0.0f, 0.0f);
+    if (live) {
+      key = level_key(pos_s, lane, sc, __ldg(lvl + l), hash_mask, w, o);
+      g = g_s[l * 32 + lane];
+    }
+    // the weights of slots o and o + 1 per dimension
+    const float ux[2] = {1.0f - w[0], w[0]};
+    const float uy[2] = {1.0f - w[1], w[1]};
+    const float uz[2] = {1.0f - w[2], w[2]};
+    float du[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+    float upd[16];  // per (x, y) pair: w0 g.x, w0 g.y, w1 g.x, w1 g.y
 #pragma unroll
-    for (int vx = 0; vx < 3; ++vx) {
+    for (int a = 0; a < 2; ++a) {
 #pragma unroll
-      for (int vy = 0; vy < 3; ++vy) {
+      for (int b = 0; b < 2; ++b) {
+        const int v = ((o[0] + a) * 3 + o[1] + b) * 3 + o[2];
+        const float4 r = live ? load_pair<kBF16>(table, key, v)
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const float gv[2] = {g.x * r.x + g.y * r.y, g.x * r.z + g.y * r.w};
 #pragma unroll
-        for (int vz = 0; vz < 3; ++vz) {
-          int v = (vx * 3 + vy) * 3 + vz;
-          float gv = g.x * r[2 * v] + g.y * r[2 * v + 1];
-          du[0][vx] += gv * u[1][vy] * u[2][vz];
-          du[1][vy] += gv * u[0][vx] * u[2][vz];
-          du[2][vz] += gv * u[0][vx] * u[1][vy];
-          float w = (u[0][vx] * u[1][vy]) * u[2][vz];
-          if (w != 0.0f) {
-            atomicAdd(drow + 2 * v, w * g.x);
-            atomicAdd(drow + 2 * v + 1, w * g.y);
-          }
+        for (int c = 0; c < 2; ++c) {
+          du[0][a] += gv[c] * uy[b] * uz[c];
+          du[1][b] += gv[c] * ux[a] * uz[c];
+          du[2][c] += gv[c] * ux[a] * uy[b];
         }
+        const float wxy = ux[a] * uy[b];
+        const float w0 = wxy * uz[0], w1 = wxy * uz[1];
+        const int q = (a * 2 + b) * 4;
+        upd[q] = w0 * g.x;
+        upd[q + 1] = w0 * g.y;
+        upd[q + 2] = w1 * g.x;
+        upd[q + 3] = w1 * g.y;
       }
     }
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      // d(slot weights)/dw over slots {o, o+1}: [-(1-o), 1-2o, o]
-      float dw = o[d] ? (du[d][2] - du[d][1]) : (du[d][1] - du[d][0]);
-      dp[d] += dw * sc;
-    }
-  }
+    for (int d = 0; d < 3; ++d)
+      part[(l * 32 + lane) * 3 + d] = (du[d][1] - du[d][0]) * sc;
+
+    // one lane per distinct (row, parities) of the warp holds the group's sum
+    const unsigned long long tag =
+        live ? ((unsigned long long)(unsigned)key << 3 | (o[0] << 2 | o[1] << 1 | o[2]))
+             : ~0ull;
+    const unsigned peers = __match_any_sync(kAll, tag);
+    sum_peers(peers, upd);
+
+    // The sums go out entry by entry: the holders write theirs (16 values,
+    // the row, the parities) to the warp's slice of shared memory, then
+    // each warp instruction adds two entries, 16 lanes on the 16 values of
+    // each, so that the values of one entry that share a 32-byte sector
+    // reach L2 as one request.
+    float* ent = scatter + (threadIdx.x >> 5) * (32 * kEntry);
+    const bool holder = live && lane == __ffs(peers) - 1;
+    const unsigned holders = __ballot_sync(kAll, holder);
+    if (holder) {
+      float* e = ent + __popc(holders & ((1u << lane) - 1u)) * kEntry;
 #pragma unroll
-  for (int d = 0; d < 3; ++d) dpos[i * 3 + d] = dp[d];
+      for (int q = 0; q < 16; ++q) e[q] = upd[q];
+      e[16] = __int_as_float(key);
+      e[17] = __int_as_float(o[0] << 2 | o[1] << 1 | o[2]);
+    }
+    __syncwarp();
+    const int q = lane & 15, pair = q >> 2;
+    for (int k = lane >> 4; k < __popc(holders); k += 2) {
+      const float* e = ent + k * kEntry;
+      const int oc = __float_as_int(e[17]);
+      const int v = (((oc >> 2) + (pair >> 1)) * 3 + ((oc >> 1) & 1) + (pair & 1)) * 3 + (oc & 1);
+      const float val = e[q];
+      if (val != 0.0f)
+        atomicAdd(dtable + (long)__float_as_int(e[16]) * 64 + 2 * v + (q & 3), val);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  // dpos: thread t < 96 sums sample t / 3, dimension t % 3 over the levels
+  if (threadIdx.x < live_n * 3) {
+    float acc = 0.0f;
+    for (int l = 0; l < L; ++l) acc += part[l * 96 + threadIdx.x];
+    dpos[i0 * 3 + threadIdx.x] = acc;
+  }
 }
 
 }  // namespace
@@ -228,14 +370,24 @@ int blocked_encode_bwd(const float* pos, const void* table, int table_bf16,
                        float* dpos, float* dtable, int n, int L,
                        unsigned int hash_mask, void* stream) {
   if (n == 0) return 0;
-  unsigned int blocks = (unsigned int)((n + kThreads - 1) / kThreads);
+  if (L < 1) return (int)cudaErrorInvalidValue;
+  const int warps = L < kBwdWarps ? L : kBwdWarps;
+  const size_t smem = bwd_smem_bytes(L, warps);
+  if (smem > 48 * 1024) {  // many levels: opt in to more shared memory
+    cudaError_t e = cudaFuncSetAttribute(
+        table_bf16 ? encode_bwd_kernel<true> : encode_bwd_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned int blocks = (unsigned int)((n + 31) / 32);
+  const unsigned int threads = 32 * warps;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int4* lv = reinterpret_cast<const int4*>(lvl);
   if (table_bf16)
-    encode_bwd_kernel<true><<<blocks, kThreads, 0, s>>>(
+    encode_bwd_kernel<true><<<blocks, threads, smem, s>>>(
         pos, table, scale, lv, gfeat, dpos, dtable, n, L, hash_mask);
   else
-    encode_bwd_kernel<false><<<blocks, kThreads, 0, s>>>(
+    encode_bwd_kernel<false><<<blocks, threads, smem, s>>>(
         pos, table, scale, lv, gfeat, dpos, dtable, n, L, hash_mask);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,7 @@ from lsenerf_tpu_torch.data.synthetic import make_synthetic_scene
 from lsenerf_tpu_torch.engine.trainer import CameraOptConfig, Trainer, TrainerConfig
 from lsenerf_tpu_torch.models import field as field_lib
 from lsenerf_tpu_torch.models import lsenerf as model_lib
+from lsenerf_tpu_torch.ops import combine
 from lsenerf_tpu_torch.ops import hash_encoding as he
 
 
@@ -44,3 +45,26 @@ def flagship_trainer(device=None, dm_seed: int = 0) -> Trainer:
     trainer = Trainer(cfg, flagship_model_config(), dm, device=device)
     trainer.setup()
     return trainer
+
+
+def step_encode_inputs(device=None):
+    """The arguments K2 (combine.encode_bwd) is given in one real flagship
+    train step: a fresh flagship trainer takes its step 0 (the occupancy
+    update, the march, the field and the backward) with K2's wrapper
+    watched. Returns (positions, table, cotangent, levels); the positions
+    come ray-major, 16 samples a ray, as the march gives them."""
+    seen, real = [], combine.encode_bwd
+
+    def watch(positions, table, gfeat, levels):
+        seen.append((positions.clone(), table.clone(), gfeat.clone(), levels))
+        return real(positions, table, gfeat, levels)
+
+    trainer = flagship_trainer(device=device)
+    combine.encode_bwd = watch
+    try:
+        trainer.step(trainer.dm.next_train(0))
+    finally:
+        combine.encode_bwd = real
+    if len(seen) != 1:
+        raise RuntimeError(f"one flagship step called K2 {len(seen)} times, not once")
+    return seen[0]

@@ -40,6 +40,7 @@ import torch
 from . import resolve_device
 from .ops import gather
 from .ops.cuda_build import Kernel
+from .timing import time_ms
 
 P5_FLAGSHIP_ROWS = 3512 * 48 * 16  # 2,697,216
 
@@ -167,22 +168,6 @@ def cases(device, reduced=False):
     yield from _probe2(device)
     yield from _probe3(device)
     yield from _probe4(device, reduced)
-
-
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over reps, each between CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
 
 
 def run(device, reduced=False, reps=10) -> list[dict]:

@@ -195,7 +195,7 @@ def encode_fwd(positions, table, levels: Levels) -> torch.Tensor:
                       device=positions.device)
     if n == 0:
         return out
-    stream = cuda_build.stream(positions.device)
+    stream = cuda_build.stream(positions)
     err = _library().blocked_encode_fwd(
         positions.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16),
         levels.scale.data_ptr(), levels.params.data_ptr(), out.data_ptr(),
@@ -216,7 +216,7 @@ def encode_bwd(positions, table, gfeat, levels: Levels):
                          device=positions.device)
     if n == 0:
         return dpos, dtable
-    stream = cuda_build.stream(positions.device)
+    stream = cuda_build.stream(positions)
     err = _library().blocked_encode_bwd(
         positions.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16),
         levels.scale.data_ptr(), levels.params.data_ptr(), gfeat.data_ptr(),

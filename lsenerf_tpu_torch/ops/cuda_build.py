@@ -107,5 +107,8 @@ def check(name, t, dtypes, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as the integer ctypes passes.
+    Read on every call, never cached, so a launch goes to whatever stream
+    the caller has made current (a side stream, a CUDA graph's capture)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -126,27 +126,42 @@ def row_gather(table, idx):
         return out
     G1.count(_library().row_gather(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], T,
-        row_bytes, cuda_build.stream(dev),
+        row_bytes, cuda_build.stream(table),
     ))
     return out
 
 
+def _refuse_take_along(t, idx):
+    """Raise ValueError naming the first check (t, idx) fails."""
+    dev = _card(t, 2, "t")
+    cuda_build.check("t", t, _TYPES, tuple(t.shape), dev)
+    cuda_build.check("idx", idx, (torch.int32,), tuple(t.shape), dev)
+    raise ValueError("t and idx do not fit the take_along kernel")
+
+
 def take_along(t, idx, axis):
-    """G2: (R, C) f32/bf16 t, (R, C) int32 idx, axis 0 or 1 -> (R, C)."""
+    """G2: (R, C) f32/bf16 t, (R, C) int32 idx, axis 0 or 1 -> (R, C).
+
+    The kernel moves at most a few MB, so the wrapper's host time is most
+    of a call's time: on the card the checks are one expression over cheap
+    tensor properties, the C function is bound once (ctypes keeps it on the
+    library), and the stream is read with one C call."""
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
     if t.device.type == "cpu":
         return take_along_plain(t, idx, axis)
-    dev = _card(t, 2, "t")
-    R, C = t.shape
-    cuda_build.check("t", t, _TYPES, (R, C), dev)
-    cuda_build.check("idx", idx, (torch.int32,), (R, C), dev)
+    if not (t.is_cuda and t.dtype in _TYPES and idx.dtype == torch.int32
+            and idx.shape == t.shape and t.dim() == 2
+            and idx.get_device() == t.get_device()
+            and t.is_contiguous() and idx.is_contiguous()):
+        _refuse_take_along(t, idx)
     out = torch.empty_like(t)
     if t.numel() == 0:
         return out
+    R, C = t.shape
     G2.count(_library().take_along(
         t.data_ptr(), idx.data_ptr(), out.data_ptr(), R, C, t.element_size(),
-        axis, cuda_build.stream(dev),
+        axis, cuda_build.stream(t),
     ))
     return out
 
@@ -168,6 +183,6 @@ def gather_sum(table, idx):
         return out
     G3.count(_library().gather_sum(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, n, T, W,
-        cuda_build.stream(dev),
+        cuda_build.stream(table),
     ))
     return out

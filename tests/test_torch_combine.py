@@ -26,9 +26,20 @@ T_CFG = the.HashEncodingConfig(
 )
 
 
-def _inputs(seed, n=257):
+def _inputs(seed, n=257, rays=False):
+    """Positions and a table. rays: 16 samples a ray along short segments,
+    ray-major as the march gives them, so that the samples of a ray share
+    rows at the coarse levels; else uniform. Both start with the same four
+    corner and boundary points."""
     rng = np.random.default_rng(seed)
-    pos = rng.random((n, 3)).astype(np.float32)
+    if rays:
+        origin = 0.15 + 0.7 * rng.random((-(-n // 16), 1, 3))
+        d = rng.standard_normal(origin.shape)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        pos = (origin + 0.004 * np.arange(16)[None, :, None] * d).reshape(-1, 3)[:n]
+        pos = pos.astype(np.float32)
+    else:
+        pos = rng.random((n, 3)).astype(np.float32)
     pos[:4] = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.25, 0.75], [1e-7, 0.999999, 0.5]]
     table = rng.standard_normal((T_CFG.total_rows, 64)).astype(np.float32)
     return pos, table
@@ -74,10 +85,16 @@ def test_fwd_plain_matches_pallas_combine(seed):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_bwd_plain_matches_pallas_dw_and_scatter(seed):
-    pos, table = _inputs(seed)
+@pytest.mark.parametrize("seed, rays", [(0, False), (1, False), (3, True)],
+                         ids=["0", "1", "rays"])
+def test_bwd_plain_matches_pallas_dw_and_scatter(seed, rays):
+    pos, table = _inputs(seed, rays=rays)
     n, L = pos.shape[0], T_CFG.num_levels
+    if rays:  # the coarse levels' rows are shared by many samples
+        keys = combine.keys_fracs(torch.from_numpy(pos), the.levels_for(T_CFG, "cpu"))[0]
+        assert len(np.unique(keys[0].numpy())) < n // 8
+    # the JAX table gradient below drops no update for these inputs
+    assert int(jhe.blocked_overflow_count(jnp.asarray(pos), J_CFG)) == 0
     g = np.random.default_rng(seed + 10).standard_normal((n, L * 2)).astype(np.float32)
     keys, rows, e = _pallas_args(pos, table)
     gfm = g.reshape(n, L, 2).transpose(2, 1, 0).reshape(2, L * n)
@@ -118,6 +135,12 @@ def test_bwd_plain_matches_pallas_dw_and_scatter(seed):
             want_tab[k[li, i], :54] += np.outer(w27.reshape(27), g[i, 2 * li : 2 * li + 2]).reshape(54)
     np.testing.assert_allclose(dtable.numpy(), want_tab, rtol=1e-5, atol=1e-5)
     assert not dtable[:, 54:].any()
+    # and against the JAX package's own table gradient (exact one-hot sums on
+    # the dense levels, the sorted windowed accumulate on the hashed ones)
+    jax_tab = jax.grad(
+        lambda t: (jhe.hash_encode(t, jnp.asarray(pos), J_CFG) * g).sum()
+    )(jnp.asarray(table))
+    np.testing.assert_allclose(dtable.numpy(), np.asarray(jax_tab), rtol=1e-5, atol=1e-5)
 
 
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):

@@ -1,7 +1,9 @@
 """The port's kernels against their plain PyTorch versions on the card: K1
 and K2 (lsenerf_tpu_torch/ops/combine.py) in an f32-table and a bf16-table
-arm, and the gathers G1-G3 (lsenerf_tpu_torch/ops/gather.py), held to
-exact equality.
+arm, K2 also where many samples of a warp share rows (one cell, rays) and
+at the flagship's 16 levels, and the gathers G1-G3
+(lsenerf_tpu_torch/ops/gather.py), held to exact equality, G2 at the shapes
+that pick each of its paths.
 
 This file imports neither JAX nor the JAX package, so a machine with the
 card and without JAX runs it on its own, skipping the JAX conftest:
@@ -57,6 +59,56 @@ def _card():
     return torch.device("cuda")
 
 
+def _positions(kind, n, rng):
+    """Unit positions (n, 3) f32: uniform; all inside one cell of the two
+    coarsest levels of T_CFG; or rays of 16 samples along short segments,
+    ray-major as the march gives them."""
+    if kind == "uniform":
+        return rng.random((n, 3)).astype(np.float32)
+    if kind == "one_cell":
+        return (0.30 + 0.05 * rng.random((n, 3))).astype(np.float32)
+    rays = -(-n // 16)
+    origin = 0.15 + 0.7 * rng.random((rays, 1, 3))
+    d = rng.standard_normal((rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = 0.004 * np.arange(16)[None, :, None]
+    return (origin + t * d).reshape(-1, 3)[:n].astype(np.float32)
+
+
+# (positions, config, n): contention in one cell and along rays, at L = 5
+# and at the flagship's 16 levels and widths, n not a multiple of 32
+BWD_CASES = {
+    "uniform-L5": ("uniform", T_CFG, 4099),
+    "one_cell-L5": ("one_cell", T_CFG, 4099),
+    "rays-L5": ("rays", T_CFG, 4112),
+    "rays-L16": ("rays", the.HashEncodingConfig(), 56_192 - 7),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_encode_bwd_matches_plain_on_card(case, dtype):
+    """K2 against its plain version where the warp merge does most: many
+    samples of one warp in the same row. dpos is the same bits from call to
+    call; the pad columns 54-63 of the table gradient stay zero."""
+    dev = _card()
+    kind, cfg, n = BWD_CASES[case]
+    rng = np.random.default_rng(8)
+    L = cfg.num_levels
+    p = torch.from_numpy(_positions(kind, n, rng)).to(dev)
+    tab = torch.from_numpy(rng.standard_normal((cfg.total_rows, 64)).astype(np.float32)).to(dev, dtype)
+    gg = torch.from_numpy(rng.standard_normal((n, L * 2)).astype(np.float32)).to(dev)
+    lv = the.levels_for(cfg, "cuda")
+    dpos, dtab = combine.encode_bwd(p, tab, gg, lv)
+    wdpos, wdtab = combine.encode_bwd_plain(p, tab, gg, lv)
+    torch.testing.assert_close(dpos, wdpos, rtol=1e-4, atol=1e-6 * float(wdpos.abs().max()))
+    torch.testing.assert_close(dtab, wdtab, rtol=0, atol=1e-5 * float(wdtab.abs().max()))
+    assert not dtab[:, 54:].any()
+    again, _ = combine.encode_bwd(p, tab, gg, lv)
+    assert torch.equal(dpos, again), "dpos differs from call to call"
+
+
 def _same(got, want):
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got.cpu(), want.cpu()), "not bit-identical"
@@ -90,6 +142,54 @@ def test_take_along_matches_plain_on_card(dtype, axis):
     t = torch.from_numpy(rng.standard_normal((R, C)).astype(np.float32)).to(dev, dtype)
     n = (R, C)[axis]
     idx = torch.from_numpy(rng.integers(-3, n + 3, (R, C)).astype(np.int32)).to(dev)
+    _same(gather.take_along(t, idx, axis), gather.take_along_plain(t, idx, axis))
+
+
+# (R, C, dtype, axis): the probes' 8 x 128 and E2/M3 shapes; bf16 with an
+# odd width; an axis-1 row wider than one block's tile (C > 1024, split over
+# blocks) and than a block's shared memory; more row tiles than the grid's
+# height
+TAKE_CASES = {
+    "8x128-axis0": (8, 128, torch.float32, 0),
+    "8x128-axis1": (8, 128, torch.float32, 1),
+    "E2-2048x128-axis0": (2048, 128, torch.float32, 0),
+    "M3-1024x128-axis1": (1024, 128, torch.float32, 1),
+    "bf16-odd-33x77-axis0": (33, 77, torch.bfloat16, 0),
+    "bf16-odd-33x77-axis1": (33, 77, torch.bfloat16, 1),
+    "wide-3x20000-axis1": (3, 20_000, torch.float32, 1),
+    "tall-70000x1024-axis1": (70_000, 1024, torch.float32, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TAKE_CASES))
+def test_take_along_shapes_on_card(case):
+    """G2 at the shapes that pick its paths; indices out of range included."""
+    dev = _card()
+    R, C, dtype, axis = TAKE_CASES[case]
+    rng = np.random.default_rng(9)
+    t = torch.from_numpy(rng.standard_normal((R, C)).astype(np.float32)).to(dev, dtype)
+    n = (R, C)[axis]
+    idx = torch.from_numpy(rng.integers(-3, n + 3, (R, C)).astype(np.int32)).to(dev)
+    if case.startswith("E2"):  # the row index broadcast over the columns
+        idx = idx[:, :1].expand(R, C).contiguous()
+    got = gather.take_along(t, idx, axis)
+    _same(got, gather.take_along_plain(t, idx, axis))
+    bad = (idx < 0) | (idx >= n)
+    assert bad.any() and not got[bad].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_take_along_unaligned_on_card(axis):
+    """G2 on tensors 4 bytes off a 16-byte boundary: the element path."""
+    dev = _card()
+    rng = np.random.default_rng(10)
+    R, C = 64, 128
+    tbuf = torch.from_numpy(rng.standard_normal(R * C + 1).astype(np.float32)).to(dev)
+    ibuf = torch.from_numpy(rng.integers(0, (R, C)[axis], R * C + 1).astype(np.int32)).to(dev)
+    t, idx = tbuf[1:].view(R, C), ibuf[1:].view(R, C)
+    assert t.data_ptr() % 16 and idx.data_ptr() % 16
     _same(gather.take_along(t, idx, axis), gather.take_along_plain(t, idx, axis))
 
 
