@@ -93,36 +93,31 @@ def fmt(r):
 
 def atomics_per_launch(pos, lv):
     """K2's table-gradient atomics per launch on these inputs, worked out
-    from two designs. One thread per sample: 2 scalar atomics per vertex of
-    nonzero weight, each its own L2 request. Lanes per level (this one): one
-    entry per distinct (row, parities) among a warp's 32 samples of one
-    level, two entries per warp instruction, and per entry one L2 request
-    per 32-byte sector its 16 values fall in. Returns (scalar atomics,
-    entries, warp instructions, sector requests)."""
+    from the two designs, not measured. One thread per sample (the earlier K2):
+    2 scalar atomics per vertex of nonzero weight, each its own L2 request.
+    Lanes per level (this K2): each sample-level's 16 values go out as one
+    entry, two entries per warp instruction, and one L2 request per 32-byte
+    sector that an entry's values fall in. Returns (scalar atomics, warp
+    instructions, sector requests)."""
     import torch
 
     from lsenerf_tpu_torch.ops import combine
 
-    keys, o, w = combine.keys_fracs(pos, lv)
+    _, o, w = combine.keys_fracs(pos, lv)
     nonzero = torch.ones_like(w[0], dtype=torch.int64)
     for d in range(3):
         nonzero = nonzero * ((w[d] != 1.0).long() + (w[d] != 0.0).long())
     scalar = 2 * int(nonzero.sum())
-    L, n = keys.shape
-    dev = pos.device
-    warp = (torch.arange(L, device=dev)[:, None] * ((n + 31) // 32)
-            + torch.arange(n, device=dev)[None, :] // 32)
-    per_warp = 8 * lv.total_rows
-    entries = torch.unique(warp * per_warp + keys * 8 + o[0] * 4 + o[1] * 2 + o[2])
-    instructions = int(((torch.bincount(entries // per_warp) + 1) // 2).sum())
+    n = pos.shape[0]
+    instructions = lv.num * (16 * (n // 32) + (n % 32 + 1) // 2)
     # sectors of one entry's 16 columns, by its parities (rows are 256-byte
     # aligned): columns 2v .. 2v+3 for v = ((ox+a)*3 + oy+b)*3 + oz
     sectors = torch.tensor([
         len({(2 * (((oc >> 2) + a) * 3 + ((oc >> 1) & 1) + b) * 3 + 2 * (oc & 1) + e) // 8
              for a in (0, 1) for b in (0, 1) for e in range(4)})
-        for oc in range(8)], device=dev)
-    requests = int(sectors[entries % 8].sum())
-    return scalar, int(entries.numel()), instructions, requests
+        for oc in range(8)], device=pos.device)
+    requests = int(sectors[o[0] * 4 + o[1] * 2 + o[2]].sum())
+    return scalar, instructions, requests
 
 
 def encode_bounds(pos, lv):
@@ -176,7 +171,7 @@ def check_encode(name, pos, table, gfeat, lv):
     del out, want, dpos, dtab, wdpos, wdtab, dpos2
 
     (b1, b2, rows) = encode_bounds(pos, lv)
-    scalar, entries, instructions, requests = atomics_per_launch(pos, lv)
+    scalar, instructions, requests = atomics_per_launch(pos, lv)
     res = {}
     for k, err, fn, plain, (b_ms, b_by) in (
         (combine.K1, err1, lambda: combine.encode_fwd(pos, table, lv),
@@ -188,12 +183,9 @@ def check_encode(name, pos, table, gfeat, lv):
                                **timings(fn, plain))
         print(f"{k.name} at {name}: max_abs_err {err:.3e}, {fmt(r)}; {rows} distinct "
               f"rows at n={pos.shape[0]}, L={lv.num}")
-    print(f"K2 atomics per launch at {name}: one thread per sample, {scalar} scalar atomics "
-          f"({scalar} L2 requests); lanes per level, {entries} warp-merged entries in "
-          f"{instructions} warp instructions ({requests} L2 sector requests)")
-    res[combine.K2.name]["atomics"] = dict(
-        one_thread_per_sample=scalar, entries=entries, warp_instructions=instructions,
-        sector_requests=requests)
+    print(f"K2 table-gradient atomics per launch at {name}, worked out from the designs (not "
+          f"measured): one thread per sample, {scalar} scalar atomics ({scalar} L2 requests); "
+          f"lanes per level, {instructions} warp instructions ({requests} L2 sector requests)")
     return res
 
 

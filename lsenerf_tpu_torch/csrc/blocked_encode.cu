@@ -28,7 +28,7 @@
 //   the kernel from the positions, so nothing but the output is written.
 // - K2: one lane per (sample, level), 899,072 at the flagship's shape. A
 //   warp holds 32 neighbouring samples of one level (the samples of a ray
-//   are neighbours, so a warp's samples share coarse rows), and a block
+//   are neighbours, so a warp's loads share coarse rows), and a block
 //   holds the same 32 samples at every level, one warp per level (up to
 //   kBwdWarps warps, each then taking every kBwdWarps-th level).
 //   - Only the 2x2x2 cube of vertices in slots {o, o+1} per dimension has
@@ -36,16 +36,17 @@
 //     skipped). For each of its 4 (x, y) pairs the two z-neighbours' 2
 //     features are 4 contiguous values of the row, read as two 32-bit
 //     (bf16) or 64-bit (f32) loads: 16 values, not the row's 54.
-//   - What bounds K2 is the rate at which L2 takes atomic requests: about
-//     79 G requests/s for scattered atomics on an H100, whatever their width
-//     (scalar, float2 or float4), while the lanes of one warp instruction on
-//     one 32-byte sector make one request. So lanes of a warp with the same
-//     row and parities (the same 16 targets) are found with
-//     __match_any_sync and summed into one of them by shuffles in a fixed
-//     tree order; then the warp adds its distinct entries two at a time, 16
-//     lanes on the 16 values of each, so that each entry costs ~4-5 sector
-//     requests, where one float4 or two float2 atomics per (x, y) pair
-//     would cost 6, and 16 scalar atomics per sample-level 16.
+//   - What bounds K2 is the rate at which L2 takes atomic requests, about
+//     the same for scattered atomics whatever their width (scalar, float2
+//     or float4; lsenerf_tpu_torch/l2_atomic_probe.py measures it), while
+//     the lanes of one warp instruction on one 32-byte sector make one
+//     request. So each lane's 16 sums go through shared memory, and the
+//     warp adds two sample-levels' values per instruction, 16 lanes on the
+//     16 values of each: ~4-5 sector requests per sample-level, where one
+//     float4 or two float2 atomics per (x, y) pair would cost 6, and 16
+//     scalar atomics 16. (Merging the lanes of a warp that share a row
+//     first, with __match_any_sync, was measured and gained nothing: few
+//     lanes of a warp share a row, even at the coarse levels.)
 //   - The position gradient's level terms go through shared memory and are
 //     summed over the levels in level order, so dpos is the same from run
 //     to run (the table gradient's atomics add in no fixed order).
@@ -68,7 +69,6 @@ constexpr uint32_t kPrime2 = 805459861u;
 constexpr int kUsed = 54;  // 27 vertices x 2 features
 constexpr int kThreads = 128;
 constexpr int kBwdWarps = 16;  // K2: warps (levels) per block
-constexpr unsigned kAll = 0xffffffffu;
 constexpr int kEntry = 18;  // K2's entry: 16 gradient values, row, parities
 
 size_t bwd_smem_bytes(int L, int warps) {
@@ -203,29 +203,6 @@ __device__ __forceinline__ float4 load_pair(const void* __restrict__ table,
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// Sums x over the lanes in `peers` (this lane's group, itself included)
-// into the lowest of them, as a tree over the peers' ranks in a fixed order
-// (after Westphal's warp-aggregated atomics). Every lane of the warp calls
-// it; the other lanes' x are left partly summed.
-template <int kN>
-__device__ __forceinline__ void sum_peers(unsigned peers, float (&x)[kN]) {
-  const int lane = threadIdx.x & 31;
-  int rank = __popc(peers & ((1u << lane) - 1u));
-  unsigned above = peers & ~((2u << lane) - 1u);  // peers above this lane
-  while (__any_sync(kAll, above != 0u)) {
-    const int next = __ffs(above);  // the next peer up, 1-based; 0 if none
-    const int src = next ? next - 1 : lane;
-#pragma unroll
-    for (int k = 0; k < kN; ++k) {
-      float y = __shfl_sync(kAll, x[k], src);
-      if (next) x[k] += y;
-    }
-    // odd ranks have just been added into the peer below: drop them
-    above &= ~__ballot_sync(kAll, rank & 1);
-    rank >>= 1;
-  }
-}
-
 // Block b: samples 32b .. 32b+31, lane = sample; warp w takes levels w,
 // w + warps, ... Dynamic shared memory (bwd_smem_bytes): the block's
 // positions (32 x 3) and cotangent (L x 32 x 2), each read once, coalesced;
@@ -296,23 +273,14 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
     for (int d = 0; d < 3; ++d)
       part[(l * 32 + lane) * 3 + d] = (du[d][1] - du[d][0]) * sc;
 
-    // one lane per distinct (row, parities) of the warp holds the group's sum
-    const unsigned long long tag =
-        live ? ((unsigned long long)(unsigned)key << 3 | (o[0] << 2 | o[1] << 1 | o[2]))
-             : ~0ull;
-    const unsigned peers = __match_any_sync(kAll, tag);
-    sum_peers(peers, upd);
-
-    // The sums go out entry by entry: the holders write theirs (16 values,
-    // the row, the parities) to the warp's slice of shared memory, then
-    // each warp instruction adds two entries, 16 lanes on the 16 values of
-    // each, so that the values of one entry that share a 32-byte sector
-    // reach L2 as one request.
+    // The sums go out through the warp's slice of shared memory, one entry
+    // per lane (16 values, the row, the parities); then each warp
+    // instruction adds two entries, 16 lanes on the 16 values of each, so
+    // that the values of one entry that share a 32-byte sector reach L2 as
+    // one request.
     float* ent = scatter + (threadIdx.x >> 5) * (32 * kEntry);
-    const bool holder = live && lane == __ffs(peers) - 1;
-    const unsigned holders = __ballot_sync(kAll, holder);
-    if (holder) {
-      float* e = ent + __popc(holders & ((1u << lane) - 1u)) * kEntry;
+    if (live) {
+      float* e = ent + lane * kEntry;
 #pragma unroll
       for (int q = 0; q < 16; ++q) e[q] = upd[q];
       e[16] = __int_as_float(key);
@@ -320,7 +288,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
     }
     __syncwarp();
     const int q = lane & 15, pair = q >> 2;
-    for (int k = lane >> 4; k < __popc(holders); k += 2) {
+    for (int k = lane >> 4; k < live_n; k += 2) {
       const float* e = ent + k * kEntry;
       const int oc = __float_as_int(e[17]);
       const int v = (((oc >> 2) + (pair >> 1)) * 3 + ((oc >> 1) & 1) + (pair & 1)) * 3 + (oc & 1);
@@ -331,11 +299,12 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
     __syncwarp();
   }
   __syncthreads();
-  // dpos: thread t < 96 sums sample t / 3, dimension t % 3 over the levels
-  if (threadIdx.x < live_n * 3) {
+  // dpos: t sums sample t / 3, dimension t % 3 over the levels (a block of
+  // fewer than 96 threads takes several t each)
+  for (int t = threadIdx.x; t < live_n * 3; t += blockDim.x) {
     float acc = 0.0f;
-    for (int l = 0; l < L; ++l) acc += part[l * 96 + threadIdx.x];
-    dpos[i0 * 3 + threadIdx.x] = acc;
+    for (int l = 0; l < L; ++l) acc += part[l * 96 + t];
+    dpos[i0 * 3 + t] = acc;
   }
 }
 

@@ -76,12 +76,17 @@ def _positions(kind, n, rng):
 
 
 # (positions, config, n): contention in one cell and along rays, at L = 5
-# and at the flagship's 16 levels and widths, n not a multiple of 32
+# and at the flagship's 16 levels and widths, n not a multiple of 32; at
+# L = 2 and 3 a block has fewer threads (32 L) than a block's 96 dpos values
 BWD_CASES = {
     "uniform-L5": ("uniform", T_CFG, 4099),
     "one_cell-L5": ("one_cell", T_CFG, 4099),
     "rays-L5": ("rays", T_CFG, 4112),
     "rays-L16": ("rays", the.HashEncodingConfig(), 56_192 - 7),
+    "uniform-L2": ("uniform", the.HashEncodingConfig(
+        num_levels=2, base_res=4, max_res=16, blocked_rows_log2=10), 1000),
+    "rays-L3": ("rays", the.HashEncodingConfig(
+        num_levels=3, base_res=4, max_res=64, blocked_rows_log2=10), 1000),
 }
 
 
@@ -89,9 +94,9 @@ BWD_CASES = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", list(BWD_CASES))
 def test_encode_bwd_matches_plain_on_card(case, dtype):
-    """K2 against its plain version where the warp merge does most: many
-    samples of one warp in the same row. dpos is the same bits from call to
-    call; the pad columns 54-63 of the table gradient stay zero."""
+    """K2 against its plain version, also where many samples of one warp add
+    into the same row. dpos is the same bits from call to call; the pad
+    columns 54-63 of the table gradient stay zero."""
     dev = _card()
     kind, cfg, n = BWD_CASES[case]
     rng = np.random.default_rng(8)

@@ -100,3 +100,38 @@ def test_port_trains_on_cpu(setup):
     assert all(np.isfinite(losses))
     assert tt.step_count == 18
     assert np.mean(losses[-4:]) < np.mean(losses[:4])
+
+
+def test_step_encode_inputs_watches_one_step(monkeypatch):
+    """The capture of K2's arguments from one train step (used by
+    chip_smoke.py), on a tiny trainer in place of the flagship's: one call,
+    and the wrapper restored after it."""
+    from lsenerf_tpu_torch import flagship
+    from lsenerf_tpu_torch.data.datamanager import DataManagerConfig, MultiCamDataManager
+    from lsenerf_tpu_torch.data.synthetic import make_synthetic_scene
+    from lsenerf_tpu_torch.engine.trainer import Trainer, TrainerConfig
+    from lsenerf_tpu_torch.models import field as field_lib
+    from lsenerf_tpu_torch.models.lsenerf import ModelConfig
+    from lsenerf_tpu_torch.ops import combine
+    from lsenerf_tpu_torch.ops import hash_encoding as the
+    from lsenerf_tpu_torch.ops import occupancy as occ_lib
+
+    hcfg = the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, blocked_rows_log2=10)
+
+    def tiny(device=None):
+        col, evs = make_synthetic_scene(n_cams=3, h=8, w=8)
+        dm = MultiCamDataManager(DataManagerConfig(train_num_rays_per_batch=16), col, evs)
+        mcfg = ModelConfig(field=field_lib.FieldConfig(hash=hcfg),
+                           grid=occ_lib.OccGridConfig(resolution=32, levels=2),
+                           max_samples=16, max_candidates=256, proposal_samples=8)
+        trainer = Trainer(TrainerConfig(), mcfg, dm, device=device)
+        trainer.setup()
+        return trainer
+
+    monkeypatch.setattr(flagship, "flagship_trainer", tiny)
+    real = combine.encode_bwd
+    pos, table, gfeat, levels = flagship.step_encode_inputs("cpu")
+    assert combine.encode_bwd is real
+    n = pos.shape[0]
+    assert n > 0 and pos.shape == (n, 3) and gfeat.shape == (n, 2 * levels.num)
+    assert table.shape == (hcfg.total_rows, 64) and levels.num == 5
