@@ -10,15 +10,16 @@ Phases, each fatal on failure (exit code 1):
   3. hold K1 (blocked_encode_fwd) and K2 (blocked_encode_bwd) against their
      plain PyTorch versions and time both, at two inputs of the flagship's
      shape: uniform random positions, and the positions and cotangent that
-     K2 is given in one real flagship train step (3a); then one small train
-     step on the card against the same step on the CPU through the plain
-     versions (3b);
+     K2 is given in one real flagship train step (3a), with K1's row loads
+     and K2's atomics per launch as worked out from the designs; then one
+     small train step on the card against the same step on the CPU through
+     the plain versions (3b);
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
-     G2 (take_along) and G3 (gather_sum) against their plain versions at the
-     probes' shapes, each timed beside its plain version and the PyTorch
-     call that computes the same function;
+     G2 (take_along) and G3 (gather_sum, on both of its branches) against
+     their plain versions at the probes' shapes, each timed beside its plain
+     version and the PyTorch call that computes the same function;
   4. the flagship train step (flagship.py) for STEPS steps on the card, with
      K1's and K2's launch counters set to 0 just before and read just after;
   5. a `kernels` JSON line, the card line, and the result line
@@ -120,6 +121,65 @@ def atomics_per_launch(pos, lv):
     return scalar, instructions, requests
 
 
+def k1_requests(pos, lv):
+    """K1's L1 wavefronts and L2 sector requests per launch on these
+    positions with a bf16 table, worked out from the two designs, not
+    measured. A warp's load instruction costs one L1 wavefront per distinct
+    128-byte line (one bf16 row) it touches; L1 keeps a line between the
+    instructions of one warp that read it, and each distinct 32-byte
+    sector of those lines is one L2 request. One thread per sample-level
+    (K1 before this design): a warp on 32 consecutive sample-levels, 7
+    16-byte loads each of its row's first 112 bytes (sectors 0-3). Groups
+    of 4 lanes (this K1): two 4-byte load instructions on 8 neighbouring
+    samples of one level, each reading a sample's 16 weighted values.
+    Returns (wavefronts, sectors) before and now."""
+    import torch
+
+    from lsenerf_tpu_torch.ops import combine
+
+    keys, o, _ = combine.keys_fracs(pos, lv)  # (L, n)
+    L, n = keys.shape
+
+    def distinct(groups):  # the distinct values in each row, summed
+        s = groups.sort(dim=1).values
+        return int(groups.shape[0] + (s[:, 1:] != s[:, :-1]).sum())
+
+    def pad(x, g, dim):  # repeat the last entry along dim up to a multiple of g
+        extra = -x.shape[dim] % g
+        last = x.narrow(dim, x.shape[dim] - 1, 1)
+        return torch.cat([x, last.expand(*[extra if d == dim else -1 for d in range(x.dim())])], dim)
+
+    old_rows = distinct(pad(keys.T.reshape(-1), 32, 0).reshape(-1, 32))
+    new_rows = distinct(pad(keys, 8, 1).reshape(-1, 8))
+    # the sectors of one sample's weighted words v0 + {0, 1, 3, 4, 9, 10, 12,
+    # 13} (2 or 3 of the row's 4), by parities, padded to 3 with repeats
+    table = []
+    for oc in range(8):
+        v0 = ((oc >> 2) * 3 + ((oc >> 1) & 1)) * 3 + (oc & 1)
+        sec = sorted({(v0 + d) // 8 for d in (0, 1, 3, 4, 9, 10, 12, 13)})
+        table.append(sec + sec[-1:] * (3 - len(sec)))
+    sectors = torch.tensor(table, device=pos.device)[o[0] * 4 + o[1] * 2 + o[2]]  # (L, n, 3)
+    codes = pad(keys[..., None] * 4 + sectors, 8, 1).reshape(L, -1, 24)
+    return (7 * old_rows, 4 * old_rows), (2 * new_rows, distinct(codes.reshape(-1, 24)))
+
+
+def g3_bytes(T, W, R, n, slices, splits):
+    """G3's bytes per launch through L2 and shared memory under its two
+    branches, worked out from the designs (not measured), as a line of
+    text. L2 branch: every gathered row piece and every index once. Shared-
+    memory branch: each block's slice copy (16-byte pieces, each alone in a
+    32-byte sector) and the indices once per slice through L2; the gathered
+    rows from shared memory."""
+    l2 = R * n * W * 4 + R * n * 4
+    text = f"L2 branch {l2 / 1e6:.1f} MB from L2"
+    if slices:
+        copy = slices * splits * T * 16
+        text += (f"; shared-memory branch {(copy + slices * R * n * 4) / 1e6:.1f} MB from L2 "
+                 f"({copy / 1e6:.1f} MB of it the slices, {2 * copy / 1e6:.1f} MB in sectors), "
+                 f"{R * n * W * 4 / 1e6:.1f} MB read from shared memory")
+    return text
+
+
 def encode_bounds(pos, lv):
     """The bounds of K1 and K2 on these positions: bytes each function must
     move (inputs once, outputs once; the table's rows counted as the
@@ -186,6 +246,11 @@ def check_encode(name, pos, table, gfeat, lv):
     print(f"K2 table-gradient atomics per launch at {name}, worked out from the designs (not "
           f"measured): one thread per sample, {scalar} scalar atomics ({scalar} L2 requests); "
           f"lanes per level, {instructions} warp instructions ({requests} L2 sector requests)")
+    (w0, s0), (w1, s1) = k1_requests(pos, lv)
+    print(f"K1 row loads per launch at {name}, worked out from the designs (not measured): one "
+          f"thread per sample-level, {w0} L1 wavefronts and {s0} L2 sector requests; groups of 4 "
+          f"lanes, {w1} L1 wavefronts and {s1} L2 sector requests "
+          f"({w1 / pos.shape[0] / lv.num:.2f} and {s1 / pos.shape[0] / lv.num:.2f} per sample-level)")
     return res
 
 
@@ -364,23 +429,46 @@ def check_gathers(dev):
         print(f"take_along {name} {tuple(t.shape)} axis {axis} ({lib_name} as the library): {fmt(r)}")
     res["take_along"] = dict(shapes.pop("E2"), shapes=shapes)
 
-    # G3 at H: 64 gathers of 8192 rows from 8192 x 128 f32, summed in order
-    TH, WH, REPS = 8192, 128, 64
-    th = torch.randn((TH, WH), generator=gen, device=dev)
-    ih = ints(TH, (REPS, TH))
-    err = exact("gather_sum", g.gather_sum(th, ih), g.gather_sum_plain(th, ih))
-    bags = ih.T.contiguous().long()
-    # embedding_bag sums in another order: two sums of the same 64 terms
-    # differ by at most 2 * 63 * 2^-24 * sum|x|
-    lib = tF.embedding_bag(bags, th, mode="sum")
-    atol = 2 * REPS * 2.0**-24 * float(g.gather_sum_plain(th.abs(), ih).max())
-    torch.testing.assert_close(lib, g.gather_sum_plain(th, ih), rtol=0, atol=atol)
-    res["gather_sum"] = dict(max_abs_err=err, **timings(
-        lambda: g.gather_sum(th, ih), lambda: g.gather_sum_plain(th, ih),
-        lambda: tF.embedding_bag(bags, th, mode="sum"), plain_reps=10))
-    res["gather_sum"]["bound_ms"], res["gather_sum"]["bound_by"] = bound(
-        ih.numel() * 4 + TH * WH * 4 + distinct(ih) * WH * 4, REPS * TH * WH)
-    print(f"gather_sum at H: max_abs_err {err:.3e}, {fmt(res['gather_sum'])}")
+    # G3 at H: 64 gathers of 8192 rows from 8192 x 128 f32, summed in order.
+    # The kernel chooses its branch by shape (the L2 branch at H), and the
+    # other branch is also run at each shape on either side of that choice:
+    # H; 256 gathers per output (where shared memory is chosen); a 2048-row
+    # table, which L1 partly holds; and a 20,000-row table whose 16-byte
+    # slice (320 KB) no block's shared memory holds
+    WH, NH = 128, 8192
+    shapes = {}
+    for name, TH, REPS, branch in (
+            ("H", 8192, 64, None), ("H, shared-memory branch", 8192, 64, "smem"),
+            ("R=256", 8192, 256, None), ("R=256, L2 branch", 8192, 256, "l2"),
+            ("2048 rows", 2048, 64, None), ("2048 rows, shared-memory branch", 2048, 64, "smem"),
+            ("20000 rows", 20_000, 64, None)):
+        th = torch.randn((TH, WH), generator=gen, device=dev)
+        ih = ints(TH, (REPS, NH))
+        want = g.gather_sum_plain(th, ih)
+        err = exact(f"gather_sum at {name}", g.gather_sum(th, ih, branch), want)
+        bags = ih.T.contiguous().long()
+        # embedding_bag sums in another order: two sums of the same R terms
+        # differ by at most 2 * (R - 1) * 2^-24 * sum|x|
+        lib = tF.embedding_bag(bags, th, mode="sum")
+        atol = 2 * REPS * 2.0**-24 * float(g.gather_sum_plain(th.abs(), ih).max())
+        torch.testing.assert_close(lib, want, rtol=0, atol=atol)
+        del want, lib
+        r = shapes[name] = dict(max_abs_err=err, **timings(
+            lambda th=th, ih=ih, b=branch: g.gather_sum(th, ih, b),
+            lambda th=th, ih=ih: g.gather_sum_plain(th, ih),
+            lambda th=th, bags=bags: tF.embedding_bag(bags, th, mode="sum"), plain_reps=5))
+        r["bound_ms"], r["bound_by"] = bound(
+            ih.numel() * 4 + NH * WH * 4 + distinct(ih) * WH * 4, REPS * NH * WH)
+        slices, splits, taken = g.gather_sum_grid(TH, WH, REPS, NH)
+        on = branch or ("smem" if taken else "l2")
+        r["branch"] = on
+        where = f"{slices} slices x {splits} splits in shared memory" if on == "smem" else "from L2"
+        print(f"gather_sum at {name} ({TH} x {WH}, R={REPS}, {where}): max_abs_err {err:.3e}, "
+              f"{fmt(r)}")
+        if branch is None:
+            print(f"gather_sum at {name} per launch, worked out from the designs (not "
+                  f"measured): " + g3_bytes(TH, WH, REPS, NH, slices, splits))
+    res["gather_sum"] = dict(shapes.pop("H"), shapes=shapes)
 
     rows_per_s = m / (res["row_gather"]["ms"] * 1e-3)
     print(f"row_gather at P5-C: {rows_per_s:.4e} rows/s; gather phase {time.time() - t0:.1f} s")

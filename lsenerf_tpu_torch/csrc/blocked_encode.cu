@@ -15,27 +15,48 @@
 // sample-level reads exactly one row. Positions are unit-cube (n, 3) f32;
 // features are (n, L*F) f32 with feats[i, l*F + f].
 //
-// What bounds them on the card: bytes. Per sample-level K1 reads one
-// 112-byte row prefix and writes 8 bytes, for ~200 f32 operations; K2 reads
-// the 16 values of the same row that carry weight and adds 8 nonzero 2-wide
-// updates into an f32 gradient table, which its wrapper first zero-fills.
-// The bf16 table (27 MB at the flagship size) fits in the 50 MB L2, so rows
-// mostly come from L2, not HBM; what holds K2 back in practice is L2's rate
-// of atomic requests (below).
+// What bounds them on the card: bytes. Per sample-level K1 reads the 16
+// values of one row that carry weight and writes 8 bytes; K2 reads the same
+// 16 values and adds 8 nonzero 2-wide updates into an f32 gradient table,
+// which its wrapper first zero-fills. The bf16 table (27 MB at the flagship
+// size) fits in the 50 MB L2, so rows mostly come from L2, not HBM. What
+// holds them back in practice is the rate of requests, not of bytes: the
+// L2's rate of sector requests for rows scattered over the table (K1) and
+// of atomic requests (K2, below). lsenerf_tpu_torch/l2_atomic_probe.py
+// measures both rates.
 //
 // Design:
-// - K1: one thread per (sample, level). Keys and fractions are computed in
-//   the kernel from the positions, so nothing but the output is written.
+// - Only the 2x2x2 cube of vertices in slots {o, o+1} per dimension has
+//   weight (19 of the 27 vertices of a stencil weigh exactly zero, and both
+//   kernels skip them). For each of its 4 (x, y) pairs the two z-neighbours'
+//   2 features are 4 contiguous values of the row, read as two 32-bit
+//   (bf16) or 64-bit (f32) loads (load_pair): 16 values, not the row's 54.
+//   So a non-finite value in a vertex outside the cube does not reach the
+//   features, where the plain version's 27-term sum gives NaN.
+// - K1: a block holds 32 neighbouring samples at every level, as K2's
+//   does, in kFwdWarps warps, each taking every kFwdWarps-th level (fewer,
+//   longer warps than K2's one per level: more blocks are resident at
+//   once, and the last wave of blocks is shorter). Positions are read once
+//   per block into shared memory, a level's scale and parameters once per
+//   warp. For each level,
+//   lane k first works out the row key, the cube's first vertex and the
+//   fractions of sample k; then in 4 steps of 8 samples each group of 4
+//   lanes takes one sample, lane q of the group its (x, y) pair
+//   (q >> 1, q & 1), and the group sums its two features with two
+//   __shfl_xor_sync. A warp's load instruction so touches at most 8 rows
+//   (lines, for bf16), and the samples of a ray, neighbours in the block,
+//   share the coarse levels' rows inside one instruction: two loads, ~2 L1
+//   wavefronts and ~2.5 L2 sector requests per sample-level, where one
+//   thread per sample-level with 7 16-byte loads of the row's prefix cost
+//   ~7 and 4 (chip_smoke.py prints both counts).
+//   The block's chunk of out (32 x L x 8 bytes, contiguous) is staged in
+//   shared memory and written as 16-byte pieces. Keys and fractions are
+//   computed in the kernel, so nothing but the output is written.
 // - K2: one lane per (sample, level), 899,072 at the flagship's shape. A
 //   warp holds 32 neighbouring samples of one level (the samples of a ray
 //   are neighbours, so a warp's loads share coarse rows), and a block
 //   holds the same 32 samples at every level, one warp per level (up to
 //   kBwdWarps warps, each then taking every kBwdWarps-th level).
-//   - Only the 2x2x2 cube of vertices in slots {o, o+1} per dimension has
-//     weight (19 of the 27 vertices of a stencil weigh exactly zero, and are
-//     skipped). For each of its 4 (x, y) pairs the two z-neighbours' 2
-//     features are 4 contiguous values of the row, read as two 32-bit
-//     (bf16) or 64-bit (f32) loads: 16 values, not the row's 54.
 //   - What bounds K2 is the rate at which L2 takes atomic requests, about
 //     the same for scattered atomics whatever their width (scalar, float2
 //     or float4; lsenerf_tpu_torch/l2_atomic_probe.py measures it), while
@@ -66,10 +87,11 @@ namespace {
 
 constexpr uint32_t kPrime1 = 2654435761u;
 constexpr uint32_t kPrime2 = 805459861u;
-constexpr int kUsed = 54;  // 27 vertices x 2 features
-constexpr int kThreads = 128;
+constexpr int kFwdWarps = 4;  // K1: warps per block, each taking every 4th level
 constexpr int kBwdWarps = 16;  // K2: warps (levels) per block
 constexpr int kEntry = 18;  // K2's entry: 16 gradient values, row, parities
+
+size_t fwd_smem_bytes(int L) { return (size_t)(96 + 64 * L) * sizeof(float); }
 
 size_t bwd_smem_bytes(int L, int warps) {
   return (size_t)(96 + 64 * L + 96 * L + warps * 32 * kEntry) * sizeof(float);
@@ -102,91 +124,6 @@ __device__ __forceinline__ int level_key(const float* __restrict__ pos,
   return key + lp.w;
 }
 
-// level_key, with the three slot weights per dimension (u[d][0..2]): slot o
-// weighs 1 - w, slot o + 1 weighs w, the third slot 0.
-__device__ __forceinline__ int level_setup(const float* __restrict__ pos,
-                                           long i, float scale, int4 lp,
-                                           uint32_t hash_mask, float u[3][3],
-                                           int o[3]) {
-  float w[3];
-  int key = level_key(pos, i, scale, lp, hash_mask, w, o);
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    float om = 1.0f - w[d];
-    u[d][0] = o[d] ? 0.0f : om;
-    u[d][1] = o[d] ? om : w[d];
-    u[d][2] = o[d] ? w[d] : 0.0f;
-  }
-  return key;
-}
-
-// The 54 used values of one row, as f32.
-template <bool kBF16>
-__device__ __forceinline__ void load_row(const void* __restrict__ table,
-                                         int key, float r[kUsed]) {
-  if (kBF16) {
-    const uint4* row = reinterpret_cast<const uint4*>(table) + (long)key * 8;
-#pragma unroll
-    for (int q = 0; q < 7; ++q) {
-      uint4 v = __ldg(row + q);
-      uint32_t wd[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int e = q * 8 + j * 2;
-        if (e < kUsed) r[e] = __uint_as_float(wd[j] << 16);
-        if (e + 1 < kUsed) r[e + 1] = __uint_as_float(wd[j] & 0xffff0000u);
-      }
-    }
-  } else {
-    const float4* row = reinterpret_cast<const float4*>(table) + (long)key * 16;
-#pragma unroll
-    for (int q = 0; q < 14; ++q) {
-      float4 v = __ldg(row + q);
-      float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int e = q * 4 + j;
-        if (e < kUsed) r[e] = vv[j];
-      }
-    }
-  }
-}
-
-template <bool kBF16>
-__global__ void __launch_bounds__(kThreads)
-    encode_fwd_kernel(const float* __restrict__ pos,
-                      const void* __restrict__ table,
-                      const float* __restrict__ scale,
-                      const int4* __restrict__ lvl, float* __restrict__ out,
-                      int n, int L, uint32_t hash_mask) {
-  long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)n * L) return;
-  long i = t / L;
-  int l = (int)(t - i * L);
-  float u[3][3];
-  int o[3];
-  int key = level_setup(pos, i, __ldg(scale + l), __ldg(lvl + l), hash_mask,
-                        u, o);
-  float r[kUsed];
-  load_row<kBF16>(table, key, r);
-  float acc0 = 0.0f, acc1 = 0.0f;
-#pragma unroll
-  for (int vx = 0; vx < 3; ++vx) {
-#pragma unroll
-    for (int vy = 0; vy < 3; ++vy) {
-      float wxy = u[0][vx] * u[1][vy];
-#pragma unroll
-      for (int vz = 0; vz < 3; ++vz) {
-        int v = (vx * 3 + vy) * 3 + vz;
-        float w = wxy * u[2][vz];
-        acc0 += w * r[2 * v];
-        acc1 += w * r[2 * v + 1];
-      }
-    }
-  }
-  reinterpret_cast<float2*>(out)[t] = make_float2(acc0, acc1);
-}
-
 // Columns 2v .. 2v+3 of row `key` as f32: vertices v and v + 1 (z
 // neighbours), 2 features each.
 template <bool kBF16>
@@ -201,6 +138,64 @@ __device__ __forceinline__ float4 load_pair(const void* __restrict__ table,
   const float2* p = reinterpret_cast<const float2*>(table) + (long)key * 32 + v;
   float2 a = __ldg(p), b = __ldg(p + 1);
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Block b: samples 32b .. 32b+31; warp w takes levels w, w + warps, ...
+// Dynamic shared memory (fwd_smem_bytes): the block's positions (32 x 3),
+// read once, coalesced, and its chunk of out (32 x L x 2), written once.
+template <bool kBF16>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+    encode_fwd_kernel(const float* __restrict__ pos,
+                      const void* __restrict__ table,
+                      const float* __restrict__ scale,
+                      const int4* __restrict__ lvl, float* __restrict__ out,
+                      int n, int L, uint32_t hash_mask) {
+  extern __shared__ float smem[];
+  float* pos_s = smem;        // (32, 3)
+  float* out_s = smem + 96;   // (32, L, 2), as in out
+  const int lane = threadIdx.x & 31;
+  const long i0 = (long)blockIdx.x * 32;
+  const int live_n = (int)min((long)32, (long)n - i0);
+  for (int e = threadIdx.x; e < live_n * 3; e += blockDim.x) pos_s[e] = __ldg(pos + i0 * 3 + e);
+  __syncthreads();
+  // this lane's (x, y) pair in its group: vertex v0 + dv and its z neighbour
+  const int q = lane & 3, a = q >> 1, b = q & 1, dv = a * 9 + b * 3;
+  for (int l = threadIdx.x >> 5; l < L; l += blockDim.x >> 5) {
+    float w[3] = {0.0f, 0.0f, 0.0f};
+    int o[3] = {0, 0, 0};
+    int key = 0;
+    if (lane < live_n) key = level_key(pos_s, lane, __ldg(scale + l), __ldg(lvl + l), hash_mask, w, o);
+    const int v0 = (o[0] * 3 + o[1]) * 3 + o[2];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int k = s * 8 + (lane >> 2);  // the group's sample
+      const int kk = __shfl_sync(0xffffffffu, key, k);
+      const int kv = __shfl_sync(0xffffffffu, v0, k);
+      const float wx = __shfl_sync(0xffffffffu, w[0], k);
+      const float wy = __shfl_sync(0xffffffffu, w[1], k);
+      const float wz = __shfl_sync(0xffffffffu, w[2], k);
+      float acc0 = 0.0f, acc1 = 0.0f;
+      if (k < live_n) {
+        const float4 r = load_pair<kBF16>(table, kk, kv + dv);
+        const float wxy = (a ? wx : 1.0f - wx) * (b ? wy : 1.0f - wy);
+        const float w0 = wxy * (1.0f - wz), w1 = wxy * wz;
+        acc0 = w0 * r.x + w1 * r.z;
+        acc1 = w0 * r.y + w1 * r.w;
+      }
+      // the group's sums: the first exchange leaves feature q & 1 of two
+      // pairs in lane q, the second of all four
+      float f = (q & 1) ? acc1 : acc0;
+      f += __shfl_xor_sync(0xffffffffu, (q & 1) ? acc0 : acc1, 1);
+      f += __shfl_xor_sync(0xffffffffu, f, 2);
+      if (q < 2 && k < live_n) out_s[(k * L + l) * 2 + q] = f;
+    }
+  }
+  __syncthreads();
+  float* dst = out + i0 * L * 2;  // 16-byte aligned: i0 is a multiple of 32
+  const int count = live_n * L * 2, vecs = count >> 2;
+  for (int e = threadIdx.x; e < vecs; e += blockDim.x)
+    reinterpret_cast<float4*>(dst)[e] = reinterpret_cast<const float4*>(out_s)[e];
+  for (int e = vecs * 4 + threadIdx.x; e < count; e += blockDim.x) dst[e] = out_s[e];
 }
 
 // Block b: samples 32b .. 32b+31, lane = sample; warp w takes levels w,
@@ -318,17 +313,19 @@ extern "C" {
 int blocked_encode_fwd(const float* pos, const void* table, int table_bf16,
                        const float* scale, const int* lvl, float* out, int n,
                        int L, unsigned int hash_mask, void* stream) {
-  long total = (long)n * L;
-  if (total == 0) return 0;
-  unsigned int blocks = (unsigned int)((total + kThreads - 1) / kThreads);
+  if (n == 0) return 0;
+  if (L < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem_bytes(L);  // 4.4 KB at 16 levels
+  const unsigned int blocks = (unsigned int)((n + 31) / 32);
+  const unsigned int threads = 32 * (L < kFwdWarps ? L : kFwdWarps);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int4* lv = reinterpret_cast<const int4*>(lvl);
   if (table_bf16)
-    encode_fwd_kernel<true><<<blocks, kThreads, 0, s>>>(pos, table, scale, lv,
-                                                        out, n, L, hash_mask);
+    encode_fwd_kernel<true><<<blocks, threads, smem, s>>>(pos, table, scale, lv,
+                                                          out, n, L, hash_mask);
   else
-    encode_fwd_kernel<false><<<blocks, kThreads, 0, s>>>(pos, table, scale, lv,
-                                                         out, n, L, hash_mask);
+    encode_fwd_kernel<false><<<blocks, threads, smem, s>>>(pos, table, scale, lv,
+                                                           out, n, L, hash_mask);
   return (int)cudaGetLastError();
 }
 

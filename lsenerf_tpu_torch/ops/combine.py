@@ -173,17 +173,45 @@ def _library():
     return lib
 
 
-def _check_common(positions, table, levels):
+_TABLE_TYPES = (torch.bfloat16, torch.float32)
+
+
+def _refuse(positions, table, levels, gfeat=None):
+    """Raise ValueError naming the first check the inputs fail."""
     dev = positions.device
     if dev.type != "cuda":
         raise ValueError(f"the kernels take CUDA tensors, got {dev}")
     n = positions.shape[0]
     cuda_build.check("positions", positions, (torch.float32,), (n, 3), dev)
-    cuda_build.check("table", table, (torch.bfloat16, torch.float32),
-                     (levels.total_rows, ROW_WIDTH), dev)
+    cuda_build.check("table", table, _TABLE_TYPES, (levels.total_rows, ROW_WIDTH), dev)
     cuda_build.check("levels.scale", levels.scale, (torch.float32,), (levels.num,), dev)
     cuda_build.check("levels.params", levels.params, (torch.int32,), (levels.num, 4), dev)
-    return n
+    if gfeat is not None:
+        cuda_build.check("gfeat", gfeat, (torch.float32,), (n, levels.num * F), dev)
+    raise ValueError("the inputs do not fit the encode kernels")
+
+
+def _check_common(positions, table, levels, gfeat=None):
+    """The inputs' sample count n, where K1 (and K2, given its cotangent
+    gfeat) takes them; else raises through _refuse. The wrapper's host
+    time is a good part of a call's, so the check is one expression over
+    cheap tensor properties."""
+    s, p = levels.scale, levels.params
+    d = positions.get_device()
+    L = s.shape[0]
+    if not (positions.is_cuda and positions.dtype == torch.float32
+            and positions.dim() == 2 and positions.shape[1] == 3
+            and table.dtype in _TABLE_TYPES and table.shape == (levels.total_rows, ROW_WIDTH)
+            and s.dtype == torch.float32 and s.dim() == 1
+            and p.dtype == torch.int32 and p.shape == (L, 4)
+            and table.get_device() == d and s.get_device() == d and p.get_device() == d
+            and positions.is_contiguous() and table.is_contiguous()
+            and s.is_contiguous() and p.is_contiguous()
+            and (gfeat is None or (gfeat.dtype == torch.float32 and gfeat.get_device() == d
+                                   and gfeat.shape == (positions.shape[0], L * F)
+                                   and gfeat.is_contiguous()))):
+        _refuse(positions, table, levels, gfeat)
+    return positions.shape[0]
 
 
 def encode_fwd(positions, table, levels: Levels) -> torch.Tensor:
@@ -209,8 +237,7 @@ def encode_bwd(positions, table, gfeat, levels: Levels):
     """K2: -> (dpos (n, 3) f32, dtable (rows, 64) f32)."""
     if positions.device.type == "cpu":
         return encode_bwd_plain(positions, table, gfeat, levels)
-    n = _check_common(positions, table, levels)
-    cuda_build.check("gfeat", gfeat, (torch.float32,), (n, levels.num * F), positions.device)
+    n = _check_common(positions, table, levels, gfeat)
     dpos = torch.empty((n, 3), dtype=torch.float32, device=positions.device)
     dtable = torch.zeros((levels.total_rows, ROW_WIDTH), dtype=torch.float32,
                          device=positions.device)

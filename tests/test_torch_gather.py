@@ -201,6 +201,17 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, fn):
     assert not called
 
 
+@pytest.mark.parametrize("branch", [None, "l2", "smem"])
+def test_gather_sum_takes_a_branch_name(branch):
+    """G3's branch names; on the CPU every branch is the plain version, and
+    a name that is no branch is refused."""
+    table = torch.arange(24, dtype=torch.float32).reshape(6, 4)
+    idx = torch.tensor([[0, 5, 9], [2, 2, -1]], dtype=torch.int32)
+    assert torch.equal(gather.gather_sum(table, idx, branch), gather.gather_sum_plain(table, idx))
+    with pytest.raises(ValueError, match="branch"):
+        gather.gather_sum(table, idx, "shared")
+
+
 def test_gather_probe_runs_every_case_on_cpu(capsys):
     assert gather_probe.main(["--device", "cpu", "--reduced"]) == 0
     lines = capsys.readouterr().out.splitlines()

@@ -1,9 +1,9 @@
 """The port's kernels against their plain PyTorch versions on the card: K1
 and K2 (lsenerf_tpu_torch/ops/combine.py) in an f32-table and a bf16-table
-arm, K2 also where many samples of a warp share rows (one cell, rays) and
-at the flagship's 16 levels, and the gathers G1-G3
-(lsenerf_tpu_torch/ops/gather.py), held to exact equality, G2 at the shapes
-that pick each of its paths.
+arm, also where many samples of a warp share rows (one cell, rays), at the
+flagship's 16 levels and at 2 and 3 levels, and the gathers G1-G3
+(lsenerf_tpu_torch/ops/gather.py), held to exact equality, G2 and G3 at the
+shapes that pick each of their paths.
 
 This file imports neither JAX nor the JAX package, so a machine with the
 card and without JAX runs it on its own, skipping the JAX conftest:
@@ -75,10 +75,11 @@ def _positions(kind, n, rng):
     return (origin + t * d).reshape(-1, 3)[:n].astype(np.float32)
 
 
-# (positions, config, n): contention in one cell and along rays, at L = 5
-# and at the flagship's 16 levels and widths, n not a multiple of 32; at
-# L = 2 and 3 a block has fewer threads (32 L) than a block's 96 dpos values
-BWD_CASES = {
+# (positions, config, n), for K1 and K2: contention in one cell and along
+# rays, at L = 5 and at the flagship's 16 levels and widths, n not a
+# multiple of 32; at L = 2 and 3 a block has fewer threads (32 L) than a
+# block's 96 dpos values
+ENCODE_CASES = {
     "uniform-L5": ("uniform", T_CFG, 4099),
     "one_cell-L5": ("one_cell", T_CFG, 4099),
     "rays-L5": ("rays", T_CFG, 4112),
@@ -90,21 +91,58 @@ BWD_CASES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", list(BWD_CASES))
-def test_encode_bwd_matches_plain_on_card(case, dtype):
-    """K2 against its plain version, also where many samples of one warp add
-    into the same row. dpos is the same bits from call to call; the pad
-    columns 54-63 of the table gradient stay zero."""
-    dev = _card()
-    kind, cfg, n = BWD_CASES[case]
+def _encode_inputs(case, dtype, dev):
+    kind, cfg, n = ENCODE_CASES[case]
     rng = np.random.default_rng(8)
     L = cfg.num_levels
     p = torch.from_numpy(_positions(kind, n, rng)).to(dev)
     tab = torch.from_numpy(rng.standard_normal((cfg.total_rows, 64)).astype(np.float32)).to(dev, dtype)
     gg = torch.from_numpy(rng.standard_normal((n, L * 2)).astype(np.float32)).to(dev)
-    lv = the.levels_for(cfg, "cuda")
+    return p, tab, gg, the.levels_for(cfg, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(ENCODE_CASES))
+def test_encode_fwd_matches_plain_on_card(case, dtype):
+    """K1 against its plain version: 8 weighted terms against 27, so the
+    two differ by rounding only."""
+    p, tab, _, lv = _encode_inputs(case, dtype, _card())
+    torch.testing.assert_close(combine.encode_fwd(p, tab, lv), combine.encode_fwd_plain(p, tab, lv),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_encode_fwd_reads_only_the_cube_on_card():
+    """K1 reads only the 2 x 2 x 2 cube of vertices that carry weight: NaN in
+    a vertex outside it, which makes the plain version's sum NaN, leaves
+    the features as they are."""
+    dev = _card()
+    n = 37  # one sample repeated, over two blocks
+    p = torch.tensor([[0.31, 0.77, 0.52]], device=dev).expand(n, 3).contiguous()
+    rng = np.random.default_rng(11)
+    tab = torch.from_numpy(rng.standard_normal((T_CFG.total_rows, 64)).astype(np.float32)).to(dev)
+    lv = the.levels_for(T_CFG, "cuda")
+    keys, o, _ = combine.keys_fracs(p, lv)
+    poisoned = tab.clone()
+    for l in range(T_CFG.num_levels):
+        # the x slot outside {o, o + 1}, at the cube's y and z slots
+        sx, sy, sz = (0 if o[0][l, 0] else 2), int(o[1][l, 0]), int(o[2][l, 0])
+        v = (sx * 3 + sy) * 3 + sz
+        poisoned[keys[l, 0], 2 * v:2 * v + 2] = float("nan")
+    assert combine.encode_fwd_plain(p, poisoned, lv).isnan().any()
+    torch.testing.assert_close(combine.encode_fwd(p, poisoned, lv),
+                               combine.encode_fwd_plain(p, tab, lv), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(ENCODE_CASES))
+def test_encode_bwd_matches_plain_on_card(case, dtype):
+    """K2 against its plain version, also where many samples of one warp add
+    into the same row. dpos is the same bits from call to call; the pad
+    columns 54-63 of the table gradient stay zero."""
+    p, tab, gg, lv = _encode_inputs(case, dtype, _card())
     dpos, dtab = combine.encode_bwd(p, tab, gg, lv)
     wdpos, wdtab = combine.encode_bwd_plain(p, tab, gg, lv)
     torch.testing.assert_close(dpos, wdpos, rtol=1e-4, atol=1e-6 * float(wdpos.abs().max()))
@@ -198,14 +236,51 @@ def test_take_along_unaligned_on_card(axis):
     _same(gather.take_along(t, idx, axis), gather.take_along_plain(t, idx, axis))
 
 
+# (T, W, R, n): the probe's case H, where the kernel chooses the L2 branch,
+# and H with 256 gathers per output, where it chooses shared memory; T =
+# 3000; W = 4 (one slice) and W = 12; R = 1; R = 13 (not a multiple of the
+# 8 indices loaded ahead) with a ragged n; the largest table whose slice
+# fits in an H100 block's shared memory (14,528 x 16 bytes); and tables
+# whose slice does not fit (T = 20,000 and one row past the largest)
+SUM_CASES = {
+    "H-8192x128-R64": (8192, 128, 64, 8192),
+    "H-8192x128-R256": (8192, 128, 256, 8192),
+    "3000x128-R64": (3000, 128, 64, 2053),
+    "W4": (3000, 4, 64, 2053),
+    "W12": (3000, 12, 64, 2053),
+    "R1": (3000, 128, 1, 2053),
+    "R13-ragged": (3000, 128, 13, 24_581),
+    "14528x8": (14_528, 8, 9, 1000),
+    "nofit-20000x128-R64": (20_000, 128, 64, 2053),
+    "nofit-14529x8": (14_529, 8, 9, 1000),
+}
+
+
 @pytest.mark.cuda
-def test_gather_sum_matches_plain_on_card():
-    """G3 sums in the plain version's order, so the two are bit-identical."""
+@pytest.mark.parametrize("case", list(SUM_CASES))
+def test_gather_sum_matches_plain_on_card(case):
+    """G3 sums in the plain version's order, so the two are bit-identical:
+    on the branch the kernel chooses and on each branch forced. Every
+    eleventh index lies outside the table and adds a zero row, in order all
+    the same. Where the slice does not fit, the shared-memory branch
+    refuses to launch."""
     dev = _card()
-    rng = np.random.default_rng(7)
-    T, W, R, n = 3000, 128, 64, 2053
+    T, W, R, n = SUM_CASES[case]
+    rng = np.random.default_rng(12)
     table = torch.from_numpy(rng.standard_normal((T, W)).astype(np.float32)).to(dev)
     idx_np = rng.integers(0, T, (R, n)).astype(np.int32)
-    idx_np[3, ::7] = T  # zero rows, added in order all the same
+    idx_np[:, ::11] = rng.choice([-1, T, T + 5, -(2**31)], size=idx_np[:, ::11].shape)
     idx = torch.from_numpy(idx_np).to(dev)
-    _same(gather.gather_sum(table, idx), gather.gather_sum_plain(table, idx))
+    want = gather.gather_sum_plain(table, idx)
+    _same(gather.gather_sum(table, idx), want)
+    _same(gather.gather_sum(table, idx, "l2"), want)
+    slices, _, taken = gather.gather_sum_grid(T, W, R, n)
+    if case.startswith("nofit"):
+        assert slices == 0 and not taken
+        with pytest.raises(RuntimeError, match="gather_sum"):
+            gather.gather_sum(table, idx, "smem")
+    else:
+        assert slices == W // 4
+        _same(gather.gather_sum(table, idx, "smem"), want)
+    if "H100" in torch.cuda.get_device_name(dev) and case.startswith("H-"):
+        assert taken == case.endswith("R256")
