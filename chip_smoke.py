@@ -17,9 +17,10 @@ Phases, each fatal on failure (exit code 1):
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
-     G2 (take_along) and G3 (gather_sum, on both of its branches) against
-     their plain versions at the probes' shapes, each timed beside its plain
-     version and the PyTorch call that computes the same function;
+     G2 (take_along) and G3 (gather_sum) against their plain versions at the
+     probes' shapes, each timed beside its plain version and the PyTorch
+     call that computes the same function, with G3's L2 bytes per launch as
+     worked out from its design;
   4. the flagship train step (flagship.py) for STEPS steps on the card, with
      K1's and K2's launch counters set to 0 just before and read just after;
   5. a `kernels` JSON line, the card line, and the result line
@@ -163,21 +164,10 @@ def k1_requests(pos, lv):
     return (7 * old_rows, 4 * old_rows), (2 * new_rows, distinct(codes.reshape(-1, 24)))
 
 
-def g3_bytes(T, W, R, n, slices, splits):
-    """G3's bytes per launch through L2 and shared memory under its two
-    branches, worked out from the designs (not measured), as a line of
-    text. L2 branch: every gathered row piece and every index once. Shared-
-    memory branch: each block's slice copy (16-byte pieces, each alone in a
-    32-byte sector) and the indices once per slice through L2; the gathered
-    rows from shared memory."""
-    l2 = R * n * W * 4 + R * n * 4
-    text = f"L2 branch {l2 / 1e6:.1f} MB from L2"
-    if slices:
-        copy = slices * splits * T * 16
-        text += (f"; shared-memory branch {(copy + slices * R * n * 4) / 1e6:.1f} MB from L2 "
-                 f"({copy / 1e6:.1f} MB of it the slices, {2 * copy / 1e6:.1f} MB in sectors), "
-                 f"{R * n * W * 4 / 1e6:.1f} MB read from shared memory")
-    return text
+def g3_bytes(R, n, W):
+    """G3's bytes per launch through L2, worked out from the design (not
+    measured): every gathered row piece and every index once."""
+    return R * n * W * 4 + R * n * 4
 
 
 def encode_bounds(pos, lv):
@@ -429,46 +419,27 @@ def check_gathers(dev):
         print(f"take_along {name} {tuple(t.shape)} axis {axis} ({lib_name} as the library): {fmt(r)}")
     res["take_along"] = dict(shapes.pop("E2"), shapes=shapes)
 
-    # G3 at H: 64 gathers of 8192 rows from 8192 x 128 f32, summed in order.
-    # The kernel chooses its branch by shape (the L2 branch at H), and the
-    # other branch is also run at each shape on either side of that choice:
-    # H; 256 gathers per output (where shared memory is chosen); a 2048-row
-    # table, which L1 partly holds; and a 20,000-row table whose 16-byte
-    # slice (320 KB) no block's shared memory holds
-    WH, NH = 128, 8192
-    shapes = {}
-    for name, TH, REPS, branch in (
-            ("H", 8192, 64, None), ("H, shared-memory branch", 8192, 64, "smem"),
-            ("R=256", 8192, 256, None), ("R=256, L2 branch", 8192, 256, "l2"),
-            ("2048 rows", 2048, 64, None), ("2048 rows, shared-memory branch", 2048, 64, "smem"),
-            ("20000 rows", 20_000, 64, None)):
-        th = torch.randn((TH, WH), generator=gen, device=dev)
-        ih = ints(TH, (REPS, NH))
-        want = g.gather_sum_plain(th, ih)
-        err = exact(f"gather_sum at {name}", g.gather_sum(th, ih, branch), want)
-        bags = ih.T.contiguous().long()
-        # embedding_bag sums in another order: two sums of the same R terms
-        # differ by at most 2 * (R - 1) * 2^-24 * sum|x|
-        lib = tF.embedding_bag(bags, th, mode="sum")
-        atol = 2 * REPS * 2.0**-24 * float(g.gather_sum_plain(th.abs(), ih).max())
-        torch.testing.assert_close(lib, want, rtol=0, atol=atol)
-        del want, lib
-        r = shapes[name] = dict(max_abs_err=err, **timings(
-            lambda th=th, ih=ih, b=branch: g.gather_sum(th, ih, b),
-            lambda th=th, ih=ih: g.gather_sum_plain(th, ih),
-            lambda th=th, bags=bags: tF.embedding_bag(bags, th, mode="sum"), plain_reps=5))
-        r["bound_ms"], r["bound_by"] = bound(
-            ih.numel() * 4 + NH * WH * 4 + distinct(ih) * WH * 4, REPS * NH * WH)
-        slices, splits, taken = g.gather_sum_grid(TH, WH, REPS, NH)
-        on = branch or ("smem" if taken else "l2")
-        r["branch"] = on
-        where = f"{slices} slices x {splits} splits in shared memory" if on == "smem" else "from L2"
-        print(f"gather_sum at {name} ({TH} x {WH}, R={REPS}, {where}): max_abs_err {err:.3e}, "
-              f"{fmt(r)}")
-        if branch is None:
-            print(f"gather_sum at {name} per launch, worked out from the designs (not "
-                  f"measured): " + g3_bytes(TH, WH, REPS, NH, slices, splits))
-    res["gather_sum"] = dict(shapes.pop("H"), shapes=shapes)
+    # G3 at H: 64 gathers of 8192 rows from 8192 x 128 f32, summed in order
+    TH, WH, REPS, NH = 8192, 128, 64, 8192
+    th = torch.randn((TH, WH), generator=gen, device=dev)
+    ih = ints(TH, (REPS, NH))
+    want = g.gather_sum_plain(th, ih)
+    err = exact("gather_sum", g.gather_sum(th, ih), want)
+    bags = ih.T.contiguous().long()
+    # embedding_bag sums in another order: two sums of the same R terms
+    # differ by at most 2 * (R - 1) * 2^-24 * sum|x|
+    lib = tF.embedding_bag(bags, th, mode="sum")
+    atol = 2 * REPS * 2.0**-24 * float(g.gather_sum_plain(th.abs(), ih).max())
+    torch.testing.assert_close(lib, want, rtol=0, atol=atol)
+    del want, lib
+    r = res["gather_sum"] = dict(max_abs_err=err, **timings(
+        lambda: g.gather_sum(th, ih), lambda: g.gather_sum_plain(th, ih),
+        lambda: tF.embedding_bag(bags, th, mode="sum"), plain_reps=10))
+    r["bound_ms"], r["bound_by"] = bound(
+        ih.numel() * 4 + NH * WH * 4 + distinct(ih) * WH * 4, REPS * NH * WH)
+    print(f"gather_sum at H: max_abs_err {err:.3e}, {fmt(r)}")
+    print(f"gather_sum at H per launch, worked out from the design (not measured): "
+          f"{g3_bytes(REPS, NH, WH) / 1e6:.1f} MB from L2")
 
     rows_per_s = m / (res["row_gather"]["ms"] * 1e-3)
     print(f"row_gather at P5-C: {rows_per_s:.4e} rows/s; gather phase {time.time() - t0:.1f} s")

@@ -16,27 +16,11 @@
 // flagship table) fit in the 50 MB L2, so table rows mostly come from L2
 // and the output and the indices from and to HBM.
 //
-// G3 reads R rows for every output row, so what bounds it is where those
-// reads come from: at the probe's case H (64 x 8192 gathers from an
-// 8192 x 128 table) 268 MB a launch through L2, though the table is 4 MB;
-// from shared memory, random 16-byte reads instead, which bank conflicts
-// slow ~2x (lsenerf_tpu_torch/l2_atomic_probe.py measures both rates).
-//
 // Design:
-// - G1 and G3's L2 branch move 16 bytes (a uint4 or float4) per thread and
-//   step: neighbouring threads take neighbouring 16-byte pieces of one row,
-//   and then of the next row, so the output is written fully coalesced and
-//   each row is read as whole 32-byte sectors. Rows are a multiple of 16
-//   bytes.
-// - G3's shared-memory branch, for tables whose 16-byte column slice
-//   (rows x 16 bytes) fits in a block's shared memory (up to 14,528 rows
-//   on an H100): a block copies one slice into shared memory once (128 KB
-//   at case H) and serves every gathered row of its outputs from there, so
-//   L2 carries the slices and the indices (once per slice), not the rows.
-//   The outputs are split over as many blocks per slice as fill the SMs
-//   once. The copies cost one L2 request per 16-byte piece, so the branch
-//   pays only where each slice serves enough gathers; the C entry takes it
-//   by shape (smem_grid), and the L2 branch otherwise, case H included.
+// - G1 and G3 move 16 bytes (a uint4 or float4) per thread and step:
+//   neighbouring threads take neighbouring 16-byte pieces of one row, and
+//   then of the next row, so the output is written fully coalesced and each
+//   row is read as whole 32-byte sectors. Rows are a multiple of 16 bytes.
 // - G2 gives each thread 4 neighbouring elements of one row (a "quad") on
 //   a 2-D grid: blockIdx.y picks a tile of rows and blockIdx.x a tile of
 //   quads, so no element pays a 64-bit division. Where the width is a
@@ -53,11 +37,15 @@
 //   On axis 0, where a quad's 4 indices agree, as in a broadcast row
 //   index, its 4 elements come in one vector load.
 // - G3 sums r in index order, one add per step with no multiply to fuse, so
-//   its result is bit-identical to the plain sum in the same order.
-// - G1 and G3's L2 branch run grid-stride loops over at most kMaxBlocks
-//   blocks, G2 a row-tile loop over at most 65,535 tiles; every thread
-//   loads the indices it needs itself (there is no scalar prefetch to lean
-//   on).
+//   its result is bit-identical to the plain sum in the same order. At the
+//   probe's case H (64 gathers an output from an 8192 x 128 table) it reads
+//   268 MB a launch through L2, though the table is 4 MB. Blocks that each
+//   copy a 16-byte column slice of the table into shared memory first were
+//   measured slower on an H100 at case H: the copy costs one L2 request per
+//   16-byte piece, and pays only from ~78 gathers an output (PERF.md).
+// - G1 and G3 run grid-stride loops over at most kMaxBlocks blocks, G2 a
+//   row-tile loop over at most 65,535 tiles; every thread loads the
+//   indices it needs itself (there is no scalar prefetch to lean on).
 // - Indices are int32. An index outside the table gives zeros (G3 adds a
 //   zero row); no kernel reads outside its table, and none checks on the host.
 // - The C entries launch on the caller's stream, allocate nothing, and
@@ -184,78 +172,7 @@ int launch_take_along(const void* t, const int* idx, void* out, int R, int C,
   return (int)cudaGetLastError();
 }
 
-__device__ __forceinline__ void add4(float4& acc, float4 v) {
-  acc.x += v.x;
-  acc.y += v.y;
-  acc.z += v.z;
-  acc.w += v.w;
-}
-
-// kAhead indices of G3's output run at ix (indices r, r + 1, ... of the
-// (R, n) index), coalesced along k; 0 past R.
-constexpr int kAhead = 8;
-
-__device__ __forceinline__ void load_batch(int (&x)[kAhead], const int* __restrict__ ix,
-                                           int r, int R, int64_t n) {
-#pragma unroll
-  for (int j = 0; j < kAhead; ++j) x[j] = r + j < R ? __ldg(ix + (int64_t)(r + j) * n) : 0;
-}
-
-// G3's shared-memory branch. Block (s, p) holds the 16-byte column slice s
-// of every table row in shared memory (rows x 16 bytes, cp.async from L2)
-// and sums outputs p * chunk .. (p + 1) * chunk - 1 of that slice, one
-// thread per output, r in order. Each thread's index loads run one batch
-// of kAhead ahead of its sums (the next output's first batch while the
-// last of this one is summed; the first while the slice is copied), so
-// with kSumThreads threads an SM keeps enough index loads in flight to
-// cover L2's latency. The lanes of a warp read 32 random rows: a 16-byte
-// read takes 8 lanes per shared-memory wavefront, and random rows share
-// bank groups (row % 8), which halves the rate (870 G reads/s against
-// 1,814 on neighbouring rows, l2_atomic_probe on an NVIDIA H100 80GB HBM3
-// at 700.00 W).
-constexpr int kSumThreads = 1024;
-
-__global__ void __launch_bounds__(kSumThreads)
-    gather_sum_smem_kernel(const float4* __restrict__ table,
-                           const int* __restrict__ idx, float4* __restrict__ out,
-                           int R, int64_t n, int rows, int vecs, int64_t chunk) {
-  extern __shared__ float4 slice[];
-  const int s = blockIdx.x;
-  for (int row = threadIdx.x; row < rows; row += blockDim.x) {
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(slice + row);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(dst), "l"(table + (int64_t)row * vecs + s));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  const int64_t k1 = min(n, (int64_t)(blockIdx.y + 1) * chunk);
-  int64_t k = (int64_t)blockIdx.y * chunk + threadIdx.x;
-  int x[kAhead];
-  if (k < k1) load_batch(x, idx + k, 0, R, n);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (; k < k1; k += blockDim.x) {
-    const int* ix = idx + k;
-    float4 acc = zero;
-    for (int r = 0; r < R; r += kAhead) {
-      int y[kAhead] = {};
-      if (r + kAhead < R)
-        load_batch(y, ix, r + kAhead, R, n);
-      else if (k + blockDim.x < k1)
-        load_batch(y, ix + blockDim.x, 0, R, n);
-#pragma unroll
-      for (int j = 0; j < kAhead; ++j)
-        if (r + j < R) add4(acc, (unsigned)x[j] < (unsigned)rows ? slice[x[j]] : zero);
-#pragma unroll
-      for (int j = 0; j < kAhead; ++j) x[j] = y[j];
-    }
-    out[k * vecs + s] = acc;
-  }
-}
-
-// G3's L2 branch, for tables whose slice does not fit in shared memory or
-// serves too few gathers to pay for its copies. idx (R, n); vecs = float4
-// pieces per row
+// idx (R, n); vecs = float4 pieces per row
 __global__ void __launch_bounds__(kThreads)
     gather_sum_kernel(const float4* __restrict__ table,
                       const int* __restrict__ idx, float4* __restrict__ out,
@@ -270,64 +187,13 @@ __global__ void __launch_bounds__(kThreads)
       int x = __ldg(idx + (int64_t)r * n + k);
       float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if ((unsigned)x < (unsigned)rows) val = __ldg(table + (int64_t)x * vecs + v);
-      add4(acc, val);
+      acc.x += val.x;
+      acc.y += val.y;
+      acc.z += val.z;
+      acc.w += val.w;
     }
     out[t] = acc;
   }
-}
-
-// G3's shared-memory grid: (slices, splits) and the outputs per split, or
-// a grid of 0 x 0 where the slice does not fit; `pays` where the branch
-// should be taken (below). The splits make the slices' blocks fill the
-// SMs once: as many blocks per SM as their shared memory (plus the 1 KB
-// the card keeps per block) and threads allow, and no split under a
-// block's threads. The card's limits are read, and the kernel opted in to
-// the largest shared memory, once per device.
-//
-// The branch: every block copies its slice at one L2 request per 16-byte
-// piece, scattered one lane per 128-byte line, the pattern the card takes
-// at ~100 G loads/s (l2_atomic_probe), so the copies cost ~blocks x rows
-// requests; the gathered pieces then come from shared memory at a lower
-// cost each than through L2. So the shared-memory branch is taken where
-// the slice fits and the gathered pieces outnumber kAmortize times the
-// copied ones (`pays`). chip_smoke.py times both branches at the probe's
-// case H (R = 64: the L2 branch is taken) and at R = 256 (shared memory);
-// from those two shapes the branches break even at ~20 gathered pieces a
-// copied one for case H's table. kAmortize is twice that, since the L2
-// branch gathers faster from smaller tables, which L1 partly holds.
-constexpr int64_t kAmortize = 40;
-
-cudaError_t smem_grid(int rows, int vecs, int R, int64_t n, dim3* grid, int64_t* chunk,
-                      bool* pays) {
-  struct Card { int block = 0, sm = 0, sms = 0; bool ready = false; };
-  static Card cards[64];
-  int d;
-  cudaError_t e = cudaGetDevice(&d);
-  if (e != cudaSuccess) return e;
-  if (d < 0 || d >= 64) return cudaErrorInvalidDevice;
-  Card& c = cards[d];
-  if (!c.ready) {
-    if ((e = cudaDeviceGetAttribute(&c.block, cudaDevAttrMaxSharedMemoryPerBlockOptin, d)) ||
-        (e = cudaDeviceGetAttribute(&c.sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, d)) ||
-        (e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, d)) ||
-        (e = cudaFuncSetAttribute(gather_sum_smem_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, c.block)))
-      return e;
-    c.ready = true;
-  }
-  const int64_t slice = (int64_t)rows * 16;
-  *grid = dim3(0, 0);
-  *chunk = 0;
-  *pays = false;
-  if (rows == 0 || slice > c.block || n == 0 || vecs == 0) return cudaSuccess;
-  const int64_t per_sm = std::min<int64_t>(c.sm / (slice + 1024), 2048 / kSumThreads);
-  int64_t splits = std::max<int64_t>(1, c.sms * std::max<int64_t>(per_sm, 1) / vecs);
-  splits = std::min<int64_t>({splits, (n + kSumThreads - 1) / kSumThreads, 65535});
-  *chunk = (n + splits - 1) / splits;
-  splits = (n + *chunk - 1) / *chunk;
-  *grid = dim3((unsigned)vecs, (unsigned)splits);
-  *pays = (int64_t)R * n >= kAmortize * splits * rows;
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -358,46 +224,16 @@ int take_along(const void* t, const int* idx, void* out, int R, int C,
 }
 
 // table (rows, W) f32, 16-byte aligned, W a multiple of 4; idx (R, n)
-// int32; out (n, W) f32. branch: -1 chooses by shape (smem_grid's
-// `pays`), 0 takes the L2 branch, 1 the shared-memory branch (an error
-// where the slice does not fit).
-int gather_sum_branch(const float* table, const int* idx, float* out, int R, int64_t n,
-                      int rows, int W, int branch, void* stream) {
+// int32; out (n, W) f32.
+int gather_sum(const float* table, const int* idx, float* out, int R,
+               int64_t n, int rows, int W, void* stream) {
   int vecs = W / 4;
   if (n == 0 || vecs == 0) return 0;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float4* t = reinterpret_cast<const float4*>(table);
-  float4* o = reinterpret_cast<float4*>(out);
-  dim3 grid;
-  int64_t chunk;
-  bool pays;
-  cudaError_t e = smem_grid(rows, vecs, R, n, &grid, &chunk, &pays);
-  if (e != cudaSuccess) return (int)e;
-  if (branch == 1 && grid.x == 0) return (int)cudaErrorInvalidValue;
-  if (branch == 1 || (branch == -1 && pays))
-    gather_sum_smem_kernel<<<grid, kSumThreads, (size_t)rows * 16, s>>>(t, idx, o, R, n, rows,
-                                                                      vecs, chunk);
-  else
-    gather_sum_kernel<<<blocks_for(n * vecs), kThreads, 0, s>>>(t, idx, o, R, n, rows, vecs);
+  gather_sum_kernel<<<blocks_for(n * vecs), kThreads, 0,
+                      reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(table), idx,
+      reinterpret_cast<float4*>(out), R, n, rows, vecs);
   return (int)cudaGetLastError();
-}
-
-int gather_sum(const float* table, const int* idx, float* out, int R, int64_t n, int rows,
-               int W, void* stream) {
-  return gather_sum_branch(table, idx, out, R, n, rows, W, -1, stream);
-}
-
-// The shared-memory branch's grid for these shapes (slices x splits; 0 x 0
-// where the slice does not fit) and whether gather_sum takes it.
-int gather_sum_grid(int rows, int W, int R, int64_t n, int* slices, int* splits, int* taken) {
-  dim3 grid;
-  int64_t chunk;
-  bool pays;
-  cudaError_t e = smem_grid(rows, W / 4, R, n, &grid, &chunk, &pays);
-  *slices = (int)grid.x;
-  *splits = (int)grid.y;
-  *taken = pays ? 1 : 0;
-  return (int)e;
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 """The card's rates for the memory patterns the port's kernels are built
 from: scattered f32 atomics and stores into L2 (K2's table-gradient
-scatter), gathered loads of table rows (K1's row reads, G3's L2 branch),
-and random reads from a shared-memory slice (G3's shared-memory branch).
+scatter), gathered loads of table rows (K1's and G3's row reads), and
+random reads from a shared-memory slice (what a G3 that holds a column
+slice of its table in shared memory would pay; PERF.md).
 The kernels are in csrc/blocked_encode.cu and csrc/gather.cu.
 
     python -m lsenerf_tpu_torch.l2_atomic_probe      # on the card, ~20 s
@@ -16,13 +17,13 @@ cases differ only in how many lanes of a warp instruction share a 128-byte
 line: scattered 16-byte loads one lane per line (K1 before its redesign,
 32 lines per instruction); 8 lanes on one line (8 x 16 bytes, 4 lines);
 4 lanes on one line with 4-byte loads (K1's groups, 8 lines); a warp on
-one 512-byte f32 row (G3's L2 branch, 4 lines). The bf16 table is the
+one 512-byte f32 row (G3, 4 lines). The bf16 table is the
 flagship's (rows, 64); the f32 one G3's 8192 x 128 at the probe's case H.
 
 Shared memory (`SMEM_CASES`): one block per SM fills a 128 KB slice
-(8192 rows of 16 bytes, G3's slice at case H) and then reads float4s from
-it, the lanes of a warp on random rows (G3's pattern, with bank conflicts)
-or on neighbouring rows (none).
+(8192 rows of 16 bytes, a 16-byte column slice of G3's table at case H)
+and then reads float4s from it, the lanes of a warp on random rows (G3's
+pattern, with bank conflicts) or on neighbouring rows (none).
 
 Each case prints its device ms (CUDA-graph replay, timing.device_ms) and
 its G ops/s; the first line is the card's name and power limit. The kernels

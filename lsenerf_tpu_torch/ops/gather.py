@@ -10,11 +10,7 @@ G2 `take_along(t, idx, axis)`: out[i, j] = t[idx[i, j], j] (axis 0) or
 G3 `gather_sum(table, idx)`: out[k, :] = Σ_r table[idx[r, k], :], summed in
   order r = 0, 1, ... Table (T, W) f32 with W a multiple of 4, idx (R, n)
   -> (n, W). The kernel and the plain version add in the same order, so
-  their results are bit-identical. The kernel has two branches, chosen by
-  shape (csrc/gather.cu, smem_grid): blocks that each hold a 16-byte column
-  slice of the table (T x 16 bytes) in shared memory and serve the
-  gathered rows from there, where the slice fits and the gathers amortize
-  copying it; else blocks that read the gathered rows from L2.
+  their results are bit-identical.
 
 Index contract: indices are int32 (the plain versions also take int64). An
 index outside the table (below 0, or at or past its length along the
@@ -94,10 +90,7 @@ def _library():
     lib.row_gather.argtypes = [p, p, p, i64, i, i, p]
     lib.take_along.argtypes = [p, p, p, i, i, i, i, p]
     lib.gather_sum.argtypes = [p, p, p, i, i64, i, i, p]
-    lib.gather_sum_branch.argtypes = [p, p, p, i, i64, i, i, i, p]
-    lib.gather_sum_grid.argtypes = [i, i, i, i64, p, p, p]
-    for f in (lib.row_gather, lib.take_along, lib.gather_sum, lib.gather_sum_branch,
-              lib.gather_sum_grid):
+    for f in (lib.row_gather, lib.take_along, lib.gather_sum):
         f.restype = i
     return lib
 
@@ -173,16 +166,9 @@ def take_along(t, idx, axis):
     return out
 
 
-SUM_BRANCHES = {"l2": 0, "smem": 1}
-
-
-def gather_sum(table, idx, branch=None):
+def gather_sum(table, idx):
     """G3: (T, W) f32 table, (R, n) int32 indices -> (n, W) f32, the sum
-    over r in order r = 0, 1, ... branch None lets the kernel choose by
-    shape; "l2" or "smem" takes that branch (to measure or test both; "smem"
-    raises where the slice does not fit)."""
-    if branch is not None and branch not in SUM_BRANCHES:
-        raise ValueError(f"branch must be None, 'l2' or 'smem', got {branch!r}")
+    over r in order r = 0, 1, ..."""
     if table.device.type == "cpu":
         return gather_sum_plain(table, idx)
     dev = _card(table, 2, "table")
@@ -195,23 +181,8 @@ def gather_sum(table, idx, branch=None):
     out = torch.empty((n, W), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    args = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, n, T, W)
-    if branch is None:
-        err = _library().gather_sum(*args, cuda_build.stream(table))
-    else:
-        err = _library().gather_sum_branch(*args, SUM_BRANCHES[branch], cuda_build.stream(table))
-    G3.count(err)
+    G3.count(_library().gather_sum(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, n, T, W,
+        cuda_build.stream(table),
+    ))
     return out
-
-
-def gather_sum_grid(T, W, R, n):
-    """G3's shared-memory grid on the current card for a (T, W) table and
-    (R, n) indices, and whether gather_sum takes that branch: (slices,
-    splits, taken); (0, 0, False) where the slice does not fit. Launches
-    nothing."""
-    slices, splits, taken = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = _library().gather_sum_grid(T, W, R, n, ctypes.byref(slices), ctypes.byref(splits),
-                                     ctypes.byref(taken))
-    if err:
-        raise RuntimeError(f"gather_sum_grid failed: cudaError {err}")
-    return slices.value, splits.value, bool(taken.value)

@@ -201,15 +201,20 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, fn):
     assert not called
 
 
-@pytest.mark.parametrize("branch", [None, "l2", "smem"])
-def test_gather_sum_takes_a_branch_name(branch):
-    """G3's branch names; on the CPU every branch is the plain version, and
-    a name that is no branch is refused."""
-    table = torch.arange(24, dtype=torch.float32).reshape(6, 4)
-    idx = torch.tensor([[0, 5, 9], [2, 2, -1]], dtype=torch.int32)
-    assert torch.equal(gather.gather_sum(table, idx, branch), gather.gather_sum_plain(table, idx))
-    with pytest.raises(ValueError, match="branch"):
-        gather.gather_sum(table, idx, "shared")
+@pytest.mark.parametrize("T, W, R, n", [(6, 4, 1, 3), (50, 12, 13, 37), (300, 128, 64, 5)])
+def test_gather_sum_adds_rows_in_index_order(T, W, R, n):
+    """G3 adds the gathered rows in order r = 0, 1, ... in f32, an index
+    outside the table adding a zero row: the same bits as numpy's f32 sum in
+    that order, which the kernel also keeps."""
+    rng = np.random.default_rng(T)
+    table = rng.standard_normal((T, W)).astype(np.float32) * 10.0 ** rng.integers(-3, 4, (T, 1))
+    idx = rng.integers(-2, T + 2, (R, n)).astype(np.int32)
+    want = np.zeros((n, W), np.float32)
+    for r in range(R):
+        ok = (idx[r] >= 0) & (idx[r] < T)
+        want = want + np.where(ok[:, None], table[np.clip(idx[r], 0, T - 1)], np.float32(0))
+    got = gather.gather_sum(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
 
 
 def test_gather_probe_runs_every_case_on_cpu(capsys):
