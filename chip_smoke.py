@@ -13,7 +13,8 @@ Phases, each fatal on failure (exit code 1):
      K2 is given in one real flagship train step (3a), with K1's row loads
      and K2's atomics per launch as worked out from the designs; then one
      small train step on the card against the same step on the CPU through
-     the plain versions (3b);
+     the plain versions (3b), and again under the production protocol's
+     camera and loss (RGB spline + deblur x4) with SE3 event deltas;
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
@@ -23,8 +24,11 @@ Phases, each fatal on failure (exit code 1):
      worked out from its design;
   4. the flagship train step (flagship.py) for STEPS steps on the card, with
      K1's and K2's launch counters set to 0 just before and read just after;
-  5. a `kernels` JSON line, the card line, and the result line
-     {"ok": true, "device": {...}} last.
+  4b. the same for the production protocol's train step (flagship.py with
+     production=True: RGB spline + deblur x4, 3510 rays), which must also
+     move the spline's knots;
+  5. a `kernels` JSON line (K1/K2 launches summed over phases 4 and 4b),
+     the card line, and the result line {"ok": true, "device": {...}} last.
 
 Every kernel and library call is timed three ways (lsenerf_tpu_torch/
 timing.py): `ms`, the median of single calls between CUDA events, which
@@ -281,9 +285,11 @@ def bound(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def check_small_step(dev):
+def check_small_step(dev, label, col_cam, evs_cam, deblur=False):
     """Phase 3b: one train step of a small configuration on the card (K1/K2)
-    against the same step on the CPU (plain versions), in f32."""
+    against the same step on the CPU (plain versions), in f32, with the
+    given camera optimizers (CameraOptConfig) and, with `deblur`, deblur x4
+    RGB rays."""
     import numpy as np
     import torch
 
@@ -300,14 +306,15 @@ def check_small_step(dev):
             num_levels=6, base_res=4, max_res=128, blocked_rows_log2=10)),
         grid=occ_lib.OccGridConfig(resolution=32, levels=2),
         max_samples=16, max_candidates=256, proposal_samples=8,
+        rgb_loss_type="deblur" if deblur else "linspace",
     )
-    cam = CameraOptConfig(mode="SO3xR3")
+    dmc = DataManagerConfig(train_num_rays_per_batch=96, rgb_loss_mode="deblur" if deblur else "mse")
     jitter = torch.rand((2, 32, 32, 32), generator=torch.Generator().manual_seed(2))
     out, params, bg = {}, None, None
     for d in ("cpu", dev):
         col, evs = make_synthetic_scene(n_cams=6, h=16, w=16, focal=20.0)
-        dm = MultiCamDataManager(DataManagerConfig(train_num_rays_per_batch=96), col, evs)
-        tr = Trainer(TrainerConfig(col_cam_opt=cam, evs_cam_opt=cam), mcfg, dm, device=d)
+        dm = MultiCamDataManager(dmc, col, evs)
+        tr = Trainer(TrainerConfig(col_cam_opt=col_cam, evs_cam_opt=evs_cam), mcfg, dm, device=d)
         # fresh params from the seed on the CPU, the same ones on the card
         tr.setup(params=params, occ=occ_lib.init_occ_grid(mcfg.grid, d, jitter=jitter))
         params = tr.params
@@ -318,15 +325,15 @@ def check_small_step(dev):
         out[d] = (float(loss.detach()), {p: g.detach().cpu() for p, g in grads.items()})
     (l0, g0), (l1, g1) = out["cpu"], out[dev]
     if not np.isfinite(l1) or abs(l1 - l0) > 1e-4 * abs(l0):
-        fail(f"small step: loss on the card {l1} vs CPU {l0}")
+        fail(f"small step ({label}): loss on the card {l1} vs CPU {l0}")
     worst = 0.0
     for p, g in g0.items():
         rel = float((g1[p] - g).norm() / (g.norm() + 1e-12))
         worst = max(worst, rel)
         if rel > 1e-3:
-            fail(f"small step: gradient {p} differs by {rel:.2e} (relative L2)")
-    print(f"small step card vs CPU: loss {l1:.6f} vs {l0:.6f}, worst gradient "
-          f"relative L2 difference {worst:.2e}")
+            fail(f"small step ({label}): gradient {p} differs by {rel:.2e} (relative L2)")
+    print(f"small step ({label}) card vs CPU: loss {l1:.6f} vs {l0:.6f}, worst gradient "
+          f"relative L2 difference {worst:.2e} over {len(g0)} leaves")
 
 
 def check_gathers(dev):
@@ -446,8 +453,9 @@ def check_gathers(dev):
     return res, launches
 
 
-def run_flagship(dev, card: str):
-    """Phase 4: the flagship trainer for STEPS steps on the card."""
+def run_flagship(dev, card: str, production: bool = False):
+    """Phase 4 (4b with `production`): the flagship (production) trainer for
+    STEPS steps on the card. Returns K1's and K2's launches in the run."""
     import math
 
     import torch
@@ -455,10 +463,11 @@ def run_flagship(dev, card: str):
     from lsenerf_tpu_torch.flagship import flagship_trainer
     from lsenerf_tpu_torch.ops import combine
 
+    label = "production" if production else "flagship"
     t0 = time.time()
-    trainer = flagship_trainer(device=dev)
+    trainer = flagship_trainer(device=dev, production=production)
     batches = [trainer.dm.next_train(i) for i in range(STEPS)]
-    print(f"flagship set-up {time.time() - t0:.1f} s; {trainer.model_config.field.hash.total_rows} "
+    print(f"{label} set-up {time.time() - t0:.1f} s; {trainer.model_config.field.hash.total_rows} "
           f"table rows, batch {trainer.num_rays(batches[0])} rays")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -479,15 +488,22 @@ def run_flagship(dev, card: str):
     losses = [float(m["loss"]) for m in metrics]
     psnr = float(metrics[-1]["psnr"])
     if not all(math.isfinite(x) for x in losses) or not math.isfinite(psnr):
-        fail(f"non-finite flagship loss or psnr: {losses}, psnr {psnr}")
+        fail(f"non-finite {label} loss or psnr: {losses}, psnr {psnr}")
     n_occ = (STEPS + 15) // 16
     chunks = -(-trainer.model_config.grid.levels * 65536 // 131072)
     if launches["blocked_encode_fwd"] < STEPS + n_occ * chunks or launches["blocked_encode_bwd"] < STEPS:
-        fail(f"kernel launch counts too low for {STEPS} steps: {launches}")
+        fail(f"{label}: kernel launch counts too low for {STEPS} steps: {launches}")
     rays = trainer.num_rays(batches[0])
-    print(f"flagship: {STEPS} steps, loss {losses[0]:.5f} -> {losses[-1]:.5f}, psnr {psnr:.3f}, "
+    print(f"{label}: {STEPS} steps, loss {losses[0]:.5f} -> {losses[-1]:.5f}, psnr {psnr:.3f}, "
           f"samples/ray {float(metrics[-1]['num_samples_per_ray']):.2f}")
-    print(f"flagship step: {ms:.3f} ms/step, {rays / ms * 1e3:.0f} rays/s over steps "
+    if production:
+        # gradients reached the knots on the card: they left their init
+        drift = [float(metrics[-1][f"camera_opt_{k}_col"]) for k in ("translation", "rotation")]
+        if not all(math.isfinite(x) and x > 0 for x in drift):
+            fail(f"production: spline knot drift {drift} after {STEPS} steps")
+        print(f"production: spline knot drift after {STEPS} steps: translation {drift[0]:.3e}, "
+              f"rotation {drift[1]:.3e}")
+    print(f"{label} step: {ms:.3f} ms/step, {rays / ms * 1e3:.0f} rays/s over steps "
           f"{TIMED_FROM}..{STEPS - 1}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches {launches} ({STEPS} steps, {n_occ} occupancy updates); {card}")
     return launches
@@ -522,10 +538,17 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
 
+    from lsenerf_tpu_torch.engine.trainer import CameraOptConfig
+
     res = check_kernels(dev)
-    check_small_step(dev)
+    check_small_step(dev, "ns SO3xR3", CameraOptConfig(mode="SO3xR3"), CameraOptConfig(mode="SO3xR3"))
+    check_small_step(dev, "spline + deblur, SE3 event deltas",
+                     CameraOptConfig(mode="SO3xR3", optim_type="spline"), CameraOptConfig(mode="SE3"),
+                     deblur=True)
     g_res, g_launches = check_gathers(dev)
-    launches = run_flagship(dev, card)
+    by_path = {p: run_flagship(dev, card, production=p == "production")
+               for p in ("flagship", "production")}
+    launches = {k: sum(n[k] for n in by_path.values()) for k in by_path["flagship"]}
 
     kernels = []
     for k, src_line in ((combine.K1, 58), (combine.K2, 76)):

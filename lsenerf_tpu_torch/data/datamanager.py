@@ -1,7 +1,7 @@
 """Multi-camera batch assembly. Port of lsenerf_tpu/data/datamanager.py
 with the numpy pixel sampler copied exactly, so one seed gives the same
-batches as the JAX package (the native C++ prefetcher, multi-host splits
-and the deblur budget are not ported yet)."""
+batches as the JAX package, the deblur budget included (the native C++
+prefetcher and multi-host splits are not ported yet)."""
 
 from __future__ import annotations
 
@@ -17,15 +17,19 @@ from lsenerf_tpu_torch.data.dataset import ColorDataset, EventFrameDataset
 class DataManagerConfig:
     train_num_rays_per_batch: int = 3512
     rgb_frac: float = 0.66
+    rgb_loss_mode: str = "mse"  # mse | deblur
 
     def __post_init__(self):
         """The ray budget split: events get (1-rgb_frac)/2 each for prev and
-        next, RGB the rest (the deblur split is not ported yet)."""
+        next, RGB the rest; under deblur a quarter of the rest, since each
+        RGB pixel is rendered as 4 exposure rays."""
+        self.rgb_loss_mode = self.rgb_loss_mode.lower()
         self.train_num_evs_rays_per_batch = int(
             (1 - self.rgb_frac) * self.train_num_rays_per_batch * 0.5
         )
+        n_col = self.train_num_rays_per_batch - self.train_num_evs_rays_per_batch * 2
         self.train_num_col_rays_per_batch = (
-            self.train_num_rays_per_batch - self.train_num_evs_rays_per_batch * 2
+            int(n_col * 0.25) if self.rgb_loss_mode == "deblur" else n_col
         )
 
 
@@ -38,6 +42,9 @@ class MultiCamDataManager:
         self.col = col_dataset
         self.evs = evs_dataset
         self.rng = np.random.default_rng(seed)
+        # rows of the appearance table: the largest id of either stream + 1
+        ids = [int(d.appearance_ids.max()) for d in (col_dataset, evs_dataset) if d is not None]
+        self.num_embd = max(ids) + 1 if ids else 1
 
     def _sample_pixels(self, n: int, num_images: int, h: int, w: int):
         c = self.rng.integers(0, num_images, size=n)
@@ -61,7 +68,9 @@ class MultiCamDataManager:
         if n_evs > 0 and self.evs is not None:
             ev = self.evs.eimgs
             # consecutive pairing needs camera i+1 to exist
-            max_frame = min(len(ev), len(self.evs.cameras) - 1)
+            max_frame = len(ev) if self.evs.prev_cameras is not None else min(
+                len(ev), len(self.evs.cameras) - 1
+            )
             c, y, x = self._sample_pixels(n_evs, max_frame, *ev.shape[1:3])
             batch["evs_indices"] = np.stack([c, y, x], axis=1)
             batch["evs_values"] = self.evs.get_scaled((c, y, x))

@@ -1,8 +1,10 @@
 """Trainer: parameters, the three-bundle train step, Adam in two groups and
 the occupancy-grid cadence. Port of lsenerf_tpu/engine/trainer.py for the
-flagship path: `ns` SO3xR3 camera deltas for both cameras and consecutive
-event cameras. The spline and prev/next camera optimizers, the eval and
-pretrain modes, and data parallelism are not ported yet.
+train mode: the camera optimizers `ns` (SO3xR3 or SE3 deltas), `spline`
+(the RGB spline, with deblur's 4 exposure poses, and the event cameras on
+it through dM) and `prevnext` (explicit prev/next event cameras, detected
+from the dataset), and deblur with any of them. The eval and pretrain
+modes and data parallelism are not ported yet.
 
 `Trainer.step(batch)` is the public entry. PyTorch runs eagerly, so there
 is no jitted step: the step is the forward, `backward()` and the optimizer
@@ -11,7 +13,7 @@ update, on `self.device`.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field as dc_field
+from dataclasses import dataclass, field as dc_field, replace
 from typing import Optional
 
 import numpy as np
@@ -40,16 +42,18 @@ class OptimizerGroupConfig:
 
 @dataclass
 class CameraOptConfig:
-    mode: str = "off"  # off | SO3xR3
-    optim_type: str = "ns"
+    mode: str = "off"  # off | SO3xR3 | SE3
+    optim_type: str = "ns"  # ns | spline | prevnext
     scheme: str = "active"  # active | delayed
     delay_cnt: int = 10000
+    exp_t: float = 30000.0  # exposure time, for deblur's spline poses
+    control_pnt_factor: int = 1  # spline knots per camera interval
 
     def __post_init__(self):
-        if self.optim_type != "ns":
-            raise NotImplementedError(
-                f"camera optim_type={self.optim_type!r}: only 'ns' is ported"
-            )
+        if self.optim_type not in ("ns", "spline", "prevnext"):
+            raise ValueError(f"unknown camera optim_type {self.optim_type!r}")
+        if self.mode not in ("off", "SO3xR3", "SE3"):
+            raise ValueError(f"unknown camera-opt mode {self.mode!r}")
         if self.mode == "off":
             self.scheme = "active"
 
@@ -95,14 +99,37 @@ class Trainer:
     """Owns the data manager, configs, parameters, optimizer and grid."""
 
     def __init__(self, config: TrainerConfig, model_config: model_lib.ModelConfig,
-                 dm: MultiCamDataManager, device=None):
-        self.config = config
+                 dm: MultiCamDataManager, device=None, all_cameras=None):
+        """`all_cameras`: the full RGB trajectory the spline's knots are
+        placed on, where the train split is only part of it; by default
+        the train cameras."""
         self.model_config = model_config
         self.dm = dm
         self.device = resolve_device(device)
         self.col_cams = dm.col.cameras.to(self.device) if dm.col is not None else None
         self.evs_cams = dm.evs.cameras.to(self.device) if dm.evs is not None else None
         self.rgb_ts = self.col_cams.times if self.col_cams is not None else None
+
+        self.col_spline_params = self.col_spline_static = None
+        cc = config.col_cam_opt
+        if cc.optim_type == "spline":
+            cams = all_cameras if all_cameras is not None else dm.col.cameras
+            c2w = cams.camera_to_worlds.cpu().numpy()
+            bottom = np.broadcast_to(np.array([[[0.0, 0, 0, 1]]], np.float32), (len(cams), 1, 4))
+            self.col_spline_params, self.col_spline_static = pose_opt.init_spline(
+                np.concatenate([c2w, bottom], axis=1), cams.times.cpu().numpy(),
+                control_pnt_factor=cc.control_pnt_factor, dM=getattr(dm.col, "dM", None),
+                exp_t=cc.exp_t, device=self.device,
+            )
+
+        # explicit prev/next event cameras select the prevnext optimizer
+        self.prev_cams = self.next_cams = None
+        if dm.evs is not None and dm.evs.prev_cameras is not None:
+            self.prev_cams = dm.evs.prev_cameras.to(self.device)
+            self.next_cams = dm.evs.next_cameras.to(self.device)
+            if config.evs_cam_opt.optim_type != "spline":
+                config = replace(config, evs_cam_opt=replace(config.evs_cam_opt, optim_type="prevnext"))
+        self.config = config
         self.params = None
         self.occ = None
         self.step_count = 0
@@ -112,9 +139,14 @@ class Trainer:
     def init_params(self, generator: torch.Generator) -> dict:
         model = model_lib.init_model(generator, self.model_config, device=self.device)
         cam = {"col": {}, "evs": {}}
-        if self.config.col_cam_opt.mode != "off" and self.dm.col is not None:
+        cc, ec = self.config.col_cam_opt, self.config.evs_cam_opt
+        if cc.optim_type == "spline":
+            cam["col"] = {k: v.clone() for k, v in self.col_spline_params.items()}
+        elif cc.mode != "off" and self.dm.col is not None:
             cam["col"] = pose_opt.init_pose_deltas(len(self.dm.col.cameras), self.device)
-        if self.config.evs_cam_opt.mode != "off" and self.dm.evs is not None:
+        if self.dm.evs is not None and ec.optim_type == "prevnext":
+            cam["evs"] = pose_opt.init_prevnext_deltas(len(self.prev_cams), self.device)
+        elif self.dm.evs is not None and ec.optim_type == "ns" and ec.mode != "off":
             cam["evs"] = pose_opt.init_pose_deltas(len(self.dm.evs.cameras), self.device)
         return {"model": model, "camera_opt": cam}
 
@@ -136,24 +168,60 @@ class Trainer:
     # -- bundles -------------------------------------------------------------
 
     def _make_col_bundle(self, cam_params, batch, gate):
+        """RGB rays; under deblur 4 a pixel, the 4 of a pixel together, on
+        the spline's exposure poses or else on the pixel's one pose."""
         cfg = self.config.col_cam_opt
+        cams = self.col_cams
         idx = batch["col_indices"][:, 0]
         coords = batch["col_indices"][:, 1:].float()
-        bundle = cam_lib.generate_rays(self.col_cams, idx, coords)
-        if cfg.mode != "off":
-            bundle = pose_opt.apply_pose_deltas_to_bundle(cam_params["col"], bundle, gate, cfg.mode)
-        return bundle.replace(metadata={"appearance_id": batch["col_app_id"]})
+        deblur = self.model_config.rgb_loss_type == "deblur"
+        if deblur:
+            idx_r, coords_r = idx.repeat_interleave(4), coords.repeat_interleave(4, dim=0)
+        else:
+            idx_r, coords_r = idx, coords
+        if cfg.optim_type == "spline":
+            times = cams.times[idx]
+            static = self.col_spline_static
+            if deblur:
+                c2w = pose_opt.spline_deblur_c2w(cam_params["col"], static, times[:, None], gate)
+            else:
+                c2w = pose_opt.spline_rgb_c2w(cam_params["col"], static, times, gate)
+            bundle = cam_lib.generate_rays(cams, idx_r, coords_r, c2w=c2w)
+        else:
+            bundle = cam_lib.generate_rays(cams, idx_r, coords_r)
+            if cfg.mode != "off":
+                bundle = pose_opt.apply_pose_deltas_to_bundle(cam_params["col"], bundle, gate, cfg.mode)
+        app = batch["col_app_id"]
+        if deblur:
+            # the exposure rays take the neighbouring appearance ids
+            delta = torch.arange(4, device=app.device) - 2
+            app = torch.clamp(app[:, None] + delta[None], 0, self.dm.num_embd - 1).reshape(-1)
+        return bundle.replace(metadata={"appearance_id": app})
 
     def _make_evs_bundles(self, cam_params, batch, gate):
-        """Consecutive cameras: frame i spans cameras i and i+1."""
+        """Frame i spans prev_cameras[i] and next_cameras[i] where the
+        dataset has them, else cameras i and i+1 (on the spline through dM
+        when the event cameras use it)."""
         cfg = self.config.evs_cam_opt
         idx = batch["evs_indices"][:, 0]
         coords = batch["evs_indices"][:, 1:].float()
-        prev = cam_lib.generate_rays(self.evs_cams, idx, coords)
-        nxt = cam_lib.generate_rays(self.evs_cams, idx + 1, coords)
-        if cfg.mode != "off":
-            prev = pose_opt.apply_pose_deltas_to_bundle(cam_params["evs"], prev, gate, cfg.mode)
-            nxt = pose_opt.apply_pose_deltas_to_bundle(cam_params["evs"], nxt, gate, cfg.mode)
+        if self.prev_cams is not None:
+            prev = cam_lib.generate_rays(self.prev_cams, idx, coords)
+            nxt = cam_lib.generate_rays(self.next_cams, idx, coords)
+            if cfg.optim_type == "prevnext" and cfg.mode != "off":
+                prev, nxt = pose_opt.apply_prevnext_to_bundles(cam_params["evs"], prev, nxt, gate, cfg.mode)
+        elif cfg.optim_type == "spline":
+            cams, static = self.evs_cams, self.col_spline_static
+            c2w_p = pose_opt.spline_evs_c2w(cam_params["col"], static, cams.times[idx], gate)
+            c2w_n = pose_opt.spline_evs_c2w(cam_params["col"], static, cams.times[idx + 1], gate)
+            prev = cam_lib.generate_rays(cams, idx, coords, c2w=c2w_p)
+            nxt = cam_lib.generate_rays(cams, idx + 1, coords, c2w=c2w_n)
+        else:
+            prev = cam_lib.generate_rays(self.evs_cams, idx, coords)
+            nxt = cam_lib.generate_rays(self.evs_cams, idx + 1, coords)
+            if cfg.mode != "off":
+                prev = pose_opt.apply_pose_deltas_to_bundle(cam_params["evs"], prev, gate, cfg.mode)
+                nxt = pose_opt.apply_pose_deltas_to_bundle(cam_params["evs"], nxt, gate, cfg.mode)
         app = batch["evs_app_id"]
         out = []
         for b in (prev, nxt):
@@ -186,7 +254,7 @@ class Trainer:
         has_col, has_evs = self._has()
         n = 0
         if has_col:
-            n += len(batch["col_indices"])
+            n += len(batch["col_indices"]) * (4 if self.model_config.rgb_loss_type == "deblur" else 1)
         if has_evs:
             n += 2 * len(batch["evs_indices"])
         return n
@@ -232,29 +300,51 @@ class Trainer:
         )
         total = sum(loss_dict.values())
         metrics = dict(loss_dict)
-        for name, cp in cam_params.items():
-            if "pose_adjustment" in cp:
-                pa = cp["pose_adjustment"]
-                metrics[f"camera_opt_translation_{name}"] = torch.linalg.norm(pa[:, :3])
-                metrics[f"camera_opt_rotation_{name}"] = torch.linalg.norm(pa[:, 3:])
+        metrics.update(self._camera_metrics(cam_params))
         if col_out is not None:
             mse = ((col_out["rgb"] - col_batch["image"]) ** 2).mean()
             metrics["psnr"] = -10.0 * torch.log10(mse)
             metrics["num_samples_per_ray"] = col_out["num_samples_per_ray"].float().mean()
         return total, metrics
 
+    def _camera_metrics(self, cam_params: dict) -> dict:
+        """Norms of the active optimizers' parameters: the deltas (per
+        branch for prevnext), or the spline knots' drift from the
+        trajectory this trainer initialised and the scale's from 1."""
+        metrics = {}
+
+        def norms(key, pa):
+            pa = pa.detach()
+            metrics[f"camera_opt_translation_{key}"] = torch.linalg.norm(pa[:, :3])
+            metrics[f"camera_opt_rotation_{key}"] = torch.linalg.norm(pa[:, 3:])
+
+        for name, cp in cam_params.items():
+            if "pose_adjustment" in cp:
+                norms(name, cp["pose_adjustment"])
+            for sub in ("prev", "next"):
+                if sub in cp:
+                    norms(f"{name}_{sub}", cp[sub]["pose_adjustment"])
+            if "ctrl_tangents" in cp and self.col_spline_params is not None:
+                norms(name, cp["ctrl_tangents"] - self.col_spline_params["ctrl_tangents"])
+                metrics[f"camera_opt_scale_drift_{name}"] = (cp["scale"].detach()[0] - 1.0).abs()
+        return metrics
+
     def _draw_background(self, n: int) -> torch.Tensor:
         return torch.rand((n, 3), generator=self._gen, device=self.device)
 
     def grads(self, batch: dict, bg_color=None):
         """Loss, metrics and the gradients (a dict path -> tensor) of one
-        step's loss at the current parameters; nothing is updated."""
+        step's loss at the current parameters; nothing is updated. A leaf
+        outside this step's graph (the spline's scale when the event
+        cameras are not on the spline) gets zeros, as JAX gives it; its
+        .grad stays None, so Adam leaves it as it is."""
         if bg_color is None:
             bg_color = self._draw_background(self.num_rays(batch))
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss_fn(self.params, self.occ, batch, self.step_count, bg_color)
         loss.backward()
-        grads = {p: t.grad for p, t in tree_leaves(self.params)}
+        grads = {p: torch.zeros_like(t) if t.grad is None else t.grad
+                 for p, t in tree_leaves(self.params)}
         return loss, metrics, grads
 
     def step(self, batch: dict, bg_color=None) -> dict:

@@ -42,6 +42,8 @@ class ModelConfig:
     mapping_method: str = "identity"
     evs_mapping_method: str = "powpow"
     ev_one_dim: Optional[str] = "gt"  # RGB -> gray before the event mapper
+    # deblur: an RGB pixel is the mean of 4 rays across its exposure
+    rgb_loss_type: str = "linspace"  # linspace | deblur
 
     def march_config(self) -> march.MarchConfig:
         step = self.render_step_size
@@ -117,8 +119,10 @@ def postprocess_outputs(
 ) -> dict:
     """co_map routing on raw render outputs: the RGB mapper makes rgb; for
     event bundles (or eval) the clamped linear radiance, reduced to one
-    channel by ev_one_dim, goes through the event mapper. Then the train
-    clamp (min 1e-5) or the eval clamp [0, 1]."""
+    channel by ev_one_dim, goes through the event mapper. Under deblur an
+    RGB bundle in training then averages each pixel's 4 exposure rays
+    (consecutive rows). Then the train clamp (min 1e-5) or the eval clamp
+    [0, 1]."""
     out = dict(out)
     clamp_out = torch.clamp(out["rgb"], min=1e-5)
     out["rgb"] = mapper_lib.apply_mapper(config.mapping_method, params["rgb_mapper"], clamp_out)
@@ -129,6 +133,8 @@ def postprocess_outputs(
         out["ev_out"] = mapper_lib.apply_mapper(
             config.evs_mapping_method, params["evs_mapper"], ev_linear
         )
+    if config.rgb_loss_type == "deblur" and train and not ev_out:
+        out["rgb"] = out["rgb"].reshape(-1, 4, 3).mean(1)
     if train:
         out["rgb"] = torch.clamp(out["rgb"], min=1e-5)
     else:

@@ -1,14 +1,16 @@
 """Where the flagship train step's time goes on the card.
 
-    python -m lsenerf_tpu_torch.profile_step [--warm 20] [--steps 8] [--out outputs/profile]
+    python -m lsenerf_tpu_torch.profile_step [--production] [--warm 20] [--steps 8] [--out outputs/profile]
 
-Runs the flagship trainer (flagship.py) for `--warm` steps, then traces
+Runs the flagship trainer (flagship.py), or with `--production` the
+production protocol's (RGB spline + deblur x4), for `--warm` steps, then traces
 `--steps` steps with torch.profiler (CPU and CUDA activities, no occupancy
 update inside the window). Prints the step time from CUDA events, the
 device's busy time per step (the union of kernel intervals on the card),
 its idle share, the device time of the blocked-encode kernels, and the top
 kernels by device time; writes the full table and a Chrome trace under
-`--out`. Needs a CUDA device.
+`--out` (profile_step[_production].txt and ..._trace.json.gz). Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ def _busy_ms(events) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--production", action="store_true",
+                    help="trace the production protocol's trainer")
     ap.add_argument("--warm", type=int, default=20)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", default="outputs/profile")
@@ -56,7 +60,8 @@ def main(argv=None) -> int:
     ).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    trainer = flagship_trainer()
+    trainer = flagship_trainer(production=args.production)
+    label = "production" if args.production else "flagship"
     interval = trainer.model_config.grid.update_interval
     n = args.warm + args.steps
     batches = [trainer.dm.next_train(i) for i in range(n)]
@@ -91,7 +96,7 @@ def main(argv=None) -> int:
     total_dev = sum(v[0] for v in kern.values()) / args.steps
     rays = trainer.num_rays(batches[0])
     print(f"card: {card}")
-    print(f"flagship step {step_ms:.3f} ms ({rays / step_ms * 1e3:.0f} rays/s) over "
+    print(f"{label} step {step_ms:.3f} ms ({rays / step_ms * 1e3:.0f} rays/s) over "
           f"{args.steps} traced steps; device busy {busy:.3f} ms/step, idle share "
           f"{1 - busy / step_ms:.3f}; kernel time sum {total_dev:.3f} ms/step; "
           f"{len(dev_events) / args.steps:.0f} device events/step")
@@ -103,10 +108,11 @@ def main(argv=None) -> int:
     for name, (t, c) in top[:15]:
         print(f"  {t / args.steps:8.4f} ms  {c / args.steps:6.1f}x  {name[:90]}")
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_step.txt"), "w") as f:
+    name = "profile_step_production" if args.production else "profile_step"
+    with open(os.path.join(args.out, f"{name}.txt"), "w") as f:
         f.write(f"card: {card}\n")
         f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
-    prof.export_chrome_trace(os.path.join(args.out, "profile_step_trace.json.gz"))
+    prof.export_chrome_trace(os.path.join(args.out, f"{name}_trace.json.gz"))
     return 0
 
 

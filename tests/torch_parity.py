@@ -7,20 +7,27 @@ hash grid with dense and hashed levels, a 32^3 x 2 occupancy grid with 256
 candidates (hierarchical march with the packed phase-2 rule: 256 % 8 == 0,
 32 % 8 == 0, (32/8) % 4 == 0, 256/8 > 24, 8^3 % 32 == 0), 16 samples
 resampled to 8 by the proposal, co_map with identity/powpow mappers and
-SO3xR3 `ns` camera deltas. f32 throughout unless a test asks for bf16."""
+SO3xR3 `ns` camera deltas. f32 throughout unless a test asks for bf16.
+`trainers` also takes the other camera optimizers (spline, prevnext, SE3
+deltas), deblur, an RGB-to-event extrinsic and explicit prev/next event
+cameras."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from lsenerf_tpu.cameras import cameras as jcams
 from lsenerf_tpu.data import datamanager as jdm
+from lsenerf_tpu.data import dataset as jds
 from lsenerf_tpu.data import synthetic as jsyn
 from lsenerf_tpu.engine import trainer as jtr
 from lsenerf_tpu.models import field as jfield
 from lsenerf_tpu.models import lsenerf as jmodel
 from lsenerf_tpu.ops import hash_encoding as jhe
 from lsenerf_tpu.ops import occupancy as jocc
+from lsenerf_tpu_torch.cameras import cameras as tcams
 from lsenerf_tpu_torch.data import datamanager as tdm
+from lsenerf_tpu_torch.data import dataset as tds
 from lsenerf_tpu_torch.data import synthetic as tsyn
 from lsenerf_tpu_torch.engine import trainer as ttr
 from lsenerf_tpu_torch.models import field as tfield
@@ -36,8 +43,7 @@ MODEL = dict(
     mapping_method="identity", evs_mapping_method="powpow", ev_one_dim="gt",
 )
 # the JAX options whose values the port has built in
-JAX_ONLY = dict(packed_phase2=True, use_mapping=True, map_mode="co_map",
-                rgb_loss_type="linspace")
+JAX_ONLY = dict(packed_phase2=True, use_mapping=True, map_mode="co_map")
 SCENE = dict(n_cams=6, h=16, w=16, focal=20.0)
 
 
@@ -50,15 +56,15 @@ def hash_configs(dtype="float32", **over):
     return j, the.HashEncodingConfig(**kw)
 
 
-def model_configs(dtype="float32"):
+def model_configs(dtype="float32", rgb_loss_type="linspace"):
     jh, th = hash_configs(dtype)
     j = jmodel.ModelConfig(
         field=jfield.FieldConfig(hash=jh, compute_dtype=dtype),
-        grid=jocc.OccGridConfig(**GRID), **MODEL, **JAX_ONLY,
+        grid=jocc.OccGridConfig(**GRID), rgb_loss_type=rgb_loss_type, **MODEL, **JAX_ONLY,
     )
     t = tmodel.ModelConfig(
         field=tfield.FieldConfig(hash=th, compute_dtype=dtype),
-        grid=tocc.OccGridConfig(**GRID), **MODEL,
+        grid=tocc.OccGridConfig(**GRID), rgb_loss_type=rgb_loss_type, **MODEL,
     )
     return j, t
 
@@ -75,31 +81,59 @@ def sparse_grid(seed=0, radius=0.8):
     return occs, occs > min(float(occs.mean()), 0.01)
 
 
-def trainers(dtype="float32", rays=96, dm_seed=0):
-    """(JAX trainer, its state, port trainer set up with the JAX params)."""
+def with_prevnext(evs, ds, cams, as_array):
+    """The event dataset `evs` again, from the same numpy arrays, with
+    explicit prev = cameras[:-1] and next = cameras[1:]: `ds` and `cams`
+    are one package's dataset and cameras modules, `as_array` its numpy ->
+    array conversion."""
+    c = evs.cameras
+    c2w, times = np.asarray(c.camera_to_worlds), np.asarray(c.times)
+
+    def sub(sl):
+        return cams.Cameras(camera_to_worlds=as_array(c2w[sl]), fx=c.fx, fy=c.fy, cx=c.cx,
+                            cy=c.cy, width=c.width, height=c.height, times=as_array(times[sl]))
+
+    return ds.EventFrameDataset(
+        eimgs=evs.eimgs, cameras=c, e_thresh=evs.e_thresh, appearance_ids=evs.appearance_ids,
+        prev_cameras=sub(slice(None, -1)), next_cameras=sub(slice(1, None)),
+    )
+
+
+CAM = dict(mode="SO3xR3", optim_type="ns")
+
+
+def trainers(dtype="float32", rays=96, dm_seed=0, col_cam=CAM, evs_cam=CAM, deblur=False,
+             dM=None, prevnext=False):
+    """(JAX trainer, its state, port trainer set up with the JAX params).
+    `col_cam`/`evs_cam` are CameraOptConfig fields; `deblur` sets both the
+    model's rgb_loss_type and the data manager's rgb_loss_mode; `dM` is
+    set on both colour datasets; `prevnext` gives both event datasets
+    explicit prev/next cameras."""
     import jax
+    import torch
 
     from lsenerf_tpu_torch import convert
 
-    jm, tm = model_configs(dtype)
-    cam = dict(mode="SO3xR3", optim_type="ns")
+    jm, tm = model_configs(dtype, rgb_loss_type="deblur" if deblur else "linspace")
+    dmc = dict(train_num_rays_per_batch=rays, rgb_loss_mode="deblur" if deblur else "mse")
     jcol, jevs = jsyn.make_synthetic_scene(**SCENE)
-    jd = jdm.MultiCamDataManager(
-        jdm.DataManagerConfig(train_num_rays_per_batch=rays), jcol, jevs, seed=dm_seed
-    )
+    tcol, tevs = tsyn.make_synthetic_scene(**SCENE)
+    if dM is not None:
+        jcol.dM = tcol.dM = np.asarray(dM, np.float32)
+    if prevnext:
+        jevs = with_prevnext(jevs, jds, jcams, jax.numpy.asarray)
+        tevs = with_prevnext(tevs, tds, tcams, torch.from_numpy)
+    jd = jdm.MultiCamDataManager(jdm.DataManagerConfig(**dmc), jcol, jevs, seed=dm_seed)
     jt = jtr.Trainer(
-        jtr.TrainerConfig(col_cam_opt=jtr.CameraOptConfig(**cam),
-                          evs_cam_opt=jtr.CameraOptConfig(**cam)),
+        jtr.TrainerConfig(col_cam_opt=jtr.CameraOptConfig(**col_cam),
+                          evs_cam_opt=jtr.CameraOptConfig(**evs_cam)),
         jm, jd,
     )
     state = jt.setup(jax.random.PRNGKey(0))
-    tcol, tevs = tsyn.make_synthetic_scene(**SCENE)
-    td = tdm.MultiCamDataManager(
-        tdm.DataManagerConfig(train_num_rays_per_batch=rays), tcol, tevs, seed=dm_seed
-    )
+    td = tdm.MultiCamDataManager(tdm.DataManagerConfig(**dmc), tcol, tevs, seed=dm_seed)
     tt = ttr.Trainer(
-        ttr.TrainerConfig(col_cam_opt=ttr.CameraOptConfig(**cam),
-                          evs_cam_opt=ttr.CameraOptConfig(**cam)),
+        ttr.TrainerConfig(col_cam_opt=ttr.CameraOptConfig(**col_cam),
+                          evs_cam_opt=ttr.CameraOptConfig(**evs_cam)),
         tm, td, device="cpu",
     )
     p = jax.tree.map(np.asarray, state.params)
