@@ -8,13 +8,18 @@ Phases, each fatal on failure (exit code 1):
   2. build the kernels (lsenerf_tpu_torch/csrc/*.cu) with nvcc, one
      process per source, all started together;
   3. hold K1 (blocked_encode_fwd) and K2 (blocked_encode_bwd) against their
-     plain PyTorch versions and time both, at two inputs of the flagship's
-     shape: uniform random positions, and the positions and cotangent that
-     K2 is given in one real flagship train step (3a), with K1's row loads
-     and K2's atomics per launch as worked out from the designs; then one
-     small train step on the card against the same step on the CPU through
-     the plain versions (3b), and again under the production protocol's
-     camera and loss (RGB spline + deblur x4) with SE3 event deltas;
+     plain PyTorch versions and time both, at three inputs: uniform random
+     positions at the flagship's shape, and the positions and cotangent
+     that K2 is given in one real flagship train step and in one real
+     lsenerf_emb step (168,480 samples, 48 a ray) (3a), with K1's row loads
+     and K2's atomics per launch as worked out from the designs; then small
+     train steps on the card against the same steps on the CPU through the
+     plain versions (3b): the flagship's model under `ns` deltas and under
+     the production protocol's camera and loss (RGB spline + deblur x4)
+     with SE3 event deltas; evs_rgb with an `rgb_mlp` mapper, the learned
+     reducer, enerf_norm_loss and a white background; rgb_evs with
+     `rgb_mlp`, denerf, the flat march and the last-sample background; and
+     the mappers' identity pretrain on the card, timed;
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
@@ -27,7 +32,11 @@ Phases, each fatal on failure (exit code 1):
   4b. the same for the production protocol's train step (flagship.py with
      production=True: RGB spline + deblur x4, 3510 rays), which must also
      move the spline's knots;
-  5. a `kernels` JSON line (K1/K2 launches summed over phases 4 and 4b),
+  4c. the same for the lsenerf_emb preset (flagship.preset_trainer: one
+     appearance row per image, F=0, 3510 rays x 48 samples);
+  4d. the same for the badnerf preset (RGB only, no mapping, 878 pixels x
+     4 = 3512 rays);
+  5. a `kernels` JSON line (K1/K2 launches summed over phases 4 to 4d),
      the card line, and the result line {"ok": true, "device": {...}} last.
 
 Every kernel and library call is timed three ways (lsenerf_tpu_torch/
@@ -250,8 +259,9 @@ def check_encode(name, pos, table, gfeat, lv):
 
 def check_kernels(dev):
     """Phase 3a: K1/K2 against their plain versions at the flagship's shape,
-    on uniform random positions and on one real step's inputs. Returns the
-    uniform shape's results, with the step's under "shapes"."""
+    on uniform random positions, on one real flagship step's inputs and on
+    one real lsenerf_emb step's (48 samples a ray). Returns the uniform
+    shape's results, with the steps' under "shapes" ("step", "step_emb")."""
     import torch
 
     from lsenerf_tpu_torch.flagship import flagship_model_config, step_encode_inputs
@@ -273,8 +283,15 @@ def check_kernels(dev):
     spos, stable, sgfeat, slv = step_encode_inputs(dev)
     print(f"one flagship step for K2's inputs: {time.time() - t0:.1f} s, n={spos.shape[0]}")
     step = check_encode("one flagship step's inputs", spos, stable, sgfeat, slv)
+    del spos, stable, sgfeat
+    t0 = time.time()
+    epos, etable, egfeat, elv = step_encode_inputs(dev, preset="lsenerf_emb")
+    print(f"one lsenerf_emb step for K2's inputs: {time.time() - t0:.1f} s, n={epos.shape[0]}")
+    if epos.shape[0] != 3510 * 48:
+        fail(f"an lsenerf_emb step gave K2 {epos.shape[0]} samples, not 3510 x 48")
+    emb = check_encode("one lsenerf_emb step's inputs", epos, etable, egfeat, elv)
     for k in res:
-        res[k]["shapes"] = {"step": step[k]}
+        res[k]["shapes"] = {"step": step[k], "step_emb": emb[k]}
     return res
 
 
@@ -285,11 +302,17 @@ def bound(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def check_small_step(dev, label, col_cam, evs_cam, deblur=False):
+# the flagship's model modes, which the small steps change by `model`
+FLAGSHIP_MODES = dict(use_mapping=True, map_mode="co_map", mapping_method="identity",
+                      evs_mapping_method="powpow", ev_one_dim="gt")
+
+
+def check_small_step(dev, label, col_cam, evs_cam, deblur=False, model=None):
     """Phase 3b: one train step of a small configuration on the card (K1/K2)
     against the same step on the CPU (plain versions), in f32, with the
-    given camera optimizers (CameraOptConfig) and, with `deblur`, deblur x4
-    RGB rays."""
+    given camera optimizers (CameraOptConfig), with `deblur` deblur x4 RGB
+    rays, and the flagship's model modes updated by `model` (ModelConfig
+    fields). A mapper MLP is pretrained on the CPU and moved to the card."""
     import numpy as np
     import torch
 
@@ -306,7 +329,7 @@ def check_small_step(dev, label, col_cam, evs_cam, deblur=False):
             num_levels=6, base_res=4, max_res=128, blocked_rows_log2=10)),
         grid=occ_lib.OccGridConfig(resolution=32, levels=2),
         max_samples=16, max_candidates=256, proposal_samples=8,
-        rgb_loss_type="deblur" if deblur else "linspace",
+        rgb_loss_type="deblur" if deblur else "linspace", **dict(FLAGSHIP_MODES, **(model or {})),
     )
     dmc = DataManagerConfig(train_num_rays_per_batch=96, rgb_loss_mode="deblur" if deblur else "mse")
     jitter = torch.rand((2, 32, 32, 32), generator=torch.Generator().manual_seed(2))
@@ -319,9 +342,9 @@ def check_small_step(dev, label, col_cam, evs_cam, deblur=False):
         tr.setup(params=params, occ=occ_lib.init_occ_grid(mcfg.grid, d, jitter=jitter))
         params = tr.params
         batch = tr.batch_to_device(dm.next_train(0))
-        if bg is None:
+        if bg is None and mcfg.background_color == "random":
             bg = torch.rand((tr.num_rays(batch), 3), generator=torch.Generator().manual_seed(1))
-        loss, _, grads = tr.grads(batch, bg_color=bg.to(d))
+        loss, _, grads = tr.grads(batch, bg_color=None if bg is None else bg.to(d))
         out[d] = (float(loss.detach()), {p: g.detach().cpu() for p, g in grads.items()})
     (l0, g0), (l1, g1) = out["cpu"], out[dev]
     if not np.isfinite(l1) or abs(l1 - l0) > 1e-4 * abs(l0):
@@ -334,6 +357,33 @@ def check_small_step(dev, label, col_cam, evs_cam, deblur=False):
             fail(f"small step ({label}): gradient {p} differs by {rel:.2e} (relative L2)")
     print(f"small step ({label}) card vs CPU: loss {l1:.6f} vs {l0:.6f}, worst gradient "
           f"relative L2 difference {worst:.2e} over {len(g0)} leaves")
+
+
+def check_pretrain(dev):
+    """Phase 3b: the mappers' identity pretrain (5000 Adam steps of a 4 x 16
+    MLP) on the card and on the CPU, timed, each from its device's
+    generator: each fit within 0.05 of the identity on the 100-point
+    linspace. Fits drift apart chaotically with rounding, as torch's and
+    optax's do (tests/test_torch_mappers_losses.py), and land 0.010-0.035
+    from it."""
+    import torch
+
+    from lsenerf_tpu_torch.models import mappers as mapper_lib
+
+    x = torch.linspace(0, 1, 100)[:, None]
+    for name, d in (("mlp", 1), ("rgb_mlp", 3)):
+        for dv in (dev, "cpu"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fit = mapper_lib.init_mapper(name, torch.Generator(device=dv).manual_seed(0), dv)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            err = float((mapper_lib.apply_mapper(name, fit, x.expand(100, d).to(dv)).cpu()
+                         - x).abs().max())
+            if not err < 0.05:
+                fail(f"{name} pretrain on {dv}: {err} from the identity")
+            print(f"{name} identity pretrain on {dv}: {secs:.2f} s for {mapper_lib.PRETRAIN_STEPS} "
+                  f"steps, max |fit - identity| {err:.4f} on the linspace")
 
 
 def check_gathers(dev):
@@ -453,19 +503,17 @@ def check_gathers(dev):
     return res, launches
 
 
-def run_flagship(dev, card: str, production: bool = False):
-    """Phase 4 (4b with `production`): the flagship (production) trainer for
-    STEPS steps on the card. Returns K1's and K2's launches in the run."""
+def run_path(dev, card: str, label: str, make):
+    """Phases 4-4d: the trainer `make(device)` builds for STEPS steps on the
+    card. Returns K1's and K2's launches in the run."""
     import math
 
     import torch
 
-    from lsenerf_tpu_torch.flagship import flagship_trainer
     from lsenerf_tpu_torch.ops import combine
 
-    label = "production" if production else "flagship"
     t0 = time.time()
-    trainer = flagship_trainer(device=dev, production=production)
+    trainer = make(dev)
     batches = [trainer.dm.next_train(i) for i in range(STEPS)]
     print(f"{label} set-up {time.time() - t0:.1f} s; {trainer.model_config.field.hash.total_rows} "
           f"table rows, batch {trainer.num_rays(batches[0])} rays")
@@ -496,12 +544,12 @@ def run_flagship(dev, card: str, production: bool = False):
     rays = trainer.num_rays(batches[0])
     print(f"{label}: {STEPS} steps, loss {losses[0]:.5f} -> {losses[-1]:.5f}, psnr {psnr:.3f}, "
           f"samples/ray {float(metrics[-1]['num_samples_per_ray']):.2f}")
-    if production:
+    if trainer.config.col_cam_opt.optim_type == "spline":
         # gradients reached the knots on the card: they left their init
         drift = [float(metrics[-1][f"camera_opt_{k}_col"]) for k in ("translation", "rotation")]
         if not all(math.isfinite(x) and x > 0 for x in drift):
-            fail(f"production: spline knot drift {drift} after {STEPS} steps")
-        print(f"production: spline knot drift after {STEPS} steps: translation {drift[0]:.3e}, "
+            fail(f"{label}: spline knot drift {drift} after {STEPS} steps")
+        print(f"{label}: spline knot drift after {STEPS} steps: translation {drift[0]:.3e}, "
               f"rotation {drift[1]:.3e}")
     print(f"{label} step: {ms:.3f} ms/step, {rays / ms * 1e3:.0f} rays/s over steps "
           f"{TIMED_FROM}..{STEPS - 1}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
@@ -540,14 +588,31 @@ def main() -> int:
 
     from lsenerf_tpu_torch.engine.trainer import CameraOptConfig
 
+    from lsenerf_tpu_torch.flagship import flagship_trainer, preset_trainer
+
     res = check_kernels(dev)
-    check_small_step(dev, "ns SO3xR3", CameraOptConfig(mode="SO3xR3"), CameraOptConfig(mode="SO3xR3"))
+    so3 = CameraOptConfig(mode="SO3xR3")
+    check_small_step(dev, "ns SO3xR3", so3, so3)
     check_small_step(dev, "spline + deblur, SE3 event deltas",
                      CameraOptConfig(mode="SO3xR3", optim_type="spline"), CameraOptConfig(mode="SE3"),
                      deblur=True)
+    check_small_step(dev, "evs_rgb, rgb_mlp, learned reducer, enerf_norm_loss, white", so3, so3,
+                     model=dict(map_mode="evs_rgb", mapping_method="rgb_mlp", evs_mapping_method=None,
+                                ev_one_dim="learned", event_loss_type="enerf_norm_loss",
+                                background_color="white"))
+    check_small_step(dev, "rgb_evs, rgb_mlp, denerf, flat march, last_sample", so3, so3,
+                     model=dict(map_mode="rgb_evs", mapping_method="rgb_mlp", evs_mapping_method=None,
+                                ev_one_dim=None, event_loss_type="denerf",
+                                background_color="last_sample", hierarchical_march=False))
+    check_pretrain(dev)
     g_res, g_launches = check_gathers(dev)
-    by_path = {p: run_flagship(dev, card, production=p == "production")
-               for p in ("flagship", "production")}
+    paths = {
+        "flagship": flagship_trainer,
+        "production": lambda d: flagship_trainer(d, production=True),
+        "lsenerf_emb": lambda d: preset_trainer("lsenerf_emb", device=d),
+        "badnerf": lambda d: preset_trainer("badnerf", device=d),
+    }
+    by_path = {p: run_path(dev, card, p, make) for p, make in paths.items()}
     launches = {k: sum(n[k] for n in by_path.values()) for k in by_path["flagship"]}
 
     kernels = []

@@ -16,6 +16,8 @@ class RayBundle:
     pixel_area: torch.Tensor  # (n, 1)
     camera_indices: torch.Tensor  # (n, 1) int
     times: Optional[torch.Tensor] = None  # (n, 1)
+    nears: Optional[torch.Tensor] = None  # (n, 1)
+    fars: Optional[torch.Tensor] = None  # (n, 1)
     metadata: Dict[str, Any] = field(default_factory=dict)
 
     def __len__(self) -> int:

@@ -3,8 +3,11 @@
 The input is the JAX package's state as numpy arrays (np.asarray of each
 leaf), never JAX arrays: this module imports numpy and torch only. The key
 names are the JAX package's (`hash_table`, `base_mlp/w0`, `b0`,
-`camera_opt/col/pose_adjustment`, ...) and MLP weights keep their
-(in, out) layout, so converted trees plug into the port unchanged.
+`camera_opt/col/pose_adjustment`, `rgb_mapper/mlp/w0`,
+`rgb_to_one/weights`, `field/appearance/table` with one row per image
+under evs_emb, ...) and MLP weights keep their (in, out) layout, so
+converted trees, pretrained mappers included, plug into the port
+unchanged.
 """
 
 from __future__ import annotations

@@ -103,7 +103,7 @@ class Trainer:
         """`all_cameras`: the full RGB trajectory the spline's knots are
         placed on, where the train split is only part of it; by default
         the train cameras."""
-        self.model_config = model_config
+        self.model_config = model_config.normalized()
         self.dm = dm
         self.device = resolve_device(device)
         self.col_cams = dm.col.cameras.to(self.device) if dm.col is not None else None
@@ -137,7 +137,8 @@ class Trainer:
     # -- init ----------------------------------------------------------------
 
     def init_params(self, generator: torch.Generator) -> dict:
-        model = model_lib.init_model(generator, self.model_config, device=self.device)
+        model = model_lib.init_model(generator, self.model_config, num_imgs=self.dm.num_embd,
+                                     device=self.device)
         cam = {"col": {}, "evs": {}}
         cc, ec = self.config.col_cam_opt, self.config.evs_cam_opt
         if cc.optim_type == "spline":
@@ -249,6 +250,11 @@ class Trainer:
             out[k] = torch.as_tensor(v, dtype=dtype).to(self.device, non_blocking=True)
         return out
 
+    def _denerf(self) -> bool:
+        """The denerf shortcut: the next event bundle is not rendered and
+        the event loss reads the prev bundle's output twice."""
+        return "denerf" in self.model_config.event_loss_type
+
     def num_rays(self, batch: dict) -> int:
         """Rays one step renders for this batch (the background's rows)."""
         has_col, has_evs = self._has()
@@ -256,13 +262,13 @@ class Trainer:
         if has_col:
             n += len(batch["col_indices"]) * (4 if self.model_config.rgb_loss_type == "deblur" else 1)
         if has_evs:
-            n += 2 * len(batch["evs_indices"])
+            n += (1 if self._denerf() else 2) * len(batch["evs_indices"])
         return n
 
     def loss_fn(self, params: dict, occ, batch: dict, step: int, bg_color=None):
         """(params, occ, batch, step, background) -> (loss, metrics): one
-        volume render for all three bundles, split and post-processed per
-        branch."""
+        volume render for all bundles (RGB, prev and next event; no next
+        under denerf), split and post-processed per branch."""
         mcfg, tcfg = self.model_config, self.config
         has_col, has_evs = self._has()
         cam_params = params["camera_opt"]
@@ -273,8 +279,10 @@ class Trainer:
         if has_col:
             bundles.append(self._make_col_bundle(cam_params, batch, col_gate))
             col_batch = {"image": batch["col_rgb"]}
+        denerf = self._denerf()
         if has_evs:
-            bundles.extend(self._make_evs_bundles(cam_params, batch, evs_gate))
+            prev_b, next_b = self._make_evs_bundles(cam_params, batch, evs_gate)
+            bundles.extend([prev_b] if denerf else [prev_b, next_b])
             evs_batch = {"image": batch["evs_values"], "e_thresh": batch["e_thresh"]}
         sizes = [len(b) for b in bundles]
         big = model_lib.concat_bundles(bundles) if len(bundles) > 1 else bundles[0]
@@ -288,13 +296,14 @@ class Trainer:
             )
             cursor = 1
         if has_evs:
-            prev_out, next_out = (
+            ev_outs = [
                 model_lib.postprocess_outputs(
                     params["model"], model_lib.slice_outputs(raw, offs[j], offs[j + 1]),
                     mcfg, train=True, ev_out=True,
                 )
-                for j in (cursor, cursor + 1)
-            )
+                for j in range(cursor, len(bundles))
+            ]
+            prev_out, next_out = ev_outs[0], ev_outs[-1]
         loss_dict = model_lib.compute_losses(
             params["model"], mcfg, col_out, prev_out, next_out, col_batch, evs_batch
         )
@@ -329,15 +338,20 @@ class Trainer:
                 metrics[f"camera_opt_scale_drift_{name}"] = (cp["scale"].detach()[0] - 1.0).abs()
         return metrics
 
-    def _draw_background(self, n: int) -> torch.Tensor:
+    def _draw_background(self, n: int):
+        """The random background's colours, one a rendered ray; None for
+        the other backgrounds, which need none."""
+        if self.model_config.background_color != "random":
+            return None
         return torch.rand((n, 3), generator=self._gen, device=self.device)
 
     def grads(self, batch: dict, bg_color=None):
         """Loss, metrics and the gradients (a dict path -> tensor) of one
         step's loss at the current parameters; nothing is updated. A leaf
         outside this step's graph (the spline's scale when the event
-        cameras are not on the spline) gets zeros, as JAX gives it; its
-        .grad stays None, so Adam leaves it as it is."""
+        cameras are not on the spline, rgb_to_one when the event branch
+        does not read it) gets zeros, as JAX gives it; its .grad stays
+        None, so Adam leaves it as it is."""
         if bg_color is None:
             bg_color = self._draw_background(self.num_rays(batch))
         self.optimizer.zero_grad(set_to_none=True)

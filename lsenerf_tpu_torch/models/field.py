@@ -57,7 +57,8 @@ class FieldConfig:
     compute_dtype: str = "float32"  # "bfloat16": bf16-rounded MLP inputs
 
 
-def init_field(generator: torch.Generator, config: FieldConfig, device="cpu") -> dict:
+def init_field(generator: torch.Generator, config: FieldConfig, num_imgs: int = 1,
+               device="cpu") -> dict:
     app_dim = config.embedding.emb_dim if config.appearance_embedding_dim > 0 else 0
     params = {
         "hash_table": he.init_hash_table(config.hash, generator, device),
@@ -71,7 +72,9 @@ def init_field(generator: torch.Generator, config: FieldConfig, device="cpu") ->
         ),
     }
     if app_dim > 0:
-        params["appearance"] = emb_lib.init_embedding(generator, config.embedding, device)
+        params["appearance"] = emb_lib.init_embedding(
+            generator, config.embedding, num_imgs, device
+        )
     return params
 
 
@@ -102,18 +105,34 @@ def field_density(params: dict, positions: torch.Tensor, config: FieldConfig):
     return density * selector[..., None], geo
 
 
+def appearance_codes(params: dict, appearance_id: torch.Tensor, n: int, config: FieldConfig,
+                     train: bool = True) -> torch.Tensor:
+    """(n, emb_dim) codes for n samples from one id a sample, or from one
+    id a ray of n / len(ids) consecutive samples: then each ray's code is
+    looked up once and repeated, so the table's gradient gathers a sum
+    over each ray's samples instead of one addition a sample."""
+    ids = appearance_id.reshape(-1)
+    emb = emb_lib.apply_embedding(params["appearance"], config.embedding, ids, train=train)
+    m = ids.shape[0]
+    if m == n:
+        return emb
+    return emb[:, None, :].expand(m, n // m, emb.shape[1]).reshape(n, emb.shape[1])
+
+
 def field_apply(
     params: dict,
     positions: torch.Tensor,
     directions: torch.Tensor,
     appearance_id: torch.Tensor,
     config: FieldConfig,
+    train: bool = True,
 ):
-    """Full field evaluation -> (density (n, 1), rgb (n, 3))."""
+    """Full field evaluation -> (density (n, 1), rgb (n, 3)).
+    `appearance_id` holds one id a sample or one a ray (appearance_codes)."""
     density, geo = field_density(params, positions, config)
     pieces = [sh.sh_encode(directions, config.sh_levels), geo]
     if "appearance" in params:
-        pieces.append(emb_lib.apply_embedding(params["appearance"], appearance_id))
+        pieces.append(appearance_codes(params, appearance_id, positions.shape[0], config, train))
     h = torch.cat(pieces, dim=-1)
     rgb = mlp.apply_mlp(
         params["color_mlp"], _mlp_input(h, config), out_activation=torch.sigmoid

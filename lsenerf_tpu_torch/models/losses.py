@@ -1,5 +1,5 @@
-"""Training losses. Port of mse_loss, log_loss and the gray RGB-to-one
-reducer of lsenerf_tpu/models/losses.py."""
+"""Training losses: RGB MSE, the event losses (log_loss, enerf_norm_loss)
+and the RGB-to-one-channel reducers. Port of lsenerf_tpu/models/losses.py."""
 
 from __future__ import annotations
 
@@ -8,26 +8,49 @@ import torch
 from lsenerf_tpu_torch import EPS
 from lsenerf_tpu_torch.ops.image import to_gray
 
+EVENT_LOSSES = ("log_loss", "enerf_norm_loss")
+
 
 def mse_loss(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
     return ((gt - pred) ** 2).mean()
 
 
+def _delta_log(prev_rad: torch.Tensor, next_rad: torch.Tensor) -> torch.Tensor:
+    if prev_rad.shape[-1] != 1:
+        prev_rad, next_rad = to_gray(prev_rad), to_gray(next_rad)
+    return torch.log(next_rad + EPS) - torch.log(prev_rad + EPS)
+
+
 def log_loss(evs: torch.Tensor, prev_rad: torch.Tensor, next_rad: torch.Tensor) -> torch.Tensor:
     """MSE between rendered delta-log radiance and the e_thresh-scaled
     event frame."""
-    if prev_rad.shape[-1] != 1:
-        prev_rad, next_rad = to_gray(prev_rad), to_gray(next_rad)
-    delta_log = torch.log(next_rad + EPS) - torch.log(prev_rad + EPS)
-    return mse_loss(delta_log, evs)
+    return mse_loss(_delta_log(prev_rad, next_rad), evs)
 
 
-def apply_rgb_to_one(kind, x: torch.Tensor) -> torch.Tensor:
-    """RGB -> one channel before the event loss: "gt" is the fixed Rec.601
-    gray (ToGrayGT); None keeps three channels. The learned reducer is not
-    ported yet."""
+def enerf_norm_loss(evs: torch.Tensor, prev_rad: torch.Tensor, next_rad: torch.Tensor,
+                    e_thresh: torch.Tensor) -> torch.Tensor:
+    """E-NeRF-style loss: delta-log radiance and the unscaled event frame,
+    each divided by its norm over the batch."""
+    delta_log = _delta_log(prev_rad, next_rad)
+    log_norm = torch.linalg.norm(delta_log, dim=0, keepdim=True) + EPS
+    evs_unscaled = (evs / e_thresh).detach()
+    evs_norm = (torch.linalg.norm(evs_unscaled, dim=0, keepdim=True) + EPS).detach()
+    return mse_loss(delta_log / log_norm, evs_unscaled / evs_norm)
+
+
+def init_rgb_to_one(kind, device="cpu") -> dict:
+    """Params of the RGB -> one channel reducer: "learned" is a
+    softmax-weighted channel mix initialised at 1/3 each (ThreeToOne);
+    "gt" (Rec.601 gray) and None have none."""
+    if kind == "learned":
+        return {"weights": torch.full((1, 3), 1.0 / 3.0, dtype=torch.float32, device=device)}
+    return {}
+
+
+def apply_rgb_to_one(kind, params: dict, x: torch.Tensor) -> torch.Tensor:
+    if kind == "learned":
+        w = torch.softmax(params["weights"], dim=-1)
+        return x @ w.T
     if kind == "gt":
         return to_gray(x)
-    if kind is None:
-        return x
-    raise NotImplementedError(f"ev_one_dim={kind!r} is not ported")
+    return x  # None: keep three channels

@@ -1,5 +1,6 @@
 """LSENeRF model: volume rendering, mapper routing and loss assembly.
-Port of lsenerf_tpu/models/lsenerf.py (render_bundle, postprocess_outputs,
+Port of lsenerf_tpu/models/lsenerf.py (ModelConfig with normalized(),
+init_model, render_bundle, postprocess_outputs with the three map modes,
 concat_bundles, slice_outputs, compute_losses)."""
 
 from __future__ import annotations
@@ -18,11 +19,17 @@ from lsenerf_tpu_torch.ops import composite, march
 from lsenerf_tpu_torch.ops import occupancy as occ_lib
 
 
+def _norm_none(v):
+    if isinstance(v, str) and v.lower() in ("none", "false"):
+        return None
+    return v
+
+
 @dataclass(frozen=True)
 class ModelConfig:
-    """The JAX ModelConfig's fields for the ported path. Mapping is always
-    co_map (an RGB mapper and an event mapper on the shared linear
-    radiance); the evs_rgb/rgb_evs modes are not ported yet."""
+    """The JAX ModelConfig's fields, with its defaults, for the ported
+    paths (its compact_chunk, supergrid_matmul and grad_overflow_telemetry
+    are TPU layout options the port does not take)."""
 
     field: field_lib.FieldConfig = dc_field(default_factory=field_lib.FieldConfig)
     grid: occ_lib.OccGridConfig = dc_field(default_factory=occ_lib.OccGridConfig)
@@ -34,16 +41,43 @@ class ModelConfig:
     early_stop_eps: float = 1e-4
     max_samples: int = 48
     max_candidates: int = 1024
+    hierarchical_march: bool = True
     coarse_factor: int = 8
     max_coarse_segments: int = 24
+    packed_phase2: bool = True
     proposal_samples: int = 0
     proposal_uniform_frac: float = 0.2
+    background_color: str = "random"  # random | black | white | last_sample
     evs_loss_weight: float = 1.0
-    mapping_method: str = "identity"
-    evs_mapping_method: str = "powpow"
-    ev_one_dim: Optional[str] = "gt"  # RGB -> gray before the event mapper
+    # log_loss | enerf_norm_loss; a name holding "denerf" renders no next
+    # event bundle (the trainer's shortcut) and takes log_loss
+    event_loss_type: str = "log_loss"
     # deblur: an RGB pixel is the mean of 4 rays across its exposure
     rgb_loss_type: str = "linspace"  # linspace | deblur
+    use_mapping: bool = False
+    mapping_method: str = "mlp"
+    evs_mapping_method: Optional[str] = None
+    map_mode: str = "evs_rgb"  # evs_rgb | rgb_evs | co_map
+    ev_one_dim: Optional[str] = "learned"  # learned | gt | None: RGB -> gray before events
+
+    def normalized(self) -> "ModelConfig":
+        """String "None"/"False"/"True" cleanup, as the CLI passes them."""
+        map_mode = self.map_mode
+        if isinstance(map_mode, str) and map_mode.lower() == "none":
+            map_mode = "evs_rgb"
+        ev = self.ev_one_dim
+        if isinstance(ev, str):
+            if ev.lower() in ("false", "none"):
+                ev = None
+            elif ev.lower() == "true":
+                ev = "learned"
+        rgb_loss = self.rgb_loss_type
+        if isinstance(rgb_loss, str) and rgb_loss.lower() == "none":
+            rgb_loss = "linspace"
+        return dataclasses.replace(
+            self, map_mode=map_mode, ev_one_dim=ev, rgb_loss_type=rgb_loss,
+            evs_mapping_method=_norm_none(self.evs_mapping_method),
+        )
 
     def march_config(self) -> march.MarchConfig:
         step = self.render_step_size
@@ -58,20 +92,28 @@ class ModelConfig:
             early_stop_eps=self.early_stop_eps,
             max_samples=self.max_samples,
             max_candidates=self.max_candidates,
+            hierarchical=self.hierarchical_march,
             coarse_factor=self.coarse_factor,
             max_coarse_segments=self.max_coarse_segments,
+            packed_phase2=self.packed_phase2,
             proposal_samples=self.proposal_samples,
             proposal_uniform_frac=self.proposal_uniform_frac,
         )
 
 
-def init_model(generator: torch.Generator, config: ModelConfig, device="cpu") -> dict:
-    """Model params: the field and the two mappers."""
-    return {
-        "field": field_lib.init_field(generator, config.field, device),
-        "rgb_mapper": mapper_lib.init_mapper(config.mapping_method, device),
-        "evs_mapper": mapper_lib.init_mapper(config.evs_mapping_method, device),
-    }
+def init_model(generator: torch.Generator, config: ModelConfig, num_imgs: int = 1,
+               device="cpu") -> dict:
+    """Model params: the field (num_imgs appearance rows under evs_emb),
+    the RGB mapper with use_mapping, the event mapper under co_map, and the
+    learned RGB -> one reducer."""
+    params = {"field": field_lib.init_field(generator, config.field, num_imgs, device)}
+    if config.use_mapping:
+        params["rgb_mapper"] = mapper_lib.init_mapper(config.mapping_method, generator, device)
+    if config.evs_mapping_method is not None and config.map_mode == "co_map":
+        params["evs_mapper"] = mapper_lib.init_mapper(config.evs_mapping_method, generator, device)
+    if config.ev_one_dim == "learned":
+        params["rgb_to_one"] = loss_lib.init_rgb_to_one("learned", device)
+    return params
 
 
 def render_bundle(
@@ -82,9 +124,11 @@ def render_bundle(
     train: bool = True,
     bg_color: Optional[torch.Tensor] = None,
 ) -> dict:
-    """Volume-render a ray bundle. In training, `bg_color` (n, 3) is the
-    per-ray random background blended into rgb (the JAX package draws it
-    from its step rng; the caller draws it here)."""
+    """Volume-render a ray bundle. In training the configured background
+    is blended into rgb; for "random", `bg_color` (n, 3) holds its colours
+    (the JAX package draws them from its step rng, the caller draws them
+    here), and without them the render has none, as JAX's has without an
+    rng. Eval renders have no background."""
     mcfg = config.march_config()
     if not train and mcfg.proposal_samples:
         mcfg = dataclasses.replace(mcfg, proposal_samples=0)
@@ -94,10 +138,10 @@ def render_bundle(
     app_id = bundle.metadata.get("appearance_id")
     if app_id is None:
         app_id = bundle.camera_indices
-    app_ids = app_id.reshape(n, 1).expand(n, k).reshape(-1)
+    # one id a ray: the field repeats each ray's code over its k samples
     density, rgb = field_lib.field_apply(
         params["field"], samples.positions.reshape(-1, 3),
-        samples.directions.reshape(-1, 3), app_ids, config.field,
+        samples.directions.reshape(-1, 3), app_id.reshape(n), config.field, train=train,
     )
     density = density.reshape(n, k, 1)
     rgb = rgb.reshape(n, k, 3)
@@ -106,33 +150,71 @@ def render_bundle(
     if alpha_thre > 0.0:
         alpha_thre = torch.clamp(occ_state.occs.mean(), max=alpha_thre)
     weights = composite.render_weights(samples, density, alpha_thre, config.early_stop_eps)
+    background = config.background_color if train else "linear"
+    if background == "random" and bg_color is None:
+        background = "linear"
     return {
-        "rgb": composite.render_rgb(weights, rgb, bg_color if train else None),
+        "rgb": composite.render_rgb(
+            weights, rgb, bg_color if background == "random" else None, background
+        ),
         "depth": composite.render_depth(weights, samples),
         "accumulation": composite.render_accumulation(weights),
         "num_samples_per_ray": samples.mask.sum(-1),
     }
 
 
+def _correct_evs_dim(params: dict, config: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if config.ev_one_dim:
+        return loss_lib.apply_rgb_to_one(config.ev_one_dim, params.get("rgb_to_one", {}), x)
+    return x
+
+
+def _format_linear(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x] * 3, dim=-1) if x.shape[-1] == 1 else x
+
+
 def postprocess_outputs(
     params: dict, out: dict, config: ModelConfig, train: bool = True, ev_out: bool = False
 ) -> dict:
-    """co_map routing on raw render outputs: the RGB mapper makes rgb; for
-    event bundles (or eval) the clamped linear radiance, reduced to one
-    channel by ev_one_dim, goes through the event mapper. Under deblur an
-    RGB bundle in training then averages each pixel's 4 exposure rays
-    (consecutive rows). Then the train clamp (min 1e-5) or the eval clamp
-    [0, 1]."""
+    """Mapper routing on raw render outputs, by map mode, where
+    use_mapping is set or the mode is rgb_evs (without use_mapping
+    rgb_evs has no RGB mapper and fails, as in JAX):
+      evs_rgb: the reduced linear radiance is ev_out, the RGB mapper of the
+        linear radiance is rgb;
+      rgb_evs: for event bundles (or eval) the RGB mapper of the reduced
+        radiance is ev_out;
+      co_map: the RGB mapper makes rgb; for event bundles (or eval) the
+        event mapper of the reduced radiance is ev_out.
+    Under deblur an RGB bundle in training then averages each pixel's 4
+    exposure rays (consecutive rows). Then the train clamp (min 1e-5) or
+    the eval clamp [0, 1]."""
     out = dict(out)
     clamp_out = torch.clamp(out["rgb"], min=1e-5)
-    out["rgb"] = mapper_lib.apply_mapper(config.mapping_method, params["rgb_mapper"], clamp_out)
-    if ev_out or not train:
-        ev_linear = loss_lib.apply_rgb_to_one(config.ev_one_dim, clamp_out)
-        out["linear"] = clamp_out
-        out["ev_linear"] = ev_linear
-        out["ev_out"] = mapper_lib.apply_mapper(
-            config.evs_mapping_method, params["evs_mapper"], ev_linear
-        )
+    if config.use_mapping or config.map_mode == "rgb_evs":
+        if config.map_mode == "rgb_evs":
+            if ev_out or not train:
+                out["ev_out"] = mapper_lib.apply_mapper(
+                    config.mapping_method, params["rgb_mapper"],
+                    _correct_evs_dim(params, config, clamp_out),
+                )
+                out["linear"] = _format_linear(out["ev_out"])
+        elif config.map_mode == "evs_rgb":
+            out["ev_out"] = _correct_evs_dim(params, config, clamp_out)
+            out["linear"] = clamp_out
+            out["rgb"] = mapper_lib.apply_mapper(
+                config.mapping_method, params["rgb_mapper"], clamp_out
+            )
+        elif config.map_mode == "co_map":
+            out["rgb"] = mapper_lib.apply_mapper(
+                config.mapping_method, params["rgb_mapper"], clamp_out
+            )
+            if ev_out or not train:
+                ev_linear = _correct_evs_dim(params, config, clamp_out)
+                out["linear"] = clamp_out
+                out["ev_linear"] = ev_linear
+                out["ev_out"] = mapper_lib.apply_mapper(
+                    config.evs_mapping_method, params["evs_mapper"], ev_linear
+                )
     if config.rgb_loss_type == "deblur" and train and not ev_out:
         out["rgb"] = out["rgb"].reshape(-1, 4, 3).mean(1)
     if train:
@@ -163,15 +245,20 @@ def slice_outputs(out: dict, start: int, stop: int) -> dict:
 
 def compute_losses(params, config: ModelConfig, col_out, prev_out, next_out,
                    col_batch, evs_batch) -> dict:
+    """rgb_loss (MSE) and the weighted event loss, which reads ev_out, or
+    rgb where there is no mapping."""
     loss_dict = {}
     if col_out is not None:
         loss_dict["rgb_loss"] = loss_lib.mse_loss(col_batch["image"], col_out["rgb"])
     if prev_out is not None:
-        prev_in, next_in = prev_out["ev_out"], next_out["ev_out"]
+        ev_key = "ev_out" if config.use_mapping else "rgb"
+        prev_in, next_in = prev_out[ev_key], next_out[ev_key]
         evs = evs_batch["image"]
         if prev_in.shape[-1] != 1:
             evs = torch.cat([evs] * 3, dim=-1)
-        loss_dict["event_loss"] = config.evs_loss_weight * loss_lib.log_loss(
-            evs, prev_in, next_in
-        )
+        if config.event_loss_type == "enerf_norm_loss":
+            ev_loss = loss_lib.enerf_norm_loss(evs, prev_in, next_in, evs_batch["e_thresh"])
+        else:
+            ev_loss = loss_lib.log_loss(evs, prev_in, next_in)
+        loss_dict["event_loss"] = config.evs_loss_weight * ev_loss
     return loss_dict

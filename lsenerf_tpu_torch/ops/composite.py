@@ -43,15 +43,30 @@ def accumulate(weights: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
 
 
 def render_rgb(
-    weights: torch.Tensor, rgbs: torch.Tensor, bg_color: torch.Tensor | None = None
+    weights: torch.Tensor, rgbs: torch.Tensor, bg_color: torch.Tensor | None = None,
+    background: str = "linear",
 ) -> torch.Tensor:
-    """Weighted RGB; with `bg_color` (n, 3), that background is blended in
-    by the missing accumulation (the training-time random background, whose
-    colours the caller draws)."""
+    """Weighted RGB with a background blended in by the missing
+    accumulation: the colours `bg_color` (n, 3) where given (the random
+    background, whose colours the caller draws), else by `background`:
+    "linear" (none), "black", "white" or "last_sample" (each ray's last
+    sample's colour)."""
     comp = accumulate(weights, rgbs)
-    if bg_color is None:
+    if bg_color is not None:
+        bg = bg_color
+    elif background == "linear":
         return comp
-    return comp + bg_color * (1.0 - weights.sum(-1, keepdim=True))
+    elif background == "black":
+        bg = torch.zeros_like(comp)
+    elif background == "white":
+        bg = torch.ones_like(comp)
+    elif background == "last_sample":
+        bg = rgbs[:, -1, :]
+    elif background == "random":
+        raise ValueError("the random background needs its colours (bg_color)")
+    else:
+        raise ValueError(f"unknown background {background}")
+    return comp + bg * (1.0 - weights.sum(-1, keepdim=True))
 
 
 def render_depth(weights: torch.Tensor, samples: RaySamples, eps: float = 1e-10):

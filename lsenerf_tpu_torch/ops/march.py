@@ -1,6 +1,8 @@
 """Static-shape occupancy-skipping ray marching. Port of
-lsenerf_tpu/ops/march.py: the hierarchical two-phase march with the
-supergrid lookup, the packed-phase-2 rule, stride compaction into
+lsenerf_tpu/ops/march.py: the hierarchical two-phase march (supergrid
+phase 1, phase 2 with the packed rule or per-midpoint lookups), the flat
+march over every candidate where the hierarchical conditions fail or
+`hierarchical` is off, the per-ray nears/fars clip, stride compaction into
 `max_samples` slots, and proposal resampling.
 
 The TPU compacts with one-hot matmuls; the port scatters into the slots,
@@ -29,8 +31,12 @@ class MarchConfig:
     early_stop_eps: float = 1e-4
     max_samples: int = 48
     max_candidates: int = 512
+    hierarchical: bool = True
     coarse_factor: int = 8
     max_coarse_segments: int = 24
+    # phase-2 lookups by the packed rule (packed_segment_lookup), where
+    # coarse_factor**3 is a multiple of 32; else one lookup a midpoint
+    packed_phase2: bool = True
     proposal_samples: int = 0
     proposal_uniform_frac: float = 0.2
 
@@ -149,36 +155,16 @@ def proposal_resample(t_starts, t_ends, mask, occ_state, o, d, config, occ_confi
     return t_c - 0.5 * dt_f, t_c + 0.5 * dt_f, mask_f
 
 
-@torch.no_grad()
-def _march_ts(bundle: RayBundle, occ_state, occ_config, config: MarchConfig):
-    """The selection pipeline: (t_starts, t_ends, mask), each (n, k)."""
-    n = len(bundle)
-    k = config.max_samples
-    o = bundle.origins.detach()
-    d = bundle.directions.detach()
-    dev = o.device
-
-    outer_half = occ_config.aabb_scale * (2.0 ** (occ_config.levels - 1))
-    t_enter, t_exit = ray_aabb_intersect(o, d, outer_half)
-    t_lo = torch.clamp(torch.clamp(t_enter, min=config.near_plane), min=0.0)
-    t_hi = torch.clamp(t_exit, max=config.far_plane)
-
+def _hierarchical_candidates(o, d, t_lo, t_hi, occ_state, occ_config, config: MarchConfig):
+    """Phase 1 tests segments of coarse_factor candidates at both endpoints
+    against the supergrid and stride-compacts the occupied ones into
+    max_coarse_segments slots; phase 2 tests the fine candidates inside
+    them. Returns (t0s, dts, keep), each (n, max_coarse_segments *
+    coarse_factor)."""
+    n, dev = o.shape[0], o.device
     cf = config.coarse_factor
-    if not (
-        config.max_candidates % cf == 0
-        and occ_config.resolution % cf == 0
-        and (occ_config.levels == 1 or (occ_config.resolution // cf) % 4 == 0)
-        and config.max_candidates // cf > config.max_coarse_segments
-        and cf**3 % 32 == 0
-    ):
-        raise NotImplementedError(
-            "the march is ported for configurations that take the JAX "
-            "package's hierarchical branch with its bit-packed phase 2; the "
-            "flat march is not ported"
-        )
     mc = config.max_candidates // cf
     k1 = config.max_coarse_segments
-    # phase 1: segments against the supergrid, tested at both endpoints
     jc = torch.arange(mc + 1, dtype=torch.float32, device=dev)[None, :] * cf
     tc = ts_at_indices(t_lo, jc, config)
     super_bin = occ_lib.build_super_binaries(occ_state.binaries, cf)
@@ -194,19 +180,62 @@ def _march_ts(bundle: RayBundle, occ_state, occ_config, config: MarchConfig):
     nseg = sel_c.sum(1)
     slot_ok = torch.arange(k1, device=dev)[None, :] < nseg[:, None]
 
-    # phase 2: fine candidates inside the selected segments
     fine_i = (
         segidx[:, :, None] * cf
         + torch.arange(cf, dtype=torch.float32, device=dev)[None, None, :]
     ).reshape(n, k1 * cf)
     t0s = ts_at_indices(t_lo, fine_i, config)
     t1s = ts_at_indices(t_lo, fine_i + 1.0, config)
+    # a coarse-stride drop widens every fine dt by the coarse stride
     dts_base = (t1s - t0s) * stride_c.float()
     mids = 0.5 * (t0s + t1s)
     in_range = (mids < t_hi[:, None]) & slot_ok.repeat_interleave(cf, 1)
-    keep = packed_segment_lookup(
-        occ_state.binaries, o, d, mids.reshape(n, k1, cf), occ_config
-    ) & in_range
+    if config.packed_phase2 and cf**3 % 32 == 0:
+        occ = packed_segment_lookup(occ_state.binaries, o, d, mids.reshape(n, k1, cf), occ_config)
+    else:
+        occ = _lookup(occ_state.binaries, o, d, mids, occ_config)
+    return t0s, dts_base, occ & in_range
+
+
+@torch.no_grad()
+def _march_ts(bundle: RayBundle, occ_state, occ_config, config: MarchConfig):
+    """The selection pipeline: (t_starts, t_ends, mask), each (n, k)."""
+    n = len(bundle)
+    k = config.max_samples
+    o = bundle.origins.detach()
+    d = bundle.directions.detach()
+    dev = o.device
+
+    outer_half = occ_config.aabb_scale * (2.0 ** (occ_config.levels - 1))
+    t_enter, t_exit = ray_aabb_intersect(o, d, outer_half)
+    t_lo = torch.clamp(torch.clamp(t_enter, min=config.near_plane), min=0.0)
+    t_hi = torch.clamp(t_exit, max=config.far_plane)
+
+    if bundle.nears is not None:
+        t_lo = torch.maximum(t_lo, bundle.nears[:, 0])
+    if bundle.fars is not None:
+        t_hi = torch.minimum(t_hi, bundle.fars[:, 0])
+
+    cf = config.coarse_factor
+    use_hier = (
+        config.hierarchical
+        and config.max_candidates % cf == 0
+        and occ_config.resolution % cf == 0
+        and (occ_config.levels == 1 or (occ_config.resolution // cf) % 4 == 0)
+        and config.max_candidates // cf > config.max_coarse_segments
+    )
+    if use_hier:
+        t0s, dts_base, keep = _hierarchical_candidates(
+            o, d, t_lo, t_hi, occ_state, occ_config, config
+        )
+    else:
+        # flat: every candidate's midpoint against the fine grid
+        i = torch.arange(config.max_candidates + 1, dtype=torch.float32, device=dev)[None, :]
+        ts = ts_at_indices(t_lo, i, config)
+        t0s, t1s = ts[:, :-1], ts[:, 1:]
+        dts_base = t1s - t0s
+        mids = 0.5 * (t0s + t1s)
+        keep = _lookup(occ_state.binaries, o, d, mids, occ_config) & (mids < t_hi[:, None])
 
     # stride compaction: every stride-th survivor, dt widened by the stride
     slot = torch.cumsum(keep, 1) - 1

@@ -1,16 +1,20 @@
 """Where the flagship train step's time goes on the card.
 
-    python -m lsenerf_tpu_torch.profile_step [--production] [--warm 20] [--steps 8] [--out outputs/profile]
+    python -m lsenerf_tpu_torch.profile_step [--production | --preset NAME] [--warm 20] [--steps 8] [--out outputs/profile]
 
-Runs the flagship trainer (flagship.py), or with `--production` the
-production protocol's (RGB spline + deblur x4), for `--warm` steps, then traces
+Runs the flagship trainer (flagship.py), with `--production` the
+production protocol's (RGB spline + deblur x4), or with `--preset` one of
+the four presets' (flagship.preset_trainer: lsenerf, lsenerf_emb, badnerf,
+badnerf_emb), for `--warm` steps, then traces
 `--steps` steps with torch.profiler (CPU and CUDA activities, no occupancy
 update inside the window). Prints the step time from CUDA events, the
 device's busy time per step (the union of kernel intervals on the card),
-its idle share, the device time of the blocked-encode kernels, and the top
+its idle share, the device time of the blocked-encode kernels and of the
+index kernels (the spline's knot gathers; under evs_emb also the
+appearance lookup's index_select and index_add), and the top
 kernels by device time; writes the full table and a Chrome trace under
-`--out` (profile_step[_production].txt and ..._trace.json.gz). Needs a
-CUDA device.
+`--out` (profile_step[_production|_NAME].txt and ..._trace.json.gz).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,8 +43,11 @@ def _busy_ms(events) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--production", action="store_true",
-                    help="trace the production protocol's trainer")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--production", action="store_true",
+                      help="trace the production protocol's trainer")
+    mode.add_argument("--preset", choices=["lsenerf", "lsenerf_emb", "badnerf", "badnerf_emb"],
+                      help="trace this preset's trainer (train_lse_data.sh's protocol)")
     ap.add_argument("--warm", type=int, default=20)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", default="outputs/profile")
@@ -49,7 +56,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from lsenerf_tpu_torch.flagship import flagship_trainer
+    from lsenerf_tpu_torch.flagship import flagship_trainer, preset_trainer
 
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -60,8 +67,11 @@ def main(argv=None) -> int:
     ).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    trainer = flagship_trainer(production=args.production)
-    label = "production" if args.production else "flagship"
+    if args.preset:
+        trainer, label = preset_trainer(args.preset), args.preset
+    else:
+        trainer = flagship_trainer(production=args.production)
+        label = "production" if args.production else "flagship"
     interval = trainer.model_config.grid.update_interval
     n = args.warm + args.steps
     batches = [trainer.dm.next_train(i) for i in range(n)]
@@ -103,12 +113,18 @@ def main(argv=None) -> int:
     enc = {k: v for k, v in kern.items() if "encode_fwd_kernel" in k or "encode_bwd_kernel" in k}
     for k, (t, c) in enc.items():
         print(f"  {'K1' if 'fwd' in k else 'K2'}: {t / args.steps:.4f} ms/step, {c / args.steps:.1f} launches/step")
+    # the index kernels: the spline's knot gathers and, under evs_emb, the
+    # appearance lookup (index_select forward, index_add backward)
+    for k, (t, c) in kern.items():
+        if "index" in k.lower():
+            print(f"  index kernel {k[:70]}: {t / args.steps:.4f} ms/step, "
+                  f"{c / args.steps:.1f} launches/step")
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])
     print("top device time per step:")
     for name, (t, c) in top[:15]:
         print(f"  {t / args.steps:8.4f} ms  {c / args.steps:6.1f}x  {name[:90]}")
     os.makedirs(args.out, exist_ok=True)
-    name = "profile_step_production" if args.production else "profile_step"
+    name = "profile_step" if label == "flagship" else f"profile_step_{label}"
     with open(os.path.join(args.out, f"{name}.txt"), "w") as f:
         f.write(f"card: {card}\n")
         f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))

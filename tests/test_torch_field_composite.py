@@ -131,3 +131,36 @@ def test_composite_matches_with_inf_densities(alpha_thre):
     assert np.isfinite(d.grad.numpy()).all() and np.isfinite(c.grad.numpy()).all()
     np.testing.assert_allclose(d.grad.numpy(), np.asarray(jgd), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(c.grad.numpy(), np.asarray(jgc), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("background", ["linear", "black", "white", "last_sample"])
+def test_render_rgb_backgrounds_match(background):
+    """render_rgb's fixed backgrounds against JAX's, values and gradients
+    (last_sample blends each ray's last sample's colour)."""
+    ts, te, mask, dens, rgb = _samples(6)
+    dens[np.isinf(dens)] = 2.0
+    z3 = np.zeros(rgb.shape, np.float32)
+    wr = np.random.default_rng(7).standard_normal((mask.shape[0], 3)).astype(np.float32)
+
+    def jf(d, c):
+        s = JSamples(positions=z3, directions=z3, t_starts=jnp.asarray(ts),
+                     t_ends=jnp.asarray(te), mask=jnp.asarray(mask))
+        out = jcomp.render_rgb(jcomp.render_weights(s, d), c, background=background)
+        return (out * wr).sum(), out
+
+    (_, jout), (jgd, jgc) = jax.value_and_grad(jf, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(dens), jnp.asarray(rgb))
+    d = torch.from_numpy(dens).requires_grad_(True)
+    c = torch.from_numpy(rgb).requires_grad_(True)
+    s = TSamples(positions=torch.from_numpy(z3), directions=torch.from_numpy(z3),
+                 t_starts=torch.from_numpy(ts), t_ends=torch.from_numpy(te),
+                 mask=torch.from_numpy(mask))
+    out = tcomp.render_rgb(tcomp.render_weights(s, d), c, background=background)
+    (out * torch.from_numpy(wr)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(d.grad.numpy(), np.asarray(jgd), rtol=1e-4, atol=1e-6)
+    # the last sample's colour gets two terms, summed in another order
+    np.testing.assert_allclose(c.grad.numpy(), np.asarray(jgc), rtol=1e-5, atol=1e-6)
+    if background in ("white", "last_sample"):  # some rays are not opaque
+        bare = tcomp.render_rgb(tcomp.render_weights(s, d), c).detach()
+        assert (out.detach() - bare).abs().max() > 1e-3

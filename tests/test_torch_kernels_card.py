@@ -1,9 +1,10 @@
 """The port's kernels against their plain PyTorch versions on the card: K1
 and K2 (lsenerf_tpu_torch/ops/combine.py) in an f32-table and a bf16-table
 arm, also where many samples of a warp share rows (one cell, rays), at the
-flagship's 16 levels and at 2 and 3 levels, and the gathers G1-G3
-(lsenerf_tpu_torch/ops/gather.py), held to exact equality, G2 at the shapes
-that pick each of its paths and G3 at several table and index shapes.
+flagship's 16 levels (16 and 48 samples a ray) and at 2 and 3 levels, and
+the gathers G1-G3 (lsenerf_tpu_torch/ops/gather.py), held to exact
+equality, G2 at the shapes that pick each of its paths and G3 at several
+table and index shapes.
 
 This file imports neither JAX nor the JAX package, so a machine with the
 card and without JAX runs it on its own, skipping the JAX conftest:
@@ -61,29 +62,33 @@ def _card():
 
 def _positions(kind, n, rng):
     """Unit positions (n, 3) f32: uniform; all inside one cell of the two
-    coarsest levels of T_CFG; or rays of 16 samples along short segments,
-    ray-major as the march gives them."""
+    coarsest levels of T_CFG; or rays of 16 ("rays") or 48 ("rays48")
+    samples along short segments of the same length (48 a ray are 3x as
+    dense), ray-major as the march gives them, all inside the unit cube."""
     if kind == "uniform":
         return rng.random((n, 3)).astype(np.float32)
     if kind == "one_cell":
         return (0.30 + 0.05 * rng.random((n, 3))).astype(np.float32)
-    rays = -(-n // 16)
+    k = 48 if kind == "rays48" else 16
+    rays = -(-n // k)
     origin = 0.15 + 0.7 * rng.random((rays, 1, 3))
     d = rng.standard_normal((rays, 1, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    t = 0.004 * np.arange(16)[None, :, None]
+    t = 0.004 * (16 / k) * np.arange(k)[None, :, None]
     return (origin + t * d).reshape(-1, 3)[:n].astype(np.float32)
 
 
 # (positions, config, n), for K1 and K2: contention in one cell and along
 # rays, at L = 5 and at the flagship's 16 levels and widths, n not a
-# multiple of 32; at L = 2 and 3 a block has fewer threads (32 L) than a
-# block's 96 dpos values
+# multiple of 32, and at 48 samples a ray (an lsenerf_emb step's 168,480,
+# less 5); at L = 2 and 3 a block has fewer threads (32 L) than a block's
+# 96 dpos values
 ENCODE_CASES = {
     "uniform-L5": ("uniform", T_CFG, 4099),
     "one_cell-L5": ("one_cell", T_CFG, 4099),
     "rays-L5": ("rays", T_CFG, 4112),
     "rays-L16": ("rays", the.HashEncodingConfig(), 56_192 - 7),
+    "rays48-L16": ("rays48", the.HashEncodingConfig(), 168_480 - 5),
     "uniform-L2": ("uniform", the.HashEncodingConfig(
         num_levels=2, base_res=4, max_res=16, blocked_rows_log2=10), 1000),
     "rays-L3": ("rays", the.HashEncodingConfig(

@@ -9,8 +9,9 @@ candidates (hierarchical march with the packed phase-2 rule: 256 % 8 == 0,
 resampled to 8 by the proposal, co_map with identity/powpow mappers and
 SO3xR3 `ns` camera deltas. f32 throughout unless a test asks for bf16.
 `trainers` also takes the other camera optimizers (spline, prevnext, SE3
-deltas), deblur, an RGB-to-event extrinsic and explicit prev/next event
-cameras."""
+deltas), deblur, an RGB-to-event extrinsic, explicit prev/next event
+cameras, model, hash and grid overrides (the other map modes, mappers,
+embeddings, event losses, backgrounds and marches) and an RGB-only run."""
 
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from lsenerf_tpu.data import datamanager as jdm
 from lsenerf_tpu.data import dataset as jds
 from lsenerf_tpu.data import synthetic as jsyn
 from lsenerf_tpu.engine import trainer as jtr
+from lsenerf_tpu.models import embeddings as jemb
 from lsenerf_tpu.models import field as jfield
 from lsenerf_tpu.models import lsenerf as jmodel
 from lsenerf_tpu.ops import hash_encoding as jhe
@@ -30,6 +32,7 @@ from lsenerf_tpu_torch.data import datamanager as tdm
 from lsenerf_tpu_torch.data import dataset as tds
 from lsenerf_tpu_torch.data import synthetic as tsyn
 from lsenerf_tpu_torch.engine import trainer as ttr
+from lsenerf_tpu_torch.models import embeddings as temb
 from lsenerf_tpu_torch.models import field as tfield
 from lsenerf_tpu_torch.models import lsenerf as tmodel
 from lsenerf_tpu_torch.ops import hash_encoding as the
@@ -39,16 +42,15 @@ from lsenerf_tpu_torch.ops import occupancy as tocc
 HASH = dict(num_levels=6, base_res=4, max_res=128, blocked_rows_log2=10)
 GRID = dict(resolution=32, levels=2)
 MODEL = dict(
-    max_samples=16, max_candidates=256, proposal_samples=8,
-    mapping_method="identity", evs_mapping_method="powpow", ev_one_dim="gt",
+    max_samples=16, max_candidates=256, proposal_samples=8, use_mapping=True,
+    map_mode="co_map", mapping_method="identity", evs_mapping_method="powpow", ev_one_dim="gt",
 )
-# the JAX options whose values the port has built in
-JAX_ONLY = dict(packed_phase2=True, use_mapping=True, map_mode="co_map")
 SCENE = dict(n_cams=6, h=16, w=16, focal=20.0)
 
 
 def hash_configs(dtype="float32", **over):
-    kw = dict(HASH, gather_dtype=dtype, **over)
+    kw = dict(HASH, gather_dtype=dtype)
+    kw.update(over)
     # dense_grad_rows=64 keeps the JAX backward's default split: exact
     # one-hot sums on the dense levels, the sorted windows on hashed ones
     j = jhe.HashEncodingConfig(layout="blocked", combine_impl="pallas",
@@ -56,22 +58,29 @@ def hash_configs(dtype="float32", **over):
     return j, the.HashEncodingConfig(**kw)
 
 
-def model_configs(dtype="float32", rgb_loss_type="linspace"):
-    jh, th = hash_configs(dtype)
+def model_configs(dtype="float32", rgb_loss_type="linspace", model=None, hash=None,
+                  grid=None, emb="global_emb"):
+    """(JAX ModelConfig, port ModelConfig): MODEL updated by `model`, HASH
+    by `hash`, GRID by `grid`, with embedding type `emb`."""
+    jh, th = hash_configs(dtype, **(hash or {}))
+    kw = dict(MODEL, rgb_loss_type=rgb_loss_type, **(model or {}))
+    g = dict(GRID, **(grid or {}))
     j = jmodel.ModelConfig(
-        field=jfield.FieldConfig(hash=jh, compute_dtype=dtype),
-        grid=jocc.OccGridConfig(**GRID), rgb_loss_type=rgb_loss_type, **MODEL, **JAX_ONLY,
+        field=jfield.FieldConfig(hash=jh, compute_dtype=dtype,
+                                 embedding=jemb.EmbeddingConfig(embedding_type=emb)),
+        grid=jocc.OccGridConfig(**g), **kw,
     )
     t = tmodel.ModelConfig(
-        field=tfield.FieldConfig(hash=th, compute_dtype=dtype),
-        grid=tocc.OccGridConfig(**GRID), rgb_loss_type=rgb_loss_type, **MODEL,
+        field=tfield.FieldConfig(hash=th, compute_dtype=dtype,
+                                 embedding=temb.EmbeddingConfig(embedding_type=emb)),
+        grid=tocc.OccGridConfig(**g), **kw,
     )
     return j, t
 
 
-def sparse_grid(seed=0, radius=0.8):
+def sparse_grid(seed=0, radius=0.8, resolution=GRID["resolution"], levels=GRID["levels"]):
     """An occupancy EMA that is empty outside a ball, plus its binaries."""
-    R, L = GRID["resolution"], GRID["levels"]
+    R, L = resolution, levels
     rng = np.random.default_rng(seed)
     c = (np.arange(R) + 0.5) / R * 2.0 - 1.0
     halves = 2.0 ** np.arange(L)
@@ -103,21 +112,28 @@ CAM = dict(mode="SO3xR3", optim_type="ns")
 
 
 def trainers(dtype="float32", rays=96, dm_seed=0, col_cam=CAM, evs_cam=CAM, deblur=False,
-             dM=None, prevnext=False):
+             dM=None, prevnext=False, model=None, hash=None, grid=None, emb="global_emb",
+             rgb_frac=0.66, fresh_grid=False):
     """(JAX trainer, its state, port trainer set up with the JAX params).
     `col_cam`/`evs_cam` are CameraOptConfig fields; `deblur` sets both the
     model's rgb_loss_type and the data manager's rgb_loss_mode; `dM` is
     set on both colour datasets; `prevnext` gives both event datasets
-    explicit prev/next cameras."""
+    explicit prev/next cameras; `model`, `hash`, `grid` and `emb` go to
+    model_configs; `rgb_frac` 1.0 is an RGB-only run, with no event
+    dataset (as train.py builds it); `fresh_grid` keeps JAX's fresh
+    (jittered, all occupied) occupancy grid in place of sparse_grid()."""
     import jax
     import torch
 
     from lsenerf_tpu_torch import convert
 
-    jm, tm = model_configs(dtype, rgb_loss_type="deblur" if deblur else "linspace")
-    dmc = dict(train_num_rays_per_batch=rays, rgb_loss_mode="deblur" if deblur else "mse")
+    jm, tm = model_configs(dtype, "deblur" if deblur else "linspace", model, hash, grid, emb)
+    dmc = dict(train_num_rays_per_batch=rays, rgb_frac=rgb_frac,
+               rgb_loss_mode="deblur" if deblur else "mse")
     jcol, jevs = jsyn.make_synthetic_scene(**SCENE)
     tcol, tevs = tsyn.make_synthetic_scene(**SCENE)
+    if rgb_frac >= 1.0:
+        jevs = tevs = None
     if dM is not None:
         jcol.dM = tcol.dM = np.asarray(dM, np.float32)
     if prevnext:
@@ -137,7 +153,11 @@ def trainers(dtype="float32", rays=96, dm_seed=0, col_cam=CAM, evs_cam=CAM, debl
         tm, td, device="cpu",
     )
     p = jax.tree.map(np.asarray, state.params)
-    occs, binaries = sparse_grid()
+    if fresh_grid:
+        occs, binaries = np.asarray(state.occ.occs), np.asarray(state.occ.binaries)
+    else:
+        occs, binaries = sparse_grid(**{k: v for k, v in (grid or {}).items()
+                                        if k in ("resolution", "levels")})
     tt.setup(params=convert.params_from_numpy(p["model"], p["camera_opt"]),
              occ=convert.occ_state_from_numpy(occs, binaries))
     state = state.replace(occ=jocc.OccGridState(
