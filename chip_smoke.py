@@ -36,7 +36,22 @@ Phases, each fatal on failure (exit code 1):
      appearance row per image, F=0, 3510 rays x 48 samples);
   4d. the same for the badnerf preset (RGB only, no mapping, 878 pixels x
      4 = 3512 rays);
-  5. a `kernels` JSON line (K1/K2 launches summed over phases 4 to 4d),
+  4e. the CLI path (lsenerf_tpu_torch.train.main, in process) on the
+     reference scene at the real-scale profile (200 frames of 640x480 with
+     prev/next event cameras, masks and the full trajectory): 200 steps of
+     the headline protocol with every cadence, an exact resume from step 99
+     (the restored state and one batch's loss equal the saved ones bit for
+     bit), scripts/eval.sh's refinement and full eval (the field bit for bit
+     unchanged, view 0's SSIM on the card within 1e-4 of the CPU's), and an
+     lsenerf_emb run through scripts/emb_eval.sh's two stages (stage 1 moves
+     only the test embedding; stage 2 finds stage 1's run by the script's
+     rule); K1's and K2's counters are set to 0 before each stage;
+  4f. scripts/parity.py --tiny through the same CLI (lsenerf_tpu_torch/
+     parity.py): 1500 steps on the 64x64 golden scene at each of four
+     seeds; the mean PSNR and SSIM must lie within parity.tiny_gate's
+     three standard errors of the JAX package's own runs (the distance
+     to scripts/golden_parity.json is printed beside them);
+  5. a `kernels` JSON line (K1/K2 launches summed over phases 4 to 4f),
      the card line, and the result line {"ok": true, "device": {...}} last.
 
 Every kernel and library call is timed three ways (lsenerf_tpu_torch/
@@ -53,6 +68,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -557,6 +573,399 @@ def run_path(dev, card: str, label: str, make):
     return launches
 
 
+# scripts/golden_real_scale.py's headline protocol (scripts/train_lse_data.sh)
+HEADLINE = [
+    "--machine.seed", "96",
+    "--pipeline.datamanager.rgb_frac", "0.66",
+    "--pipeline.model.rgb-loss-type", "deblur",
+    "--pipeline.model.ev-one-dim", "gt",
+    "--pipeline.model.use-mapping", "True",
+    "--pipeline.model.mapping-method", "identity",
+    "--pipeline.model.evs-mapping-method", "powpow",
+    "--pipeline.model.map-mode", "co_map",
+    "--pipeline.datamanager.col-cam-optimizer.mode", "SO3xR3",
+    "--pipeline.datamanager.col-cam-optimizer.optim-type", "spline",
+    "--pipeline.datamanager.col-cam-optimizer.exp-t", "30000",
+    "--pipeline.datamanager.evs-cam-optimizer.mode", "SO3xR3",
+]
+# scripts/eval.sh's and scripts/emb_eval.sh's flags besides the loads
+EVAL_FLAGS = [
+    "--steps-per-eval-image", "10000", "--is_eval", "True",
+    "--pipeline.datamanager.col-dataparser.image-type", "clear",
+    "--pipeline.datamanager.col-dataparser.quality", "",
+]
+
+
+def leaves(tree, prefix=""):
+    """{path: tensor on the CPU} of a nested dict of tensors."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(leaves(v, path) if isinstance(v, dict) else {path: v.detach().cpu().clone()})
+    return out
+
+
+def trainer_state(trainer) -> dict:
+    """Everything a checkpoint holds, copied to the CPU."""
+    return dict(params=leaves(trainer.params), adam=trainer.adam_state(),
+                opt_count=trainer.opt_count, step_count=trainer.step_count,
+                occs=trainer.occ.occs.cpu().clone(), binaries=trainer.occ.binaries.cpu().clone(),
+                rng=trainer._gen.get_state().clone())
+
+
+def fixed_batch_loss(trainer) -> float:
+    """The loss of one batch that the run's sampler never draws (its own
+    sampler seed) with a fixed background: a forward pass only, whose K1
+    launch is a check's and is left out of the launch counts."""
+    import torch
+
+    from lsenerf_tpu_torch.data.datamanager import MultiCamDataManager
+    from lsenerf_tpu_torch.ops import combine
+
+    counts = [k.launches for k in combine.KERNELS]
+    dm = MultiCamDataManager(trainer.dm.config, trainer.dm.col, trainer.dm.evs, seed=1234)
+    batch = trainer.batch_to_device(dm.next_train(0))
+    gen = torch.Generator(device=trainer.device).manual_seed(5)
+    bg = torch.rand((trainer.num_rays(batch), 3), generator=gen, device=trainer.device)
+    with torch.no_grad():
+        loss, _ = trainer.loss_fn(trainer.params, trainer.occ, batch, trainer.step_count, bg)
+    for k, n in zip(combine.KERNELS, counts):
+        k.launches = n
+    return float(loss)
+
+
+def same_state(a: dict, b: dict) -> list:
+    """The entries of two trainer_state()s that differ, bit for bit."""
+    import torch
+
+    bad = [k for k in ("opt_count", "step_count") if a[k] != b[k]]
+    bad += [k for k in ("occs", "binaries", "rng") if not torch.equal(a[k], b[k])]
+    if set(a["params"]) != set(b["params"]):
+        bad.append("params keys")
+    bad += [p for p in a["params"] if p in b["params"] and not torch.equal(a["params"][p], b["params"][p])]
+    if set(a["adam"]) != set(b["adam"]):
+        bad.append("adam keys")
+    bad += [f"adam {p} {k}" for p in a["adam"] if p in b["adam"] for k in a["adam"][p]
+            if not torch.equal(a["adam"][p][k], b["adam"][p][k])]
+    return bad
+
+
+class CliProbe:
+    """Hooks around the port's own functions for one `train.main` call,
+    restored when it ends. It records a CUDA event as each train step
+    starts and the step's loss; hands the loop's trainer to `before` and
+    `after` (called around the training loop); snapshots the trainer's state
+    and a fixed batch's loss when the loop saves step `snapshot_step`; and
+    keeps the first SSIM call's inputs and result."""
+
+    def __init__(self, before=None, after=None, snapshot_step=None):
+        self.before, self.after, self.snapshot_step = before, after, snapshot_step
+        self.events, self.losses, self.snapshot, self.ssim = [], [], None, None
+
+    def __enter__(self):
+        import torch
+
+        from lsenerf_tpu_torch.engine import checkpoints, loop
+        from lsenerf_tpu_torch.engine.trainer import Trainer
+        from lsenerf_tpu_torch.ops import metrics
+
+        probe = self
+        step0, loop0, save0, ssim0 = (Trainer.step, loop.run_training_loop,
+                                      checkpoints.save_checkpoint, metrics.ssim)
+        self._restore = [(Trainer, "step", step0), (loop, "run_training_loop", loop0),
+                         (checkpoints, "save_checkpoint", save0), (metrics, "ssim", ssim0)]
+
+        def step(trainer, batch, bg_color=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            probe.events.append((trainer.step_count, ev))
+            out = step0(trainer, batch, bg_color)
+            probe.losses.append(out["loss"])
+            return out
+
+        def run_loop(trainer, **kw):
+            if probe.before is not None:
+                probe.before(trainer)
+            out = loop0(trainer, **kw)
+            if probe.after is not None:
+                probe.after(trainer)
+            return out
+
+        def save(ckpt_dir, step, trainer):
+            if step == probe.snapshot_step and probe.snapshot is None:
+                probe.snapshot = (trainer_state(trainer), fixed_batch_loss(trainer))
+            return save0(ckpt_dir, step, trainer)
+
+        def ssim(gt, pred, *a, **k):
+            out = ssim0(gt, pred, *a, **k)
+            if probe.ssim is None:
+                probe.ssim = (gt.detach().cpu().clone(), pred.detach().cpu().clone(), float(out))
+            return out
+
+        Trainer.step, loop.run_training_loop = step, run_loop
+        checkpoints.save_checkpoint, metrics.ssim = save, ssim
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._restore:
+            setattr(obj, name, fn)
+        return False
+
+    def step_ms(self, skip: set) -> list:
+        """ms of each train step i (its start to the next one's) for the
+        steps after the first 16 that run no occupancy update (i % 16) and
+        are not in `skip` (steps followed by an eval or a save)."""
+        out = []
+        for (i, a), (_, b) in zip(self.events, self.events[1:]):
+            if i >= 16 and i % 16 and i not in skip:
+                out.append(a.elapsed_time(b))
+        return out
+
+
+@contextlib.contextmanager
+def torch_defaults():
+    """cuDNN's TF32 back at PyTorch's default (on), as a user's process
+    has it, for the CLI phases: the eval's SSIM must not depend on phase
+    1's switch."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def launches_run(fn):
+    """fn() with K1's and K2's launch counters set to 0 just before and read
+    just after: (result, {kernel name: launches}, wall seconds)."""
+    import torch
+
+    from lsenerf_tpu_torch.ops import combine
+
+    for k in combine.KERNELS:
+        k.launches = 0
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.name: k.launches for k in combine.KERNELS}, time.time() - t0
+
+
+def eval_mean(run_dir: str, keys=("psnr", "ssim", "num_rays_per_sec", "fps")) -> dict:
+    """The run's eval_mean.json; every key in `keys` must be finite."""
+    import math
+
+    path = os.path.join(run_dir, "eval_mean.json")
+    if not os.path.exists(path):
+        fail(f"{run_dir} has no eval_mean.json")
+    with open(path) as f:
+        means = json.load(f)
+    bad = [k for k in keys if not math.isfinite(means.get(k, float("nan")))]
+    if bad:
+        fail(f"{path}: {bad} missing or not finite: {means}")
+    return means
+
+
+def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60), scene=None, device_flag=()):
+    """Phase 4e: the CLI path (lsenerf_tpu_torch.train.main, in process) on
+    the reference scene at the real-scale profile of
+    scripts/golden_real_scale.py: train with the headline protocol and its
+    cadences, resume exactly from the middle checkpoint, the eval.sh
+    protocol, and an lsenerf_emb run through emb_eval.sh's two stages.
+    `steps`: train, resume, eval.sh, emb train, emb stage 1, emb stage 2.
+    Returns K1's and K2's launches summed over the stages."""
+    import math
+    import statistics
+    import tempfile
+
+    import torch
+
+    from lsenerf_tpu_torch import train
+    from lsenerf_tpu_torch.data.datamanager import DataManagerConfig
+    from lsenerf_tpu_torch.data.synthetic import write_reference_scene
+    from lsenerf_tpu_torch.ops import metrics
+
+    n_train, n_resume, n_eval, n_emb, n_pre, n_post = steps
+    scene = scene or dict(n_cams=200, h=480, w=640, focal=0.9 * 640, n_val=4, texture_freq=24.0)
+    total = {}
+    peak = 0
+
+    def stage(label, argv, probe):
+        nonlocal peak
+        torch.cuda.reset_peak_memory_stats()
+        with probe:
+            run_dir, launches, secs = launches_run(lambda: train.main(list(argv) + list(device_flag)))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if min(launches.values()) == 0:
+            fail(f"{label}: a kernel was never launched: {launches}")
+        bad = [i for i, l in enumerate(probe.losses) if not math.isfinite(float(l))]
+        if bad or not probe.losses:
+            fail(f"{label}: {len(probe.losses)} steps, non-finite loss at {bad[:5]}")
+        print(f"{label}: {secs:.1f} s wall, {len(probe.losses)} steps, launches {launches}; {card}")
+        return run_dir
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work, torch_defaults():
+        data = os.path.join(work, "scene")
+        t0 = time.time()
+        write_reference_scene(data, with_prevnext=True, with_msk=True, with_full_camera=True, **scene)
+        print(f"4e scene: {scene['n_cams']} frames of {scene['w']}x{scene['h']} written in "
+              f"{time.time() - t0:.1f} s; {card}")
+
+        # train, saving the middle step's state for the resume
+        mid = n_train // 2 - 1
+        train_argv = ["lsenerf", "--data", data, "--output-dir", os.path.join(work, "run"),
+                      "--max-num-iterations", str(n_train)] + HEADLINE
+        cadence = ["--steps-per-save", str(n_train // 2), "--steps-per-eval-batch", str(n_train // 2),
+                   "--steps-per-eval-image", str(n_train // 2),
+                   "--steps-per-eval-all-images", str(n_train)]
+        probe = CliProbe(snapshot_step=mid)
+        run = stage("4e train", train_argv + cadence, probe)
+        if probe.snapshot is None:
+            fail(f"4e train: no checkpoint at step {mid}")
+        ms = probe.step_ms(skip={i for i in range(n_train) if (i + 1) % (n_train // 2) == 0})
+        means = eval_mean(run)
+        # rays a step: deblur's 4 RGB rays a pixel and the prev and next event rays
+        dmc = DataManagerConfig(rgb_frac=0.66, rgb_loss_mode="deblur")
+        rays = 4 * dmc.train_num_col_rays_per_batch + 2 * dmc.train_num_evs_rays_per_batch
+        step_ms = statistics.median(ms)
+        print(f"4e train step (untraced, CUDA events, {len(ms)} steps with no occupancy update or "
+              f"cadence): median {step_ms:.3f} ms/step, mean {statistics.mean(ms):.3f}, min "
+              f"{min(ms):.3f}, max {max(ms):.3f}; {rays} rays a step, "
+              f"{rays / step_ms * 1e3:.0f} rays/s; {card}")
+        print(f"4e train eval_mean.json ({n_train} steps, {scene['w']}x{scene['h']}): "
+              f"{json.dumps(means)}; {card}")
+
+        # exact resume from the middle checkpoint
+        saved, saved_loss = probe.snapshot
+        del probe
+        checks = {}
+
+        def check_restore(t):
+            bad = same_state(saved, trainer_state(t))
+            if bad:
+                fail(f"4e resume: the restored state differs from the saved one: {bad[:8]}")
+            loss = fixed_batch_loss(t)
+            if loss != saved_loss:
+                fail(f"4e resume: fixed-batch loss {loss!r} after the restore, {saved_loss!r} saved")
+            checks["resume"] = loss
+
+        ckpt = os.path.join(run, "checkpoints", f"step-{mid:09d}")
+        stage("4e resume", ["lsenerf", "--data", data, "--output-dir", os.path.join(work, "resume"),
+                            "--max-num-iterations", str(n_resume), "--load-checkpoint", ckpt]
+              + HEADLINE + cadence, CliProbe(before=check_restore))
+        print(f"4e resume from step {mid}: params, Adam moments and count, step, occupancy grid "
+              f"and generator bit for bit; fixed-batch loss {checks['resume']!r} equal bit for bit")
+        del saved
+
+        # the eval.sh protocol: camera refinement on the frozen field, then the full eval
+        final = torch.load(os.path.join(run, "checkpoints", f"step-{n_train - 1:09d}"),
+                           map_location="cpu", weights_only=True)["params"]["model"]
+        field = leaves(final, "model")
+
+        def check_frozen(t):
+            now = leaves(t.params)
+            bad = [p for p in field if not torch.equal(now.get(p, torch.empty(0)), field[p])]
+            extra = [p for p in now if p.startswith("model/") and p not in field]
+            if bad or extra:
+                fail(f"4e eval.sh: field leaves moved or appeared: {(bad + extra)[:8]}")
+            cam = now["camera_opt/col/pose_adjustment"]
+            if not float(cam.abs().max()) > 0:
+                fail("4e eval.sh: the eval cameras' pose deltas did not move")
+            checks["cam"] = float(cam.norm())
+
+        probe = CliProbe(after=check_frozen)
+        ev_run = stage("4e eval.sh", [
+            "lsenerf", "--max-num-iterations", str(n_eval),
+            "--load-dir", os.path.join(run, "checkpoints"), "--load-config", os.path.join(run, "config.yml"),
+            "--emb_eval_mode", "zero", "--pipeline.model.eval-num-rays-per-chunk", "4096",
+        ] + EVAL_FLAGS, probe)
+        ev_means = eval_mean(ev_run)
+        gt, pred, card_ssim = probe.ssim
+        cpu_ssim = float(metrics.ssim(gt, pred))
+        if not abs(card_ssim - cpu_ssim) <= 1e-4:
+            fail(f"4e eval.sh: SSIM of view 0 on the card {card_ssim} vs the CPU {cpu_ssim}")
+        print(f"4e eval.sh ({n_eval} refinement steps, field bit for bit unchanged, pose deltas' "
+              f"norm {checks['cam']:.3e}): {json.dumps(ev_means)}; view 0 SSIM card {card_ssim:.6f} "
+              f"vs CPU {cpu_ssim:.6f}; {card}")
+
+        # emb_eval.sh: an lsenerf_emb run, then its two stages
+        emb = stage("4e lsenerf_emb train", [
+            "lsenerf", "--data", data, "--output-dir", os.path.join(work, "emb"),
+            "--max-num-iterations", str(n_emb), "--steps-per-save", str(n_emb),
+            "--steps-per-eval-batch", "100000", "--steps-per-eval-image", "100000",
+            "--steps-per-eval-all-images", "100000",
+            "--pipeline.model.embed-config.embedding-type", "evs_emb"] + HEADLINE, CliProbe())
+        snap = {}
+
+        def only_test_table(t):
+            now = leaves(t.params)
+            moved = sorted(p for p in now if not torch.equal(now[p], snap["pre"][p]))
+            if moved != ["model/field/appearance/test_table"]:
+                fail(f"4e emb_eval stage 1: moved {moved[:8]}, not the test embedding alone")
+            snap["table"] = now["model/field/appearance/test_table"]
+
+        stage("4e emb_eval stage 1", [
+            "lsenerf", "--max-num-iterations", str(n_pre),
+            "--load-dir", os.path.join(emb, "checkpoints"), "--load-config", os.path.join(emb, "config.yml"),
+            "--emb_eval_mode", "param", "--do_pretrain", "True",
+            "--pipeline.model.eval-num-rays-per-chunk", "2048"] + EVAL_FLAGS,
+            CliProbe(before=lambda t: snap.setdefault("pre", leaves(t.params)), after=only_test_table))
+        # the script's own rule: the newest entry of ${EXP_PATH}_eval_param
+        # that is not itself an _eval_param run
+        param_path = emb + "_eval_param"
+        last = sorted(d for d in os.listdir(param_path) if "_eval_param" not in d)[-1]
+        full_dir = os.path.join(param_path, last)
+
+        def grafted(t):
+            if not torch.equal(leaves(t.params)["model/field/appearance/test_table"], snap["table"]):
+                fail("4e emb_eval stage 2: the test embedding is not stage 1's")
+
+        post = stage("4e emb_eval stage 2", [
+            "lsenerf", "--max-num-iterations", str(n_post), "--emb_eval_mode", "param",
+            "--load-dir", os.path.join(full_dir, "checkpoints"),
+            "--load-config", os.path.join(full_dir, "config.yml"),
+            "--pipeline.model.eval-num-rays-per-chunk", "2048"] + EVAL_FLAGS, CliProbe(before=grafted))
+        post_means = eval_mean(post)
+        print(f"4e emb_eval.sh ({n_pre} + {n_post} steps; stage 1 moved only the test embedding, "
+              f"stage 2 found {os.path.relpath(full_dir, work)} by the script's rule): "
+              f"{json.dumps(post_means)}; {card}")
+    print(f"4e peak memory {peak / 2**30:.2f} GiB; launches {total}; {card}")
+    return total
+
+
+def tiny_golden(card: str, device=None):
+    """Phase 4f: scripts/parity.py --tiny through the port's CLI
+    (lsenerf_tpu_torch/parity.py): the 64x64 golden scene, 1500 steps at
+    each of parity.TINY_SEEDS, an eval of every view at 1500. The mean
+    PSNR and SSIM must pass parity.tiny_gate; the distance to the golden
+    is printed. Returns K1's and K2's launches."""
+    import tempfile
+
+    from lsenerf_tpu_torch import parity
+
+    with open(os.path.join(ROOT, "scripts", "golden_parity.json")) as f:
+        golden = json.load(f)["metrics"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_golden_") as work, torch_defaults():
+        runs, launches, secs = launches_run(
+            lambda: [parity.run(work, seed, device=device) for seed in parity.TINY_SEEDS])
+    if min(launches.values()) == 0:
+        fail(f"4f tiny golden: a kernel was never launched: {launches}")
+    for seed, r in zip(parity.TINY_SEEDS, runs):
+        print(f"4f tiny golden, seed {seed}: psnr {r['psnr']:.4f}, ssim {r['ssim']:.4f}")
+    gate = parity.tiny_gate(runs)
+    d = {k: gate[k][0] - golden[k] for k in ("psnr", "ssim")}
+    print(f"4f tiny golden: {len(runs)} x 1500 steps in {secs:.1f} s wall (scene written and "
+          f"parsed); {parity.gate_line(gate)}; the means lie {d['psnr']:+.4f} dB / "
+          f"{d['ssim']:+.4f} from scripts/golden_parity.json's {golden['psnr']:.4f} / "
+          f"{golden['ssim']:.4f}; launches {launches}; {card}")
+    if not all(g[3] for g in gate.values()):
+        fail(f"4f tiny golden: outside parity.tiny_gate: {parity.gate_line(gate)}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -613,6 +1022,8 @@ def main() -> int:
         "badnerf": lambda d: preset_trainer("badnerf", device=d),
     }
     by_path = {p: run_path(dev, card, p, make) for p, make in paths.items()}
+    by_path["cli"] = cli_path(card)
+    by_path["tiny_golden"] = tiny_golden(card)
     launches = {k: sum(n[k] for n in by_path.values()) for k in by_path["flagship"]}
 
     kernels = []

@@ -7,8 +7,12 @@ The port of the JAX package `lsenerf_tpu`, module for module:
              compositing, Lie-group and interpolation helpers
   models/    field, MLPs, embeddings, mappers, losses, the LSENeRF model
   cameras/   cameras, ray containers, pose optimizers
-  data/      datasets, the synthetic scene, the pixel sampler
-  engine/    schedules and the trainer (`Trainer.step` is the entry point)
+  data/      datasets, the scene parser and PNG codec, the synthetic scene,
+             the pixel sampler
+  engine/    the config tree, schedules, the trainer (`Trainer.step`), the
+             training loop, checkpoints, the full-image render and eval
+  train.py   the CLI (`python -m lsenerf_tpu_torch.train`); parity.py its
+             metric-parity harness
 
 The port imports torch and numpy only. Entry points run on `cuda` unless
 the caller passes `device="cpu"`; without a card they raise.

@@ -1,15 +1,21 @@
 """Analytic synthetic scene: a normal-coloured sphere, orbiting cameras and
-exact delta-log-gray event frames. Port of make_synthetic_scene and its
-helpers from lsenerf_tpu/data/synthetic.py; the same arguments give the
-same images, cameras and events."""
+exact delta-log-gray event frames, in memory or written to disk in the
+LSENeRF-formatter layout the parser reads. Port of
+lsenerf_tpu/data/synthetic.py; the same arguments give the same images,
+cameras and events, and the same files."""
 
 from __future__ import annotations
+
+import json
+import os
+import os.path as osp
 
 import numpy as np
 import torch
 
 from lsenerf_tpu_torch.cameras.cameras import Cameras
 from lsenerf_tpu_torch.data.dataset import ColorDataset, EventFrameDataset
+from lsenerf_tpu_torch.data.imageio import write_png
 
 EPS = 1e-6
 REC601 = np.array([0.2989, 0.5870, 0.1140], np.float32)
@@ -107,3 +113,96 @@ def make_synthetic_scene(
         appearance_ids=np.arange(n_cams - 1, dtype=np.int32),
     )
     return col, evs
+
+
+def gl_c2w_to_cv_json(c2w: np.ndarray) -> tuple:
+    """GL camera-to-world (3x4) -> (CV w2c orientation rows, camera
+    position): the inverse of parser.cv_to_working."""
+    cols = c2w[:3, :3]
+    return np.stack([cols[:, 0], -cols[:, 1], -cols[:, 2]]), c2w[:3, 3]
+
+
+def write_reference_scene(
+    root: str, n_cams: int = 12, h: int = 64, w: int = 64, focal: float = 60.0,
+    e_thresh: float = 0.2, n_val: int = 2, with_prevnext: bool = False,
+    with_msk: bool = False, with_full_camera: bool = False, texture_freq: float = 0.0,
+):
+    """Write the synthetic sphere scene as the tree SceneParser reads:
+    colcam_set/{camera, rgb/1x, dataset.json, metadata.json} and
+    ecam_set/{camera, eimgs, dataset.json, scene.json, metadata.json}, with
+    prev_camera/next_camera (event frame i spans cameras i and i+1),
+    all-ones masks and a full_camera dir of twice as many orbit poses where
+    asked. The usable ids are 0..n_cams-2 (the parser drops the last
+    frame); the last n_val of them are the val split. Event counts are
+    the delta-log-gray over a threshold that drops to ~half the 90th
+    percentile of the moving pixels' deltas where e_thresh would zero
+    99% of the events (scene.json records it). Deterministic: the same
+    arguments write the same files."""
+    col_ds, evs_ds = make_synthetic_scene(
+        n_cams=n_cams, h=h, w=w, focal=focal, e_thresh=e_thresh, texture_freq=texture_freq,
+    )
+    c2ws = col_ds.cameras.camera_to_worlds.numpy()
+    times = col_ds.cameras.times.numpy()
+
+    def cam_json(c2w, t):
+        ori, pos = gl_c2w_to_cv_json(c2w)
+        return {
+            "orientation": ori.tolist(), "position": pos.tolist(), "focal_length": focal,
+            "principal_point": [w / 2.0, h / 2.0], "image_size": [w, h],
+            "radial_distortion": [0.0, 0.0, 0.0], "tangential_distortion": [0.0, 0.0],
+            "t": float(t),
+        }
+
+    def write_cam_dir(cam_dir, mats=None, ts=None):
+        os.makedirs(cam_dir, exist_ok=True)
+        mats = c2ws if mats is None else mats
+        ts = times if ts is None else ts
+        for i in range(len(mats)):
+            with open(osp.join(cam_dir, f"{i:06d}.json"), "w") as f:
+                json.dump(cam_json(mats[i], ts[i]), f, indent=1)
+
+    col = osp.join(root, "colcam_set")
+    evs = osp.join(root, "ecam_set")
+    write_cam_dir(osp.join(col, "camera"))
+    write_cam_dir(osp.join(evs, "camera"))
+    if with_prevnext:
+        write_cam_dir(osp.join(evs, "prev_camera"), c2ws[:-1], times[:-1])
+        write_cam_dir(osp.join(evs, "next_camera"), c2ws[1:], times[1:])
+    if with_full_camera:
+        dense = orbit_cameras(2 * n_cams, h=h, w=w, focal=focal)
+        write_cam_dir(osp.join(col, "full_camera"), dense.camera_to_worlds.numpy(),
+                      dense.times.numpy())
+    if with_msk:
+        np.save(osp.join(col, "msk.npy"), np.ones((h, w), np.float32))
+        np.save(osp.join(evs, "msk.npy"), np.ones((h, w), np.float32))
+
+    os.makedirs(osp.join(col, "rgb", "1x"), exist_ok=True)
+    for i in range(n_cams):
+        img8 = np.clip(col_ds.images[i] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        write_png(osp.join(col, "rgb", "1x", f"{i:06d}.png"), img8)
+
+    meta = {str(i): {"appearance_id": i} for i in range(n_cams)}
+    for d in (col, evs):
+        with open(osp.join(d, "metadata.json"), "w") as f:
+            json.dump(meta, f)
+    usable = list(range(n_cams - 1))
+    val_ids = usable[-n_val:]
+    train_ids = usable[:-n_val] if n_val else usable
+    with open(osp.join(col, "dataset.json"), "w") as f:
+        json.dump({"train_ids": train_ids, "val_ids": val_ids}, f)
+    with open(osp.join(evs, "dataset.json"), "w") as f:
+        json.dump({"train_ids": list(range(n_cams - 1))}, f)
+
+    os.makedirs(osp.join(evs, "eimgs"), exist_ok=True)
+    raw_delta = np.asarray(evs_ds.eimgs)[..., 0] * e_thresh
+    e_eff = e_thresh
+    counts = np.rint(raw_delta / e_eff)
+    if (counts != 0).mean() < 0.01:
+        moving = np.abs(raw_delta[np.abs(raw_delta) > 1e-6])
+        if moving.size:
+            e_eff = float(max(np.quantile(moving, 0.9) / 2.0, 1e-6))
+            counts = np.rint(raw_delta / e_eff)
+    with open(osp.join(evs, "scene.json"), "w") as f:
+        json.dump({"e_thresh": e_eff}, f)
+    np.save(osp.join(evs, "eimgs", "eimgs_1x.npy"), counts.astype(np.int16))
+    return root

@@ -1,10 +1,12 @@
 """Trainer: parameters, the three-bundle train step, Adam in two groups and
-the occupancy-grid cadence. Port of lsenerf_tpu/engine/trainer.py for the
-train mode: the camera optimizers `ns` (SO3xR3 or SE3 deltas), `spline`
-(the RGB spline, with deblur's 4 exposure poses, and the event cameras on
-it through dM) and `prevnext` (explicit prev/next event cameras, detected
-from the dataset), and deblur with any of them. The eval and pretrain
-modes and data parallelism are not ported yet.
+the occupancy-grid cadence. Port of lsenerf_tpu/engine/trainer.py: the
+camera optimizers `ns` (SO3xR3 or SE3 deltas), `spline` (the RGB spline,
+with deblur's 4 exposure poses, and the event cameras on it through dM)
+and `prevnext` (explicit prev/next event cameras, detected from the
+dataset), and deblur with any of them; the run modes, which freeze
+parameter groups (EVAL the field, PRETRAIN all but the test embedding,
+RENDER everything); the eval-ray-batch loss; and the state a checkpoint
+holds. Data parallelism is not ported yet.
 
 `Trainer.step(batch)` is the public entry. PyTorch runs eagerly, so there
 is no jitted step: the step is the forward, `backward()` and the optimizer
@@ -32,12 +34,22 @@ from lsenerf_tpu_torch.ops import occupancy as occ_lib
 OCC_CHUNK = 131072  # positions per density chunk of the occupancy update
 
 
+class RunMode:
+    """What a run trains: the reference's IS_EVAL / DO_PRETRAIN / IS_RENDER."""
+
+    TRAIN = "train"
+    EVAL = "eval"  # frozen field, camera-opt-only refinement
+    PRETRAIN = "pretrain"  # the test embedding alone (emb_eval stage 1)
+    RENDER = "render"  # nothing trains
+
+
 @dataclass
 class OptimizerGroupConfig:
     lr: float = 1e-2
     eps: float = 1e-15
     lr_final: float = 1e-4
     max_steps: int = 200000
+    warmup_steps: int = 0
 
 
 @dataclass
@@ -60,7 +72,13 @@ class CameraOptConfig:
 
 @dataclass
 class TrainerConfig:
+    max_num_iterations: int = 30000
+    steps_per_save: int = 2000
+    steps_per_eval_batch: int = 500
+    steps_per_eval_image: int = 500
+    steps_per_eval_all_images: int = 25000
     seed: int = 42
+    mode: str = RunMode.TRAIN
     fields_optimizer: OptimizerGroupConfig = dc_field(default_factory=OptimizerGroupConfig)
     camera_optimizer: OptimizerGroupConfig = dc_field(
         default_factory=lambda: OptimizerGroupConfig(lr=1e-3, lr_final=1e-4, max_steps=5000)
@@ -79,20 +97,37 @@ def tree_leaves(tree: dict, prefix: str = ""):
             yield path, v
 
 
+def trainable(mode: str, path: str) -> bool:
+    """Does a leaf (its path in the parameter tree) train in this run
+    mode? EVAL freezes the model, PRETRAIN trains only the test embedding,
+    RENDER nothing."""
+    if path.startswith("model/"):
+        if mode == RunMode.PRETRAIN:
+            return "test_table" in path
+        return mode == RunMode.TRAIN
+    return mode in (RunMode.TRAIN, RunMode.EVAL)
+
+
 def build_optimizer(config: TrainerConfig, params: dict):
     """Adam over two groups, "fields" (params['model']) and "camera_opt"
-    (params['camera_opt']), eps 1e-15, each with its exponential decay.
-    Returns (optimizer, per-group schedules); the caller sets each group's
-    lr to schedule(step) before the update with step = updates done so far,
-    the count optax passes to its schedule."""
-    groups, schedules = [], []
+    (params['camera_opt']), eps 1e-15, each with its exponential decay,
+    holding only the leaves the run mode trains: a frozen leaf is in no
+    group, so it stays as it is bit for bit (the reference deletes frozen
+    groups; the JAX package zeroes their updates). Returns (optimizer,
+    per-group schedules, per-group leaf paths), the optimizer None where
+    nothing trains; the caller sets each group's lr to schedule(count)
+    before the update, count = updates this optimizer has made, the count
+    optax passes to its schedule."""
+    groups, schedules, paths = [], [], []
     for name, g in (("model", config.fields_optimizer), ("camera_opt", config.camera_optimizer)):
-        leaves = [t for _, t in tree_leaves(params[name])]
+        leaves = [(p, t) for p, t in tree_leaves(params[name], name) if trainable(config.mode, p)]
         if not leaves:
             continue
-        groups.append({"params": leaves, "lr": g.lr, "eps": g.eps, "name": name})
-        schedules.append(exponential_decay(g.lr, g.lr_final, g.max_steps))
-    return torch.optim.Adam(groups, betas=(0.9, 0.999)), schedules
+        groups.append({"params": [t for _, t in leaves], "lr": g.lr, "eps": g.eps, "name": name})
+        schedules.append(exponential_decay(g.lr, g.lr_final, g.max_steps, g.warmup_steps))
+        paths.append([p for p, _ in leaves])
+    optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999)) if groups else None
+    return optimizer, schedules, paths
 
 
 class Trainer:
@@ -162,9 +197,15 @@ class Trainer:
         self.occ = occ if occ is not None else occ_lib.init_occ_grid(
             self.model_config.grid, self.device
         )
-        self.optimizer, self.schedules = build_optimizer(self.config, self.params)
+        self.rebuild_optimizer()
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.step_count = 0
+
+    def rebuild_optimizer(self) -> None:
+        """A fresh optimizer (no moments, count 0) over the current leaves,
+        as after a change to the tree (the test embedding's graft)."""
+        self.optimizer, self.schedules, self.opt_paths = build_optimizer(self.config, self.params)
+        self.opt_count = 0
 
     # -- bundles -------------------------------------------------------------
 
@@ -354,7 +395,8 @@ class Trainer:
         None, so Adam leaves it as it is."""
         if bg_color is None:
             bg_color = self._draw_background(self.num_rays(batch))
-        self.optimizer.zero_grad(set_to_none=True)
+        for _, t in tree_leaves(self.params):
+            t.grad = None
         loss, metrics = self.loss_fn(self.params, self.occ, batch, self.step_count, bg_color)
         loss.backward()
         grads = {p: torch.zeros_like(t) if t.grad is None else t.grad
@@ -369,12 +411,61 @@ class Trainer:
             self.occ_update()
         batch = self.batch_to_device(batch)
         loss, metrics, _ = self.grads(batch, bg_color)
-        for group, sched in zip(self.optimizer.param_groups, self.schedules):
-            group["lr"] = sched(self.step_count)
-        self.optimizer.step()
+        if self.optimizer is not None:
+            for group, sched in zip(self.optimizer.param_groups, self.schedules):
+                group["lr"] = sched(self.opt_count)
+            self.optimizer.step()
+            self.opt_count += 1
         self.step_count += 1
         metrics["loss"] = loss
         return {k: v.detach() for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def eval_batch(self, cameras: cam_lib.Cameras, idx, coords, gt, app_id) -> dict:
+        """The eval-ray-batch loss: rays of the eval cameras at (idx,
+        coords [y, x]) rendered in eval mode against gt; returns eval_loss
+        (MSE) and eval_batch_psnr."""
+        dev = self.device
+        bundle = cam_lib.generate_rays(cameras, torch.as_tensor(idx, device=dev).long(),
+                                       torch.as_tensor(coords, device=dev).float())
+        bundle = bundle.replace(metadata={"appearance_id": torch.as_tensor(app_id, device=dev).long()})
+        out = model_lib.model_forward(self.params["model"], bundle, self.occ, self.model_config,
+                                      train=False)
+        mse = ((out["rgb"] - torch.as_tensor(gt, device=dev).float()) ** 2).mean()
+        return {"eval_loss": mse, "eval_batch_psnr": -10.0 * torch.log10(mse)}
+
+    # -- checkpoint state -----------------------------------------------------
+
+    def adam_state(self) -> dict:
+        """{leaf path: {exp_avg, exp_avg_sq, step}} of the leaves Adam has
+        stepped, on the CPU."""
+        out = {}
+        if self.optimizer is None:
+            return out
+        for group, paths in zip(self.optimizer.param_groups, self.opt_paths):
+            for p, t in zip(paths, group["params"]):
+                st = self.optimizer.state.get(t)
+                if st:
+                    out[p] = {k: torch.as_tensor(v).detach().cpu().clone() for k, v in st.items()}
+        return out
+
+    def load_adam_state(self, adam: dict, count: int) -> bool:
+        """Adam's moments from adam_state(), where they fit this optimizer
+        (the same trained leaves, the same shapes); else it stays fresh.
+        Returns whether they were loaded."""
+        if self.optimizer is None:
+            return not adam
+        leaves = {p: t for group, paths in zip(self.optimizer.param_groups, self.opt_paths)
+                  for p, t in zip(paths, group["params"])}
+        if set(adam) - set(leaves) or any(
+                adam[p]["exp_avg"].shape != leaves[p].shape for p in adam):
+            return False
+        for p, st in adam.items():
+            t = leaves[p]
+            self.optimizer.state[t] = {
+                k: v.to(t.device) if k != "step" else v.clone() for k, v in st.items()}
+        self.opt_count = int(count)
+        return True
 
     # -- occupancy maintenance ------------------------------------------------
 

@@ -1,7 +1,7 @@
 """LSENeRF model: volume rendering, mapper routing and loss assembly.
 Port of lsenerf_tpu/models/lsenerf.py (ModelConfig with normalized(),
 init_model, render_bundle, postprocess_outputs with the three map modes,
-concat_bundles, slice_outputs, compute_losses)."""
+concat_bundles, slice_outputs, compute_losses, model_forward)."""
 
 from __future__ import annotations
 
@@ -222,6 +222,14 @@ def postprocess_outputs(
     else:
         out["rgb"] = torch.clamp(out["rgb"], 0.0, 1.0)
     return out
+
+
+def model_forward(params: dict, bundle: RayBundle, occ_state: occ_lib.OccGridState,
+                  config: ModelConfig, train: bool = True, ev_out: bool = False,
+                  bg_color: Optional[torch.Tensor] = None) -> dict:
+    """Volume render and postprocess of a single bundle."""
+    out = render_bundle(params, bundle, occ_state, config, train=train, bg_color=bg_color)
+    return postprocess_outputs(params, out, config, train=train, ev_out=ev_out)
 
 
 def concat_bundles(bundles) -> RayBundle:
