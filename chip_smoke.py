@@ -20,6 +20,13 @@ Phases, each fatal on failure (exit code 1):
      reducer, enerf_norm_loss and a white background; rgb_evs with
      `rgb_mlp`, denerf, the flat march and the last-sample background; and
      the mappers' identity pretrain on the card, timed;
+     Then K7a (ngp_encode_fwd) and K7b (ngp_encode_bwd), the ngp layout's
+     kernels, against their plain versions and timed: uniform positions at
+     the badnerf preset's shape (56,192 samples, 16 levels of 2^19 entries)
+     with an f32 and a bf16 table, the same with the level window [4, 16),
+     and the positions and cotangent of one real ngp f32 badnerf step; and
+     a fifth small step, ngp f32 with coarse_stride 2 and the aabb field in
+     place of the scene contraction (3b);
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
@@ -36,6 +43,9 @@ Phases, each fatal on failure (exit code 1):
      appearance row per image, F=0, 3510 rays x 48 samples);
   4d. the same for the badnerf preset (RGB only, no mapping, 878 pixels x
      4 = 3512 rays);
+  4g. the same for the badnerf preset with the ngp layout in f32 (the
+     real_scale_badnerf_ngpf32 golden's model), through K7a/K7b, with its
+     peak memory;
   4e. the CLI path (lsenerf_tpu_torch.train.main, in process) on the
      reference scene at the real-scale profile (200 frames of 640x480 with
      prev/next event cameras, masks and the full trajectory): 200 steps of
@@ -45,13 +55,17 @@ Phases, each fatal on failure (exit code 1):
      unchanged, view 0's SSIM on the card within 1e-4 of the CPU's), and an
      lsenerf_emb run through scripts/emb_eval.sh's two stages (stage 1 moves
      only the test embedding; stage 2 finds stage 1's run by the script's
-     rule); K1's and K2's counters are set to 0 before each stage;
+     rule); then (4h) the real_scale_badnerf_ngpf32 golden's flags
+     (lsenerf_tpu_torch/parity.py NGPF32) on the same scene: 200 training
+     steps through K7a/K7b and eval.sh's 60; the encode kernels' counters
+     are set to 0 before each stage;
   4f. scripts/parity.py --tiny through the same CLI (lsenerf_tpu_torch/
      parity.py): 1500 steps on the 64x64 golden scene at each of four
      seeds; the mean PSNR and SSIM must lie within parity.tiny_gate's
      three standard errors of the JAX package's own runs (the distance
      to scripts/golden_parity.json is printed beside them);
-  5. a `kernels` JSON line (K1/K2 launches summed over phases 4 to 4f),
+  5. a `kernels` JSON line (K1/K2/K7a/K7b launches summed over phases 4
+     to 4h),
      the card line, and the result line {"ok": true, "device": {...}} last.
 
 Every kernel and library call is timed three ways (lsenerf_tpu_torch/
@@ -311,6 +325,115 @@ def check_kernels(dev):
     return res
 
 
+def ngp_bounds(pos, table, lv):
+    """The bounds of K7a and K7b on these inputs: bytes each function must
+    move (inputs once, outputs once; the table's entries counted as the
+    distinct entries this input touches, F values each in the table's type;
+    K7b writes the whole f32 gradient table) and its f32 operations (per
+    sample-level: the fractions, 8 corner weights and 8 two-feature terms,
+    the backward's chain rule), at the card's peaks. Returns (K7a's, K7b's,
+    distinct entries)."""
+    import torch
+
+    from lsenerf_tpu_torch.ops import ngp
+
+    n, L = pos.shape[0], lv.num
+    keys = ngp.corners(pos, lv)[0]
+    entries = int(torch.unique(keys).numel())
+    entry_bytes = entries * ngp.F * table.element_size()
+    m = n * L
+    fwd_bytes = n * 3 * 4 + entry_bytes + m * ngp.F * 4
+    fwd_ops = m * (3 * 3 + 3 + 8 * 2 + 8 * 2 * 2)
+    bwd_bytes = n * 3 * 4 + entry_bytes + m * ngp.F * 4 + n * 3 * 4 + lv.table_rows * ngp.F * 4
+    bwd_ops = m * (3 * 3 + 3 + 8 * 2 + 8 * (3 + 6 + 3 + 2) + 3)
+    return bound(fwd_bytes, fwd_ops), bound(bwd_bytes, bwd_ops), entries
+
+
+def check_ngp_encode(name, pos, table, gfeat, lv):
+    """K7a and K7b against their plain versions on one input, then timed.
+    Returns {kernel name: result}."""
+    import torch
+
+    from lsenerf_tpu_torch.ops import ngp
+
+    out = ngp.encode_fwd(pos, table, lv)
+    want = ngp.encode_fwd_plain(pos, table, lv)
+    torch.cuda.synchronize()
+    # the same keys and weights, the corners added in the same order
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    err1 = float((out - want).abs().max())
+    dpos, dtab = ngp.encode_bwd(pos, table, gfeat, lv)
+    wdpos, wdtab = ngp.encode_bwd_plain(pos, table, gfeat, lv)
+    torch.cuda.synchronize()
+    # dpos sums level terms that cancel: atol scales with its largest element
+    torch.testing.assert_close(dpos, wdpos, rtol=1e-4, atol=1e-6 * float(wdpos.abs().max()))
+    # atomics add in an order that changes from run to run
+    torch.testing.assert_close(dtab, wdtab, rtol=0, atol=1e-5 * float(wdtab.abs().max()))
+    lo, hi = lv.lo << lv.log2_T, (lv.lo + lv.num) << lv.log2_T
+    if dtab[:lo].any() or dtab[hi:].any():
+        fail(f"K7b at {name}: table gradient outside the level window [{lv.lo}, {lv.lo + lv.num})")
+    err2 = max(float((dpos - wdpos).abs().max()), float((dtab - wdtab).abs().max()))
+    dpos2, _ = ngp.encode_bwd(pos, table, gfeat, lv)
+    torch.cuda.synchronize()
+    if not torch.equal(dpos, dpos2):
+        fail(f"K7b at {name}: dpos differs between two calls on the same inputs")
+    del out, want, dpos, dtab, wdpos, wdtab, dpos2
+
+    b1, b2, entries = ngp_bounds(pos, table, lv)
+    res = {}
+    for k, err, fn, plain, (b_ms, b_by) in (
+        (ngp.K7A, err1, lambda: ngp.encode_fwd(pos, table, lv),
+         lambda: ngp.encode_fwd_plain(pos, table, lv), b1),
+        (ngp.K7B, err2, lambda: ngp.encode_bwd(pos, table, gfeat, lv),
+         lambda: ngp.encode_bwd_plain(pos, table, gfeat, lv), b2),
+    ):
+        r = res[k.name] = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                               **timings(fn, plain))
+        print(f"{k.name} at {name}: max_abs_err {err:.3e}, {fmt(r)}; {entries} distinct entries "
+              f"({table.dtype}) at n={pos.shape[0]}, levels [{lv.lo}, {lv.lo + lv.num}) of "
+              f"{lv.levels} x 2^{lv.log2_T}")
+    return res
+
+
+def check_ngp(dev):
+    """Phase 3a, ngp: K7a/K7b against their plain versions at the badnerf
+    preset's shape with the golden's 16 levels of 2^19 entries, on uniform
+    random positions with an f32 and a bf16 table and with the level window
+    [4, 16) (the strided field's fine encode), and on one real ngp f32
+    badnerf step's inputs. Returns the f32 uniform results, with the others
+    under "shapes" ("bf16", "window_4_16", "step")."""
+    import dataclasses
+
+    import torch
+
+    from lsenerf_tpu_torch.flagship import step_encode_inputs
+    from lsenerf_tpu_torch.ops import hash_encoding as he
+
+    hcfg = he.HashEncodingConfig()  # JAX's default: ngp, 16 levels of 2^19
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = 878 * 4 * 16  # the badnerf preset's rays x proposal samples
+    pos = torch.rand((n, 3), generator=gen, device=dev)
+    table = torch.rand(hcfg.table_shape, generator=gen, device=dev) * 2 - 1
+    gfeat = torch.randn((n, hcfg.out_dim), generator=gen, device=dev)
+    lv = he.levels_for(hcfg, dev)
+    res = check_ngp_encode("uniform positions, f32 table", pos, table, gfeat, lv)
+    shapes = {"bf16": check_ngp_encode("uniform positions, bf16 table", pos,
+                                       table.to(torch.bfloat16), gfeat, lv)}
+    wcfg = dataclasses.replace(hcfg, level_lo=4)
+    shapes["window_4_16"] = check_ngp_encode(
+        "uniform positions, f32 table, levels [4, 16)", pos, table,
+        gfeat[:, : wcfg.out_dim].contiguous(), he.levels_for(wcfg, dev))
+    del pos, table, gfeat
+    t0 = time.time()
+    spos, stable, sgfeat, slv = step_encode_inputs(dev, preset="badnerf", hash_layout="ngp",
+                                                   compute_dtype="float32")
+    print(f"one ngp f32 badnerf step for K7b's inputs: {time.time() - t0:.1f} s, n={spos.shape[0]}")
+    shapes["step"] = check_ngp_encode("one ngp f32 badnerf step's inputs", spos, stable, sgfeat, slv)
+    for k in res:
+        res[k]["shapes"] = {name: r[k] for name, r in shapes.items()}
+    return res
+
+
 def bound(nbytes, ops):
     """The least time for the work: the larger of bytes over the memory rate
     and f32 operations over the peak f32 rate, in ms, and which bounds it."""
@@ -323,12 +446,15 @@ FLAGSHIP_MODES = dict(use_mapping=True, map_mode="co_map", mapping_method="ident
                       evs_mapping_method="powpow", ev_one_dim="gt")
 
 
-def check_small_step(dev, label, col_cam, evs_cam, deblur=False, model=None):
-    """Phase 3b: one train step of a small configuration on the card (K1/K2)
-    against the same step on the CPU (plain versions), in f32, with the
-    given camera optimizers (CameraOptConfig), with `deblur` deblur x4 RGB
-    rays, and the flagship's model modes updated by `model` (ModelConfig
-    fields). A mapper MLP is pretrained on the CPU and moved to the card."""
+def check_small_step(dev, label, col_cam, evs_cam, deblur=False, model=None, hash=None,
+                     field=None):
+    """Phase 3b: one train step of a small configuration on the card (K1/K2,
+    or K7a/K7b with hash=dict(layout="ngp")) against the same step on the
+    CPU (plain versions), in f32, with the given camera optimizers
+    (CameraOptConfig), with `deblur` deblur x4 RGB rays, the flagship's
+    model modes updated by `model` (ModelConfig fields), the small hash
+    grid updated by `hash` and FieldConfig fields from `field`. A mapper
+    MLP is pretrained on the CPU and moved to the card."""
     import numpy as np
     import torch
 
@@ -340,9 +466,11 @@ def check_small_step(dev, label, col_cam, evs_cam, deblur=False, model=None):
     from lsenerf_tpu_torch.ops import hash_encoding as he
     from lsenerf_tpu_torch.ops import occupancy as occ_lib
 
+    hcfg = dict(num_levels=6, base_res=4, max_res=128, layout="blocked", blocked_rows_log2=10,
+                log2_hashmap_size=10)
     mcfg = model_lib.ModelConfig(
-        field=field_lib.FieldConfig(hash=he.HashEncodingConfig(
-            num_levels=6, base_res=4, max_res=128, blocked_rows_log2=10)),
+        field=field_lib.FieldConfig(hash=he.HashEncodingConfig(**dict(hcfg, **(hash or {}))),
+                                    **(field or {})),
         grid=occ_lib.OccGridConfig(resolution=32, levels=2),
         max_samples=16, max_candidates=256, proposal_samples=8,
         rgb_loss_type="deblur" if deblur else "linspace", **dict(FLAGSHIP_MODES, **(model or {})),
@@ -519,23 +647,34 @@ def check_gathers(dev):
     return res, launches
 
 
+# the encode kernels of each hash layout: (forward, backward)
+LAYOUT_KERNELS = {"blocked": ("blocked_encode_fwd", "blocked_encode_bwd"),
+                  "ngp": ("ngp_encode_fwd", "ngp_encode_bwd")}
+
+
+def encode_kernels():
+    """K1, K2, K7a and K7b (their launch counters)."""
+    from lsenerf_tpu_torch.ops import combine, ngp
+
+    return combine.KERNELS + ngp.KERNELS
+
+
 def run_path(dev, card: str, label: str, make):
-    """Phases 4-4d: the trainer `make(device)` builds for STEPS steps on the
-    card. Returns K1's and K2's launches in the run."""
+    """Phases 4-4d and 4g: the trainer `make(device)` builds for STEPS steps
+    on the card. Returns the encode kernels' launches in the run."""
     import math
 
     import torch
 
-    from lsenerf_tpu_torch.ops import combine
-
     t0 = time.time()
     trainer = make(dev)
+    hcfg = trainer.model_config.field.hash
     batches = [trainer.dm.next_train(i) for i in range(STEPS)]
-    print(f"{label} set-up {time.time() - t0:.1f} s; {trainer.model_config.field.hash.total_rows} "
-          f"table rows, batch {trainer.num_rays(batches[0])} rays")
+    print(f"{label} set-up {time.time() - t0:.1f} s; {hcfg.layout} table {hcfg.table_shape}, "
+          f"batch {trainer.num_rays(batches[0])} rays")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in combine.KERNELS:
+    for k in encode_kernels():
         k.launches = 0
     metrics = []
     ev = {}
@@ -547,7 +686,7 @@ def run_path(dev, card: str, label: str, make):
     ev["b"] = torch.cuda.Event(enable_timing=True)
     ev["b"].record()
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in combine.KERNELS}
+    launches = {k.name: k.launches for k in encode_kernels()}
     ms = ev["a"].elapsed_time(ev["b"]) / (STEPS - TIMED_FROM)
     losses = [float(m["loss"]) for m in metrics]
     psnr = float(metrics[-1]["psnr"])
@@ -555,7 +694,8 @@ def run_path(dev, card: str, label: str, make):
         fail(f"non-finite {label} loss or psnr: {losses}, psnr {psnr}")
     n_occ = (STEPS + 15) // 16
     chunks = -(-trainer.model_config.grid.levels * 65536 // 131072)
-    if launches["blocked_encode_fwd"] < STEPS + n_occ * chunks or launches["blocked_encode_bwd"] < STEPS:
+    fwd, bwd = LAYOUT_KERNELS[hcfg.layout]
+    if launches[fwd] < STEPS + n_occ * chunks or launches[bwd] < STEPS:
         fail(f"{label}: kernel launch counts too low for {STEPS} steps: {launches}")
     rays = trainer.num_rays(batches[0])
     print(f"{label}: {STEPS} steps, loss {losses[0]:.5f} -> {losses[-1]:.5f}, psnr {psnr:.3f}, "
@@ -620,16 +760,15 @@ def fixed_batch_loss(trainer) -> float:
     import torch
 
     from lsenerf_tpu_torch.data.datamanager import MultiCamDataManager
-    from lsenerf_tpu_torch.ops import combine
 
-    counts = [k.launches for k in combine.KERNELS]
+    counts = [k.launches for k in encode_kernels()]
     dm = MultiCamDataManager(trainer.dm.config, trainer.dm.col, trainer.dm.evs, seed=1234)
     batch = trainer.batch_to_device(dm.next_train(0))
     gen = torch.Generator(device=trainer.device).manual_seed(5)
     bg = torch.rand((trainer.num_rays(batch), 3), generator=gen, device=trainer.device)
     with torch.no_grad():
         loss, _ = trainer.loss_fn(trainer.params, trainer.occ, batch, trainer.step_count, bg)
-    for k, n in zip(combine.KERNELS, counts):
+    for k, n in zip(encode_kernels(), counts):
         k.launches = n
     return float(loss)
 
@@ -738,18 +877,16 @@ def torch_defaults():
 
 
 def launches_run(fn):
-    """fn() with K1's and K2's launch counters set to 0 just before and read
-    just after: (result, {kernel name: launches}, wall seconds)."""
+    """fn() with the encode kernels' launch counters set to 0 just before
+    and read just after: (result, {kernel name: launches}, wall seconds)."""
     import torch
 
-    from lsenerf_tpu_torch.ops import combine
-
-    for k in combine.KERNELS:
+    for k in encode_kernels():
         k.launches = 0
     t0 = time.time()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k.name: k.launches for k in combine.KERNELS}, time.time() - t0
+    return out, {k.name: k.launches for k in encode_kernels()}, time.time() - t0
 
 
 def eval_mean(run_dir: str, keys=("psnr", "ssim", "num_rays_per_sec", "fps")) -> dict:
@@ -767,31 +904,34 @@ def eval_mean(run_dir: str, keys=("psnr", "ssim", "num_rays_per_sec", "fps")) ->
     return means
 
 
-def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60), scene=None, device_flag=()):
-    """Phase 4e: the CLI path (lsenerf_tpu_torch.train.main, in process) on
-    the reference scene at the real-scale profile of
+def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60), scene=None, device_flag=()):
+    """Phases 4e and 4h: the CLI path (lsenerf_tpu_torch.train.main, in
+    process) on the reference scene at the real-scale profile of
     scripts/golden_real_scale.py: train with the headline protocol and its
     cadences, resume exactly from the middle checkpoint, the eval.sh
-    protocol, and an lsenerf_emb run through emb_eval.sh's two stages.
-    `steps`: train, resume, eval.sh, emb train, emb stage 1, emb stage 2.
-    Returns K1's and K2's launches summed over the stages."""
+    protocol, and an lsenerf_emb run through emb_eval.sh's two stages
+    (4e); then a run with the real_scale_badnerf_ngpf32 golden's flags and
+    its eval.sh (4h). `steps`: train, resume, eval.sh, emb train, emb stage
+    1, emb stage 2, ngpf32 train, its eval.sh. Returns the encode kernels'
+    launches summed over the stages."""
     import math
     import statistics
     import tempfile
 
     import torch
 
-    from lsenerf_tpu_torch import train
+    from lsenerf_tpu_torch import parity, train
     from lsenerf_tpu_torch.data.datamanager import DataManagerConfig
     from lsenerf_tpu_torch.data.synthetic import write_reference_scene
+    from lsenerf_tpu_torch.engine.config import load_config
     from lsenerf_tpu_torch.ops import metrics
 
-    n_train, n_resume, n_eval, n_emb, n_pre, n_post = steps
+    n_train, n_resume, n_eval, n_emb, n_pre, n_post, n_ngp, n_ngp_eval = steps
     scene = scene or dict(n_cams=200, h=480, w=640, focal=0.9 * 640, n_val=4, texture_freq=24.0)
     total = {}
     peak = 0
 
-    def stage(label, argv, probe):
+    def stage(label, argv, probe, layout="blocked"):
         nonlocal peak
         torch.cuda.reset_peak_memory_stats()
         with probe:
@@ -799,8 +939,8 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60), scene=None, device_fl
         peak = max(peak, torch.cuda.max_memory_allocated())
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-        if min(launches.values()) == 0:
-            fail(f"{label}: a kernel was never launched: {launches}")
+        if min(launches[k] for k in LAYOUT_KERNELS[layout]) == 0:
+            fail(f"{label}: a kernel of the {layout} layout was never launched: {launches}")
         bad = [i for i, l in enumerate(probe.losses) if not math.isfinite(float(l))]
         if bad or not probe.losses:
             fail(f"{label}: {len(probe.losses)} steps, non-finite loss at {bad[:5]}")
@@ -932,7 +1072,38 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60), scene=None, device_fl
         print(f"4e emb_eval.sh ({n_pre} + {n_post} steps; stage 1 moved only the test embedding, "
               f"stage 2 found {os.path.relpath(full_dir, work)} by the script's rule): "
               f"{json.dumps(post_means)}; {card}")
-    print(f"4e peak memory {peak / 2**30:.2f} GiB; launches {total}; {card}")
+
+        # 4h: the real_scale_badnerf_ngpf32 golden's flags on the same scene,
+        # with scripts/golden_real_scale.py's cadences, then eval.sh
+        third = n_ngp // 3
+        probe = CliProbe()
+        ngp_run = stage("4h ngpf32 train", [
+            "lsenerf", "--data", data, "--output-dir", os.path.join(work, "ngpf32"),
+            "--max-num-iterations", str(n_ngp), "--steps-per-save", str(n_ngp),
+            "--steps-per-eval-image", str(third), "--steps-per-eval-all-images", str(n_ngp),
+            "--steps-per-eval-batch", str(third)] + HEADLINE + parity.NGPF32, probe, layout="ngp")
+        cfg = load_config(os.path.join(ngp_run, "config.yml")).pipeline.model
+        if (cfg.hash_layout, cfg.compute_dtype) != ("ngp", "float32"):
+            fail(f"4h: the run's config has {cfg.hash_layout}/{cfg.compute_dtype}, not ngp/float32")
+        ms = probe.step_ms(skip={i for i in range(n_ngp) if (i + 1) % third == 0})
+        dmc = DataManagerConfig(rgb_frac=1.0, rgb_loss_mode="deblur")
+        rays = 4 * dmc.train_num_col_rays_per_batch
+        step_ms = statistics.median(ms)
+        print(f"4h ngpf32 train step (untraced, CUDA events, {len(ms)} steps with no occupancy update "
+              f"or cadence): median {step_ms:.3f} ms/step, mean {statistics.mean(ms):.3f}, min "
+              f"{min(ms):.3f}, max {max(ms):.3f}; {rays} rays a step, "
+              f"{rays / step_ms * 1e3:.0f} rays/s; {card}")
+        print(f"4h ngpf32 train eval_mean.json ({n_ngp} steps): {json.dumps(eval_mean(ngp_run))}; "
+              f"{card}")
+        ngp_eval = stage("4h ngpf32 eval.sh", [
+            "lsenerf", "--max-num-iterations", str(n_ngp_eval),
+            "--load-dir", os.path.join(ngp_run, "checkpoints"),
+            "--load-config", os.path.join(ngp_run, "config.yml"),
+            "--emb_eval_mode", "zero", "--pipeline.model.eval-num-rays-per-chunk", "4096",
+        ] + EVAL_FLAGS, CliProbe(), layout="ngp")
+        print(f"4h ngpf32 eval.sh ({n_ngp_eval} refinement steps): "
+              f"{json.dumps(eval_mean(ngp_eval))}; {card}")
+    print(f"4e-4h peak memory {peak / 2**30:.2f} GiB; launches {total}; {card}")
     return total
 
 
@@ -951,7 +1122,7 @@ def tiny_golden(card: str, device=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_golden_") as work, torch_defaults():
         runs, launches, secs = launches_run(
             lambda: [parity.run(work, seed, device=device) for seed in parity.TINY_SEEDS])
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in LAYOUT_KERNELS["blocked"]) == 0:
         fail(f"4f tiny golden: a kernel was never launched: {launches}")
     for seed, r in zip(parity.TINY_SEEDS, runs):
         print(f"4f tiny golden, seed {seed}: psnr {r['psnr']:.4f}, ssim {r['ssim']:.4f}")
@@ -975,7 +1146,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from lsenerf_tpu_torch.ops import combine, cuda_build
-        from lsenerf_tpu_torch.ops import gather
+        from lsenerf_tpu_torch.ops import gather, ngp
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}: {e}")
 
@@ -1000,6 +1171,7 @@ def main() -> int:
     from lsenerf_tpu_torch.flagship import flagship_trainer, preset_trainer
 
     res = check_kernels(dev)
+    res.update(check_ngp(dev))
     so3 = CameraOptConfig(mode="SO3xR3")
     check_small_step(dev, "ns SO3xR3", so3, so3)
     check_small_step(dev, "spline + deblur, SE3 event deltas",
@@ -1013,6 +1185,9 @@ def main() -> int:
                      model=dict(map_mode="rgb_evs", mapping_method="rgb_mlp", evs_mapping_method=None,
                                 ev_one_dim=None, event_loss_type="denerf",
                                 background_color="last_sample", hierarchical_march=False))
+    check_small_step(dev, "ngp f32, coarse_stride 2, aabb field", so3, so3,
+                     hash=dict(layout="ngp"),
+                     field=dict(coarse_stride=2, coarse_levels=2, use_contraction=False))
     check_pretrain(dev)
     g_res, g_launches = check_gathers(dev)
     paths = {
@@ -1020,11 +1195,16 @@ def main() -> int:
         "production": lambda d: flagship_trainer(d, production=True),
         "lsenerf_emb": lambda d: preset_trainer("lsenerf_emb", device=d),
         "badnerf": lambda d: preset_trainer("badnerf", device=d),
+        "badnerf ngp f32": lambda d: preset_trainer("badnerf", device=d, hash_layout="ngp",
+                                                    compute_dtype="float32"),
     }
     by_path = {p: run_path(dev, card, p, make) for p, make in paths.items()}
     by_path["cli"] = cli_path(card)
     by_path["tiny_golden"] = tiny_golden(card)
     launches = {k: sum(n[k] for n in by_path.values()) for k in by_path["flagship"]}
+    for k in ngp.KERNELS:
+        if launches[k.name] == 0:
+            fail(f"{k.name} was never launched on the main paths: {launches}")
 
     kernels = []
     for k, src_line in ((combine.K1, 58), (combine.K2, 76)):
@@ -1032,6 +1212,17 @@ def main() -> int:
             name=k.name, route="cuda", source="lsenerf_tpu_torch/csrc/blocked_encode.cu",
             replaces=f"lsenerf_tpu/ops/pallas_combine.py:{src_line}",
             launches=launches[k.name], **res[k.name],
+        ))
+    # K7a/K7b stand in for ops the JAX package shaped around the TPU (no
+    # Pallas kernel): the ngp branch of hash_encode with take_cols' gather,
+    # and take_cols' table gradient with the TPU's sort-and-window one
+    for k, first, rest in (
+        (ngp.K7A, "lsenerf_tpu/ops/hash_encoding.py:685", ["lsenerf_tpu/ops/fast_gather.py:290"]),
+        (ngp.K7B, "lsenerf_tpu/ops/fast_gather.py:312", ["lsenerf_tpu/ops/fast_gather.py:113"]),
+    ):
+        kernels.append(dict(
+            name=k.name, route="cuda", source="lsenerf_tpu_torch/csrc/ngp_encode.cu",
+            replaces=first, also_replaces=rest, launches=launches[k.name], **res[k.name],
         ))
     # each gather kernel replaces several probe kernels; `replaces` names the
     # first of them and `also_replaces` the rest

@@ -2,9 +2,10 @@
 
 The port of the JAX package `lsenerf_tpu`, module for module:
 
-  ops/       hash encoding (with its CUDA kernels in ops/combine.py and
-             csrc/), SH encoding, occupancy grid, ray marching,
-             compositing, Lie-group and interpolation helpers
+  ops/       hash encoding, blocked and ngp layouts (their CUDA kernels in
+             ops/combine.py, ops/ngp.py and csrc/), SH encoding,
+             occupancy grid, ray marching, compositing, Lie-group and
+             interpolation helpers
   models/    field, MLPs, embeddings, mappers, losses, the LSENeRF model
   cameras/   cameras, ray containers, pose optimizers
   data/      datasets, the scene parser and PNG codec, the synthetic scene,

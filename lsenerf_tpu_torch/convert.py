@@ -7,7 +7,9 @@ names are the JAX package's (`hash_table`, `base_mlp/w0`, `b0`,
 `rgb_to_one/weights`, `field/appearance/table` with one row per image
 under evs_emb, ...) and MLP weights keep their (in, out) layout, so
 converted trees, pretrained mappers included, plug into the port
-unchanged.
+unchanged. The one leaf whose layout differs is the ngp hash table: JAX
+stores it (F, L*T), the port (L*T, F) (ops/ngp.py), and
+`params_from_numpy(..., hash_layout="ngp")` transposes it.
 """
 
 from __future__ import annotations
@@ -25,8 +27,23 @@ def tree_to_torch(tree, device="cpu"):
     return torch.as_tensor(np.array(tree)).to(device)
 
 
-def params_from_numpy(model: dict, camera_opt: dict, device="cpu") -> dict:
-    """The trainer's parameter tree {"model": ..., "camera_opt": ...}."""
+def ngp_table_from_jax(table) -> np.ndarray:
+    """JAX's ngp table (F, L*T) -> the port's (L*T, F), C-contiguous."""
+    return np.ascontiguousarray(np.asarray(table).T)
+
+
+def ngp_table_to_jax(table: torch.Tensor) -> np.ndarray:
+    """The port's ngp table (L*T, F) -> JAX's (F, L*T)."""
+    return np.ascontiguousarray(table.detach().cpu().numpy().T)
+
+
+def params_from_numpy(model: dict, camera_opt: dict, device="cpu",
+                      hash_layout: str = "blocked") -> dict:
+    """The trainer's parameter tree {"model": ..., "camera_opt": ...};
+    `hash_layout` is the field's table layout (HashEncodingConfig.layout)."""
+    if hash_layout == "ngp":
+        fld = dict(model["field"], hash_table=ngp_table_from_jax(model["field"]["hash_table"]))
+        model = dict(model, field=fld)
     return {
         "model": tree_to_torch(model, device),
         "camera_opt": tree_to_torch(camera_opt, device),

@@ -497,10 +497,6 @@ def check_supported(config: ExperimentConfig) -> None:
         (config.is_render, "is_render", "ROADMAP.md §1, 'Viewer and renders'"),
         (config.pipeline.datamanager.use_native, "use_native (the C++ prefetcher)", off_default),
         (m.proposal_warmup_steps > 0, "proposal_warmup_steps > 0", off_default),
-        (m.hash_layout != "blocked", f"hash_layout={m.hash_layout!r}",
-         "ROADMAP.md §2, K7 (the ngp layout)"),
-        (m.disable_scene_contraction, "disable_scene_contraction", off_default),
-        (m.coarse_stride > 1, "coarse_stride > 1", off_default),
         (m.compact_chunk > 0, "compact_chunk > 0", off_default),
         (m.grad_overflow_telemetry, "grad_overflow_telemetry (the port's table gradient is "
          "exact: there is no windowed update to count)", off_default),
@@ -529,12 +525,17 @@ def build_runtime_configs(config: ExperimentConfig):
     model_cfg = model_lib.ModelConfig(
         field=field_lib.FieldConfig(
             aabb_scale=scene_scale,
-            hash=he.HashEncodingConfig(num_levels=m.num_levels, base_res=m.base_res,
-                                       max_res=m.max_res, gather_dtype=m.compute_dtype),
+            use_contraction=not m.disable_scene_contraction,
+            hash=he.HashEncodingConfig(num_levels=m.num_levels,
+                                       log2_hashmap_size=m.log2_hashmap_size,
+                                       base_res=m.base_res, max_res=m.max_res,
+                                       gather_dtype=m.compute_dtype, layout=m.hash_layout),
             embedding=emb_lib.EmbeddingConfig(
                 embedding_type=m.embed_config.embedding_type, emb_dim=m.embed_config.emb_dim,
                 eval_mode=m.embed_config.eval_mode, is_eval=config.is_eval),
             compute_dtype=m.compute_dtype,
+            coarse_stride=m.coarse_stride,
+            coarse_levels=m.coarse_levels,
         ),
         grid=occ_lib.OccGridConfig(resolution=m.grid_resolution, levels=m.grid_levels,
                                    aabb_scale=scene_scale, sample_fraction=m.occ_sample_fraction),

@@ -29,7 +29,11 @@ engine/config.py:444-455) at the flagship's widths and scene:
                878 pixels x 4 = 3512 rays, 56,192 samples;
   badnerf_emb  badnerf with one appearance row per image and F=0.
 All keep the trainer's seed 42 (the script passes 96), so `lsenerf` is
-the production trainer exactly."""
+the production trainer exactly. `hash_layout`, `compute_dtype` and
+`coarse_stride` change a preset's field as the CLI's flags of those names
+do: `preset_trainer("badnerf", hash_layout="ngp", compute_dtype="float32")`
+is the real_scale_badnerf_ngpf32 golden's model (16 ngp levels of 2^19
+entries, f32 gather and MLP inputs) at these widths."""
 
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ from lsenerf_tpu_torch.engine.trainer import CameraOptConfig, Trainer, TrainerCo
 from lsenerf_tpu_torch.models import embeddings as emb_lib
 from lsenerf_tpu_torch.models import field as field_lib
 from lsenerf_tpu_torch.models import lsenerf as model_lib
-from lsenerf_tpu_torch.ops import combine
+from lsenerf_tpu_torch.ops import combine, ngp
 from lsenerf_tpu_torch.ops import hash_encoding as he
 
 # configs/*.sh: rgb_frac, use_map, mapping_method, map_mode,
@@ -58,7 +62,7 @@ def flagship_model_config() -> model_lib.ModelConfig:
     return model_lib.ModelConfig(
         field=field_lib.FieldConfig(
             compute_dtype="bfloat16",
-            hash=he.HashEncodingConfig(gather_dtype="bfloat16"),
+            hash=he.HashEncodingConfig(gather_dtype="bfloat16", layout="blocked"),
         ),
         proposal_samples=16,
         use_mapping=True,
@@ -69,14 +73,20 @@ def flagship_model_config() -> model_lib.ModelConfig:
     )
 
 
-def preset_model_config(preset: str, production: bool = True) -> model_lib.ModelConfig:
+def preset_model_config(preset: str, production: bool = True, hash_layout: str = "blocked",
+                        compute_dtype: str = "bfloat16",
+                        coarse_stride: int = 1) -> model_lib.ModelConfig:
     """The preset's model at the flagship's widths; with `production`,
-    deblur x4 RGB rays."""
+    deblur x4 RGB rays; the field's hash layout, compute (and gather) dtype
+    and coarse stride as the CLI lowers those flags."""
     _, use_map, mapping, map_mode, evs_mapping, emb_type = PRESETS[preset]
     base = flagship_model_config()
+    hash_cfg = dataclasses.replace(base.field.hash, layout=hash_layout, gather_dtype=compute_dtype)
     return dataclasses.replace(
         base,
-        field=dataclasses.replace(base.field, embedding=emb_lib.EmbeddingConfig(emb_type)),
+        field=dataclasses.replace(base.field, embedding=emb_lib.EmbeddingConfig(emb_type),
+                                  hash=hash_cfg, compute_dtype=compute_dtype,
+                                  coarse_stride=coarse_stride),
         proposal_samples=0 if emb_type == "evs_emb" else 16,
         use_mapping=use_map, mapping_method=mapping, map_mode=map_mode,
         evs_mapping_method=evs_mapping,
@@ -84,24 +94,26 @@ def preset_model_config(preset: str, production: bool = True) -> model_lib.Model
     ).normalized()
 
 
-def preset_configs(preset: str, production: bool = True):
+def preset_configs(preset: str, production: bool = True, **field):
     """(TrainerConfig, ModelConfig, DataManagerConfig) of a preset: with
     `production` under train_lse_data.sh's protocol (RGB spline + deblur
     x4, event `ns` deltas), else with `ns` deltas for both cameras and one
-    ray an RGB pixel, as the flagship."""
+    ray an RGB pixel, as the flagship; `field` as preset_model_config
+    takes it (hash_layout, compute_dtype, coarse_stride)."""
     cfg = TrainerConfig(
         col_cam_opt=CameraOptConfig(mode="SO3xR3", optim_type="spline" if production else "ns"),
         evs_cam_opt=CameraOptConfig(mode="SO3xR3", optim_type="ns"),
     )
     dmc = DataManagerConfig(train_num_rays_per_batch=3512, rgb_frac=PRESETS[preset][0],
                             rgb_loss_mode="deblur" if production else "mse")
-    return cfg, preset_model_config(preset, production), dmc
+    return cfg, preset_model_config(preset, production, **field), dmc
 
 
-def preset_trainer(preset: str, production: bool = True, device=None, dm_seed: int = 0) -> Trainer:
+def preset_trainer(preset: str, production: bool = True, device=None, dm_seed: int = 0,
+                   **field) -> Trainer:
     """A preset's trainer (preset_configs) on the flagship's scene, set up
     with fresh parameters from its seed."""
-    cfg, mcfg, dmc = preset_configs(preset, production)
+    cfg, mcfg, dmc = preset_configs(preset, production, **field)
     col, evs = make_synthetic_scene(n_cams=12, h=64, w=64, focal=60.0)
     if dmc.rgb_frac >= 1.0:
         evs = None  # train.py parses no event data for an RGB-only run
@@ -117,25 +129,31 @@ def flagship_trainer(device=None, dm_seed: int = 0, production: bool = False) ->
     return preset_trainer("lsenerf", production, device, dm_seed)
 
 
-def step_encode_inputs(device=None, preset: str | None = None):
-    """The arguments K2 (combine.encode_bwd) is given in one real train
-    step: a fresh flagship trainer (or the preset's production trainer)
+def step_encode_inputs(device=None, preset: str | None = None, **field):
+    """The arguments the encode's backward kernel (K2, combine.encode_bwd,
+    or for hash_layout="ngp" K7b, ngp.encode_bwd) is given in one real
+    train step: a fresh flagship trainer (or the preset's production
+    trainer, its field changed by `field` as preset_model_config takes it)
     takes its step 0 (the occupancy update, the march, the field and the
-    backward) with K2's wrapper watched. Returns (positions, table,
-    cotangent, levels); the positions come ray-major, as many samples a
-    ray as the march gives (16 for the flagship, 48 under F=0)."""
-    seen, real = [], combine.encode_bwd
+    backward) with the wrapper watched. Returns (positions, table,
+    cotangent, levels); the positions come ray-major, as many samples a ray
+    as the march gives (16 for the flagship, 48 under F=0)."""
+    ops = ngp if field.get("hash_layout") == "ngp" else combine
+    seen, real = [], ops.encode_bwd
 
     def watch(positions, table, gfeat, levels):
         seen.append((positions.clone(), table.clone(), gfeat.clone(), levels))
         return real(positions, table, gfeat, levels)
 
-    trainer = flagship_trainer(device=device) if preset is None else preset_trainer(preset, device=device)
-    combine.encode_bwd = watch
+    if preset is None and not field:
+        trainer = flagship_trainer(device=device)
+    else:
+        trainer = preset_trainer(preset or "lsenerf", preset is not None, device, **field)
+    ops.encode_bwd = watch
     try:
         trainer.step(trainer.dm.next_train(0))
     finally:
-        combine.encode_bwd = real
+        ops.encode_bwd = real
     if len(seen) != 1:
-        raise RuntimeError(f"one train step called K2 {len(seen)} times, not once")
+        raise RuntimeError(f"one train step called the encode's backward {len(seen)} times, not once")
     return seen[0]

@@ -11,6 +11,7 @@ different function).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field as dc_field
 
 import torch
@@ -41,7 +42,8 @@ def trunc_exp(x: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class FieldConfig:
-    aabb_scale: float = 1.0  # sets the march's auto step (diag / 1000)
+    aabb_scale: float = 1.0  # scene box [-s, s]^3; sets the march's auto step (diag / 1000)
+    use_contraction: bool = True  # the L-inf scene contraction, else the aabb
     num_layers: int = 2
     hidden_dim: int = 64
     geo_feat_dim: int = 15
@@ -55,6 +57,20 @@ class FieldConfig:
         default_factory=emb_lib.EmbeddingConfig
     )
     compute_dtype: str = "float32"  # "bfloat16": bf16-rounded MLP inputs
+    # strided coarse-level sampling: the lowest coarse_levels levels are
+    # encoded at every coarse_stride-th sample of a ray (and its last) and
+    # lerped in t between these anchors; 1 is the plain path
+    coarse_stride: int = 1
+    coarse_levels: int = 4
+
+    def __post_init__(self):
+        # coarse_levels=0 would be the level_hi=0 "all levels" sentinel, and
+        # coarse_levels >= num_levels leaves the fine encode no level
+        if self.coarse_stride > 1 and not 0 < self.coarse_levels < self.hash.num_levels:
+            raise ValueError(
+                f"coarse_stride={self.coarse_stride} requires 0 < coarse_levels < num_levels "
+                f"(got coarse_levels={self.coarse_levels}, num_levels={self.hash.num_levels})"
+            )
 
 
 def init_field(generator: torch.Generator, config: FieldConfig, num_imgs: int = 1,
@@ -86,23 +102,83 @@ def _mlp_input(x: torch.Tensor, config: FieldConfig) -> torch.Tensor:
 
 def contract_positions(positions: torch.Tensor, config: FieldConfig):
     """World positions -> (unit-cube field inputs, in-bounds selector): the
-    L-inf scene contraction into [-2, 2], then (x + 2) / 4. The aabb
-    normalisation without contraction is not ported yet."""
-    mag = torch.amax(torch.abs(positions), dim=-1, keepdim=True)
-    contracted = torch.where(mag <= 1.0, positions, (2.0 - 1.0 / mag) * positions / mag)
-    unit = (contracted + 2.0) / 4.0
+    L-inf scene contraction into [-2, 2], then (x + 2) / 4; without
+    contraction, (x + s) / 2s over the aabb [-s, s]^3. Out-of-range inputs
+    are zeroed before they reach the (periodic) hash table."""
+    if config.use_contraction:
+        mag = torch.amax(torch.abs(positions), dim=-1, keepdim=True)
+        contracted = torch.where(mag <= 1.0, positions, (2.0 - 1.0 / mag) * positions / mag)
+        unit = (contracted + 2.0) / 4.0
+    else:
+        s = config.aabb_scale
+        unit = (positions + s) / (2.0 * s)
     selector = torch.all((unit > 0.0) & (unit < 1.0), dim=-1)
     return unit * selector[..., None], selector
+
+
+def _density_head(params: dict, feats: torch.Tensor, selector: torch.Tensor,
+                  config: FieldConfig):
+    h = mlp.apply_mlp(params["base_mlp"], _mlp_input(feats, config))
+    density_before, geo = h[..., :1], h[..., 1:]
+    density = config.average_init_density * trunc_exp(density_before)
+    return density * selector[..., None], geo
 
 
 def field_density(params: dict, positions: torch.Tensor, config: FieldConfig):
     """(n, 3) world positions -> (density (n, 1), geo_feat (n, geo_feat_dim))."""
     unit, selector = contract_positions(positions, config)
     feats = he.hash_encode(params["hash_table"], unit, config.hash)
-    h = mlp.apply_mlp(params["base_mlp"], _mlp_input(feats, config))
-    density_before, geo = h[..., :1], h[..., 1:]
-    density = config.average_init_density * trunc_exp(density_before)
-    return density * selector[..., None], geo
+    return _density_head(params, feats, selector, config)
+
+
+def _strided_encode(params: dict, unit: torch.Tensor, ts: torch.Tensor, config: FieldConfig,
+                    selector: torch.Tensor) -> torch.Tensor:
+    """Hash features with the coarse levels anchored at every
+    coarse_stride-th sample (and the last) and lerped in t between anchors.
+
+    unit: (n, k, 3) unit-cube positions; ts: (n, k) sample midpoints;
+    selector: (n, k) in-bounds mask. Returns (n*k, out_dim) features laid
+    out as the plain encode's (coarse levels first). Invalid trailing slots
+    sit at t=0, so their lerp denominators are not positive and the clip
+    takes the left (valid) anchor. Where exactly one anchor of a pair is out
+    of bounds (its encode is the zeroed corner's), the weight snaps to the
+    valid one."""
+    n, k, _ = unit.shape
+    C, S = config.coarse_levels, config.coarse_stride
+    table = params["hash_table"]
+    feats_fine = he.hash_encode(table, unit.reshape(-1, 3),
+                                dataclasses.replace(config.hash, level_lo=C))
+    anchor_idx = list(range(0, k, S))
+    if anchor_idx[-1] != k - 1:
+        anchor_idx.append(k - 1)
+    A = len(anchor_idx)
+    anchors = torch.tensor(anchor_idx, device=unit.device)
+    feats_a = he.hash_encode(table, unit[:, anchors].reshape(-1, 3),
+                             dataclasses.replace(config.hash, level_hi=C)).reshape(n, A, -1)
+    # sample j lies between anchors seg(j) and seg(j) + 1
+    seg = torch.clamp(torch.arange(k, device=unit.device) // S, max=A - 2)
+    t_left, t_right = ts[:, anchors[seg]], ts[:, anchors[seg + 1]]
+    denom = t_right - t_left
+    ok = denom > 1e-12
+    w = torch.where(ok, (ts - t_left) / torch.where(ok, denom, torch.ones_like(denom)),
+                    torch.zeros_like(ts))
+    w = torch.clamp(w, 0.0, 1.0)
+    sel_a = selector.reshape(n, k)[:, anchors]
+    sl, sr = sel_a[:, seg], sel_a[:, seg + 1]
+    w = torch.where(sl & ~sr, torch.zeros_like(w), torch.where(~sl & sr, torch.ones_like(w), w))
+    w = w[..., None]
+    feats_coarse = (1.0 - w) * feats_a[:, seg] + w * feats_a[:, seg + 1]
+    return torch.cat([feats_coarse.reshape(n * k, -1), feats_fine], dim=-1)
+
+
+def field_density_strided(params: dict, positions: torch.Tensor, ts: torch.Tensor,
+                          config: FieldConfig):
+    """field_density over (n, k, 3) ray-structured samples with the strided
+    coarse-level encode. Returns flat (n*k, 1) density and (n*k, geo)."""
+    n, k, _ = positions.shape
+    unit, selector = contract_positions(positions.reshape(-1, 3), config)
+    feats = _strided_encode(params, unit.reshape(n, k, 3), ts, config, selector)
+    return _density_head(params, feats, selector, config)
 
 
 def appearance_codes(params: dict, appearance_id: torch.Tensor, n: int, config: FieldConfig,
@@ -130,14 +206,31 @@ def field_apply(
     """Full field evaluation -> (density (n, 1), rgb (n, 3)).
     `appearance_id` holds one id a sample or one a ray (appearance_codes)."""
     density, geo = field_density(params, positions, config)
+    return density, _color(params, geo, directions, appearance_id, config, train)
+
+
+def _color(params, geo, directions, appearance_id, config: FieldConfig, train: bool):
     pieces = [sh.sh_encode(directions, config.sh_levels), geo]
     if "appearance" in params:
-        pieces.append(appearance_codes(params, appearance_id, positions.shape[0], config, train))
+        pieces.append(appearance_codes(params, appearance_id, geo.shape[0], config, train))
     h = torch.cat(pieces, dim=-1)
-    rgb = mlp.apply_mlp(
-        params["color_mlp"], _mlp_input(h, config), out_activation=torch.sigmoid
-    )
-    return density, rgb
+    return mlp.apply_mlp(params["color_mlp"], _mlp_input(h, config), out_activation=torch.sigmoid)
+
+
+def field_apply_strided(
+    params: dict,
+    positions: torch.Tensor,
+    ts: torch.Tensor,
+    directions: torch.Tensor,
+    appearance_id: torch.Tensor,
+    config: FieldConfig,
+    train: bool = True,
+):
+    """field_apply over (n, k)-structured samples (positions (n, k, 3), ts
+    (n, k)) with the strided coarse-level encode; directions arrive flat
+    (n*k, 3) and `appearance_id` as field_apply takes it."""
+    density, geo = field_density_strided(params, positions, ts, config)
+    return density, _color(params, geo, directions, appearance_id, config, train)
 
 
 def density_fn(params: dict, positions: torch.Tensor, config: FieldConfig) -> torch.Tensor:

@@ -139,10 +139,18 @@ def render_bundle(
     if app_id is None:
         app_id = bundle.camera_indices
     # one id a ray: the field repeats each ray's code over its k samples
-    density, rgb = field_lib.field_apply(
-        params["field"], samples.positions.reshape(-1, 3),
-        samples.directions.reshape(-1, 3), app_id.reshape(n), config.field, train=train,
-    )
+    if config.field.coarse_stride > 1 and k > config.field.coarse_stride:
+        # the strided coarse-level encode lerps along each ray's samples
+        t_mid = 0.5 * (samples.t_starts + samples.t_ends)
+        density, rgb = field_lib.field_apply_strided(
+            params["field"], samples.positions, t_mid, samples.directions.reshape(-1, 3),
+            app_id.reshape(n), config.field, train=train,
+        )
+    else:
+        density, rgb = field_lib.field_apply(
+            params["field"], samples.positions.reshape(-1, 3),
+            samples.directions.reshape(-1, 3), app_id.reshape(n), config.field, train=train,
+        )
     density = density.reshape(n, k, 1)
     rgb = rgb.reshape(n, k, 3)
 

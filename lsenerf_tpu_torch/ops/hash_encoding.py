@@ -1,17 +1,31 @@
-"""Multi-resolution hash-grid encoding, blocked layout.
+"""Multi-resolution hash-grid encoding, in the JAX package's two layouts.
+Port of lsenerf_tpu/ops/hash_encoding.py.
 
-Port of lsenerf_tpu/ops/hash_encoding.py for the layout the flagship uses:
-vertices are grouped into overlapping 3x3x3 blocks keyed by the
-half-resolution cell k = floor(cube_base / 2), so every sample-level reads
-one 64-wide row (27 vertices x F=2 features + 10 pad columns). Dense levels
-index the block lattice directly; the rest use the XOR-prime hash.
+"ngp" (the default, as in JAX) is the reference-exact per-vertex hash
+(tiny-cuda-nn's HashGrid): every sample-level reads the 8 vertices of its
+cube, each hashed into the level's 2^log2_hashmap_size entries of F=2
+features. The table is (num_levels * T, F) row-major, the transpose of
+JAX's (F, num_levels * T) (convert.ngp_table_from_jax). Forward kernel K7a,
+backward K7b (ops/ngp.py).
 
-The encode is a torch.autograd.Function whose forward is kernel K1 and
-whose backward is kernel K2 (ops/combine.py). The backward recomputes keys
-and fractions from the positions instead of keeping the gathered rows, and
-its table gradient is an exact atomic sum: the JAX backward caps updates
-per accumulate window (hash_encoding.py:621) and, in bf16, rounds the
-gradient factors (:530-536, 560); the port does neither, on purpose.
+"blocked" (the flagship's) groups vertices into overlapping 3x3x3 blocks
+keyed by the half-resolution cell k = floor(cube_base / 2), so every
+sample-level reads one 64-wide row (27 vertices x F=2 features + 10 pad
+columns). Dense levels index the block lattice directly; the rest use the
+XOR-prime hash. Forward kernel K1, backward K2 (ops/combine.py).
+
+Both encodes are torch.autograd.Functions whose backward recomputes keys
+and fractions from the positions instead of keeping the gathered rows. The
+table gradient is an exact f32 atomic sum in both: the JAX blocked backward
+caps updates per accumulate window (hash_encoding.py:621) and, in bf16,
+rounds the gradient factors (:530-536, 560); the JAX ngp backward with a
+bf16 gather scatter-adds bf16-rounded updates into a bf16 table
+(fast_gather.py:324). The port does none of these, on purpose.
+
+The level window [level_lo, level_hi) encodes a slice of the ladder with
+the ladder's geometry (scalings, row offsets, the table's and its
+gradient's shapes), so concat(encode[0:C], encode[C:L]) == encode[0:L],
+forward and backward: the strided coarse-level field relies on it.
 """
 
 from __future__ import annotations
@@ -22,31 +36,64 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from lsenerf_tpu_torch.ops import combine
+from lsenerf_tpu_torch.ops import combine, ngp
+
+LAYOUTS = ("ngp", "blocked")
 
 
 @dataclass(frozen=True)
 class HashEncodingConfig:
+    """The JAX HashEncodingConfig's fields that the port's layouts read,
+    with its defaults (its other fields tune the TPU's backward)."""
+
     num_levels: int = 16
     features_per_level: int = 2
+    log2_hashmap_size: int = 19  # the ngp layout's entries a level
     base_res: int = 16
     max_res: int = 2048
     hash_init_scale: float = 0.001
     # "bfloat16": the f32 table is cast to bf16 once per encode for the
     # lookup; gradients accumulate in f32
     gather_dtype: str = "float32"
+    layout: str = "ngp"  # ngp | blocked
     # log2 of hashed rows per level (2^14 rows x 64 == 2^19 entries x 2)
     blocked_rows_log2: int = 14
+    # the active level window [level_lo, level_hi); level_hi=0 means
+    # num_levels
+    level_lo: int = 0
+    level_hi: int = 0
 
     def __post_init__(self):
+        if self.layout not in LAYOUTS:
+            raise ValueError(f"layout {self.layout!r}: one of {LAYOUTS}")
         if self.features_per_level != combine.F:
-            raise ValueError(
-                f"the blocked kernels take features_per_level={combine.F}"
-            )
+            raise ValueError(f"the encode kernels take features_per_level={combine.F}")
+        lo, hi = self.active_range
+        if not 0 <= lo < hi <= self.num_levels:
+            raise ValueError(f"level window [{lo}, {hi}) of {self.num_levels} levels")
+
+    @property
+    def table_size(self) -> int:
+        return 2**self.log2_hashmap_size
+
+    @property
+    def active_range(self) -> tuple:
+        """(lo, hi) of the active level window; hi=0 means num_levels."""
+        hi = self.level_hi if self.level_hi > 0 else self.num_levels
+        return self.level_lo, hi
 
     @property
     def out_dim(self) -> int:
-        return self.num_levels * self.features_per_level
+        lo, hi = self.active_range
+        return (hi - lo) * self.features_per_level
+
+    @property
+    def table_shape(self) -> tuple:
+        """The table parameter's shape: (num_levels * T, F) for ngp,
+        (total_rows, row width) for blocked."""
+        if self.layout == "ngp":
+            return (self.num_levels * self.table_size, self.features_per_level)
+        return (self.total_rows, self.blocked_row_width)
 
     @property
     def blocked_row_width(self) -> int:
@@ -82,23 +129,29 @@ def _dense_level_count(config: HashEncodingConfig) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _levels(config: HashEncodingConfig, device: torch.device) -> combine.Levels:
+def _levels(config: HashEncodingConfig, device: torch.device):
+    lo, hi = config.active_range
+    scale = torch.tensor(config.scalings()[lo:hi].astype(np.float32), device=device)
+    if config.layout == "ngp":
+        return ngp.Levels(scale=scale, lo=lo, log2_T=config.log2_hashmap_size,
+                          levels=config.num_levels)
     rows = config.blocked_level_rows()
-    L = config.num_levels
-    params = np.zeros((L, 4), np.int32)
+    params = np.zeros((config.num_levels, 4), np.int32)
     params[:, 0] = config.scalings().astype(np.int64)
     params[:, 1] = config.blocked_level_bdims()
     params[:_dense_level_count(config), 2] = 1
-    params[:, 3] = np.concatenate([[0], np.cumsum(rows)[:-1]])
+    params[:, 3] = np.concatenate([[0], np.cumsum(rows)[:-1]])  # global row offsets
     return combine.Levels(
-        scale=torch.tensor(config.scalings().astype(np.float32), device=device),
-        params=torch.tensor(params, device=device),
+        scale=scale,
+        params=torch.tensor(params[lo:hi], device=device),
         hash_mask=2**config.blocked_rows_log2 - 1,
         total_rows=config.total_rows,
     )
 
 
-def levels_for(config: HashEncodingConfig, device) -> combine.Levels:
+def levels_for(config: HashEncodingConfig, device):
+    """The window's levels on `device`: ngp.Levels for the ngp layout,
+    combine.Levels for the blocked one."""
     return _levels(config, torch.device(device))
 
 
@@ -111,29 +164,33 @@ def _blocked_keys_fracs(positions: torch.Tensor, config: HashEncodingConfig):
 def init_hash_table(
     config: HashEncodingConfig, generator: torch.Generator, device="cpu"
 ) -> torch.Tensor:
-    """U(-scale, scale) init of the (total_rows, row_width) table."""
-    shape = (config.total_rows, config.blocked_row_width)
-    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    """U(-scale, scale) init of the layout's table (config.table_shape)."""
+    u = torch.rand(config.table_shape, generator=generator, dtype=torch.float32, device=device)
     return (u * 2.0 - 1.0) * config.hash_init_scale
 
 
-class _BlockedEncode(torch.autograd.Function):
+# each layout's (forward, backward) wrappers: K7a/K7b and K1/K2
+_KERNELS = {"ngp": ngp, "blocked": combine}
+
+
+class _Encode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, positions, levels, bf16):
+    def forward(ctx, table, positions, levels, bf16, ops):
         gtable = table.to(torch.bfloat16) if bf16 else table
-        ctx.levels = levels
+        ctx.levels, ctx.ops = levels, ops
         ctx.save_for_backward(positions, gtable)
-        return combine.encode_fwd(positions.contiguous(), gtable, levels)
+        return ops.encode_fwd(positions.contiguous(), gtable, levels)
 
     @staticmethod
     def backward(ctx, gfeat):
         positions, gtable = ctx.saved_tensors
-        dpos, dtable = combine.encode_bwd(
+        dpos, dtable = ctx.ops.encode_bwd(
             positions.contiguous(), gtable, gfeat.float().contiguous(), ctx.levels
         )
         return (
             dtable if ctx.needs_input_grad[0] else None,
             dpos if ctx.needs_input_grad[1] else None,
+            None,
             None,
             None,
         )
@@ -142,9 +199,10 @@ class _BlockedEncode(torch.autograd.Function):
 def hash_encode(
     table: torch.Tensor, positions: torch.Tensor, config: HashEncodingConfig
 ) -> torch.Tensor:
-    """Encode (n, 3) positions in [0,1]^3 -> (n, L*F) features.
-    Differentiable in the table and in the positions."""
-    levels = levels_for(config, positions.device)
-    return _BlockedEncode.apply(
-        table, positions, levels, config.gather_dtype == "bfloat16"
+    """Encode (n, 3) positions in [0,1]^3 -> (n, out_dim) features of the
+    active level window. Differentiable in the table and in the
+    positions; the table's gradient has the table's whole shape."""
+    return _Encode.apply(
+        table, positions, levels_for(config, positions.device),
+        config.gather_dtype == "bfloat16", _KERNELS[config.layout],
     )

@@ -1,19 +1,23 @@
 """Where the flagship train step's time goes on the card.
 
     python -m lsenerf_tpu_torch.profile_step [--production | --preset NAME] [--warm 20] [--steps 8] [--out outputs/profile]
+        [--hash-layout ngp] [--compute-dtype float32]
 
 Runs the flagship trainer (flagship.py), with `--production` the
 production protocol's (RGB spline + deblur x4), or with `--preset` one of
 the four presets' (flagship.preset_trainer: lsenerf, lsenerf_emb, badnerf,
-badnerf_emb), for `--warm` steps, then traces
+badnerf_emb; `--hash-layout` and `--compute-dtype` change its field as
+the CLI's flags do), for `--warm` steps, then traces
 `--steps` steps with torch.profiler (CPU and CUDA activities, no occupancy
 update inside the window). Prints the step time from CUDA events, the
 device's busy time per step (the union of kernel intervals on the card),
-its idle share, the device time of the blocked-encode kernels and of the
+its idle share, the device time of the encode kernels (K1/K2 blocked,
+K7a/K7b ngp) and of the
 index kernels (the spline's knot gathers; under evs_emb also the
 appearance lookup's index_select and index_add), and the top
 kernels by device time; writes the full table and a Chrome trace under
-`--out` (profile_step[_production|_NAME].txt and ..._trace.json.gz).
+`--out` (profile_step[_production|_NAME][_LAYOUT_DTYPE].txt and
+..._trace.json.gz).
 Needs a CUDA device.
 """
 
@@ -48,6 +52,8 @@ def main(argv=None) -> int:
                       help="trace the production protocol's trainer")
     mode.add_argument("--preset", choices=["lsenerf", "lsenerf_emb", "badnerf", "badnerf_emb"],
                       help="trace this preset's trainer (train_lse_data.sh's protocol)")
+    ap.add_argument("--hash-layout", choices=["blocked", "ngp"], default="blocked")
+    ap.add_argument("--compute-dtype", choices=["bfloat16", "float32"], default="bfloat16")
     ap.add_argument("--warm", type=int, default=20)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", default="outputs/profile")
@@ -56,7 +62,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from lsenerf_tpu_torch.flagship import flagship_trainer, preset_trainer
+    from lsenerf_tpu_torch.flagship import preset_trainer
 
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -67,11 +73,14 @@ def main(argv=None) -> int:
     ).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    field = dict(hash_layout=args.hash_layout, compute_dtype=args.compute_dtype)
     if args.preset:
-        trainer, label = preset_trainer(args.preset), args.preset
+        trainer, label = preset_trainer(args.preset, **field), args.preset
     else:
-        trainer = flagship_trainer(production=args.production)
+        trainer = preset_trainer("lsenerf", args.production, **field)
         label = "production" if args.production else "flagship"
+    if args.hash_layout != "blocked" or args.compute_dtype != "bfloat16":
+        label += f"_{args.hash_layout}_{args.compute_dtype}"
     interval = trainer.model_config.grid.update_interval
     n = args.warm + args.steps
     batches = [trainer.dm.next_train(i) for i in range(n)]
@@ -110,9 +119,12 @@ def main(argv=None) -> int:
           f"{args.steps} traced steps; device busy {busy:.3f} ms/step, idle share "
           f"{1 - busy / step_ms:.3f}; kernel time sum {total_dev:.3f} ms/step; "
           f"{len(dev_events) / args.steps:.0f} device events/step")
-    enc = {k: v for k, v in kern.items() if "encode_fwd_kernel" in k or "encode_bwd_kernel" in k}
-    for k, (t, c) in enc.items():
-        print(f"  {'K1' if 'fwd' in k else 'K2'}: {t / args.steps:.4f} ms/step, {c / args.steps:.1f} launches/step")
+    names = {"encode_fwd_kernel": "K1", "encode_bwd_kernel": "K2", "ngp_fwd_kernel": "K7a",
+             "ngp_bwd_kernel": "K7b"}
+    for k, (t, c) in kern.items():
+        for key, short in names.items():
+            if key in k:
+                print(f"  {short}: {t / args.steps:.4f} ms/step, {c / args.steps:.1f} launches/step")
     # the index kernels: the spline's knot gathers and, under evs_emb, the
     # appearance lookup (index_select forward, index_add backward)
     for k, (t, c) in kern.items():

@@ -106,6 +106,36 @@ def test_cli_train_eval_sh_emb_eval_sh(tmp_path):
     assert saved["opt"]["adam"] == {} and saved["opt"]["count"] == 0
 
 
+def test_cli_golden_ngpf32_flags_train_and_eval_sh(tmp_path):
+    """The real_scale_badnerf_ngpf32 golden's flags (the headline protocol,
+    RGB only, no mapping, the ngp layout, f32) through the CLI, then
+    scripts/eval.sh on the run: both write eval_mean.json with a finite
+    PSNR, and the checkpoint holds the ngp table, (L*T, 2)."""
+    import math
+
+    from lsenerf_tpu_torch import parity
+
+    data = str(tmp_path / "scene")
+    write_reference_scene(data, n_cams=8, h=16, w=16, focal=20.0, n_val=2, with_prevnext=True,
+                          with_msk=True, with_full_camera=True, texture_freq=3.0)
+    argv = (["lsenerf", "--data", data, "--output-dir", str(tmp_path / "run"), "--machine.seed",
+             "96", "--max-num-iterations", "8", "--steps-per-save", "8",
+             "--steps-per-eval-image", "100", "--steps-per-eval-all-images", "8",
+             "--steps-per-eval-batch", "100", "--pipeline.datamanager.rgb_frac", "0.66"]
+            + parity.HEADLINE + parity.NGPF32 + TINY_MODEL
+            + ["--pipeline.model.log2-hashmap-size", "12"])
+    run = _cli(argv, str(tmp_path))
+    _has_run_files(run)
+    table = torch.load(osp.join(run, "checkpoints", "step-000000007"),
+                       weights_only=True)["params"]["model"]["field"]["hash_table"]
+    assert table.shape == (4 * 2**12, 2)
+    (ev_argv,) = script_invocations("eval.sh", {"EXP_PATH": run})
+    ev = _cli(_steps(ev_argv, 4), str(tmp_path))
+    _has_run_files(ev)
+    for r in (run, ev):
+        assert math.isfinite(json.load(open(osp.join(r, "eval_mean.json")))["psnr"])
+
+
 def test_cli_needs_the_card_unless_asked_for_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

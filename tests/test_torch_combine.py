@@ -22,7 +22,7 @@ J_CFG = jhe.HashEncodingConfig(
     dense_grad_rows=64,
 )
 T_CFG = the.HashEncodingConfig(
-    num_levels=5, base_res=4, max_res=64, blocked_rows_log2=10,
+    num_levels=5, base_res=4, max_res=64, layout="blocked", blocked_rows_log2=10,
 )
 
 

@@ -9,6 +9,7 @@ the port reads the JAX CLI's).
 """
 
 import dataclasses
+import json
 import os
 import os.path as osp
 import re
@@ -191,12 +192,72 @@ def test_yaml_scalars_read_as_pyyaml_reads_them():
     (["--machine.num-devices", "2"], "num_devices"),
     (["--pipeline.datamanager.use-native", "True"], "use_native"),
     (["--pipeline.model.proposal-warmup-steps", "100"], "proposal_warmup_steps"),
-    (["--pipeline.model.hash-layout", "ngp"], "hash_layout"),
     (["--is_render", "True"], "is_render"),
-    (["--pipeline.model.coarse-stride", "2"], "coarse_stride"),
-    (["--pipeline.model.disable-scene-contraction", "True"], "disable_scene_contraction"),
+    (["--pipeline.model.compact-chunk", "4096"], "compact_chunk"),
 ])
 def test_unported_options_raise(flags, what):
     cfg = tcfg.modify_config(tcfg.parse_cli(["lsenerf"] + flags))
     with pytest.raises(NotImplementedError, match=what):
         tcfg.build_runtime_configs(cfg)
+
+
+# flags that lower into the hash encoding and the field, each alone on the
+# CLI's defaults and on the lsenerf preset's argv
+FIELD_FLAGS = {
+    "hash_layout": ["--pipeline.model.hash-layout", "ngp"],
+    "coarse_stride": ["--pipeline.model.coarse-stride", "2"],
+    "disable_scene_contraction": ["--pipeline.model.disable-scene-contraction", "True"],
+    "log2_hashmap_size": ["--pipeline.model.log2-hashmap-size", "12"],
+    "coarse_levels": ["--pipeline.model.coarse-stride", "4", "--pipeline.model.coarse-levels", "6"],
+    "ngp_f32": ["--pipeline.model.hash-layout", "ngp", "--pipeline.model.compute-dtype",
+                "float32"],
+}
+
+
+@pytest.mark.parametrize("base", ["defaults", "lsenerf"])
+@pytest.mark.parametrize("name", list(FIELD_FLAGS))
+def test_field_flags_lower_as_jax(name, base):
+    """Each flag lowers to the port's FieldConfig and HashEncodingConfig
+    field by field as JAX's build_runtime_configs lowers it."""
+    argv = (["lsenerf"] if base == "defaults" else train_argv("lsenerf")) + FIELD_FLAGS[name]
+    _lower_both(argv)
+
+
+def golden_ngpf32_argv(data: str = "scene") -> list:
+    """scripts/golden_real_scale.py's train argv for the
+    real_scale_badnerf_ngpf32 golden: the headline protocol and the extra
+    flags recorded in scripts/golden_parity.json."""
+    entry = json.loads((ROOT / "scripts" / "golden_parity.json").read_text())[
+        "real_scale_badnerf_ngpf32"]
+    extra = entry["protocol"]["config"].split(" + ", 1)[1].split()
+    src = (ROOT / "scripts" / "golden_real_scale.py").read_text()
+    block = src.split("# headline protocol (scripts/train_lse_data.sh)")[1].split("] + (")[0]
+    headline = re.findall(r'"(--[\w.-]+)", "([\w.]+)"', block)
+    argv = ["lsenerf", "--data", data, "--output-dir", "run", "--machine.seed", "96",
+            "--max-num-iterations", "8000", "--steps-per-save", "5000",
+            "--steps-per-eval-image", "2666", "--steps-per-eval-all-images", "8000",
+            "--steps-per-eval-batch", "2666", "--pipeline.datamanager.rgb_frac", "0.66"]
+    for flag, val in headline:
+        argv += [flag, val]
+    for flag in extra:
+        argv += flag.split("=", 1)
+    return argv
+
+
+def test_golden_ngpf32_flags_lower_as_jax():
+    """The real_scale_badnerf_ngpf32 golden's whole flag set, and the
+    port's copy of its flags and its PSNR / SSIM in parity.py."""
+    from lsenerf_tpu_torch import parity
+
+    argv = golden_ngpf32_argv()
+    t, _ = _lower_both(argv)
+    assert argv[-len(parity.NGPF32):] == parity.NGPF32
+    assert argv[-len(parity.NGPF32) - len(parity.HEADLINE):-len(parity.NGPF32)] == parity.HEADLINE
+    _, model, dm, _ = tcfg.build_runtime_configs(t)
+    assert (model.field.hash.layout, model.field.compute_dtype, model.field.hash.gather_dtype) == (
+        "ngp", "float32", "float32")
+    assert dm.rgb_frac == 1.0 and not model.use_mapping and model.rgb_loss_type == "deblur"
+    golden = json.loads((ROOT / "scripts" / "golden_parity.json").read_text())[
+        "real_scale_badnerf_ngpf32"]
+    for k, (psnr, ssim) in parity.GOLDEN_NGPF32.items():
+        assert (psnr, ssim) == (golden[k]["psnr"], golden[k]["ssim"])

@@ -108,7 +108,7 @@ def _tiny_trainer(seed=0, rgb_frac=1.0):
                              col, None if rgb_frac >= 1 else evs, seed=3)
     mcfg = tmodel.ModelConfig(
         field=tfield.FieldConfig(hash=the.HashEncodingConfig(num_levels=4, base_res=4, max_res=32,
-                                                              blocked_rows_log2=8)),
+                                                              layout="blocked", blocked_rows_log2=8)),
         grid=tocc.OccGridConfig(resolution=16, levels=1, update_interval=4),
         max_samples=16, max_candidates=64, hierarchical_march=False)
     tr = ttr.Trainer(ttr.TrainerConfig(seed=seed, col_cam_opt=ttr.CameraOptConfig(mode="SO3xR3")),

@@ -1,6 +1,7 @@
 """The port's kernels against their plain PyTorch versions on the card: K1
-and K2 (lsenerf_tpu_torch/ops/combine.py) in an f32-table and a bf16-table
-arm, also where many samples of a warp share rows (one cell, rays), at the
+and K2 (lsenerf_tpu_torch/ops/combine.py) and K7a and K7b
+(lsenerf_tpu_torch/ops/ngp.py, with level windows) in an f32-table and a
+bf16-table arm, also where many samples of a warp share rows (one cell, rays), at the
 flagship's 16 levels (16 and 48 samples a ray) and at 2 and 3 levels, and
 the gathers G1-G3 (lsenerf_tpu_torch/ops/gather.py), held to exact
 equality, G2 at the shapes that pick each of its paths and G3 at several
@@ -17,11 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from lsenerf_tpu_torch.ops import combine, gather
+from lsenerf_tpu_torch.ops import combine, gather, ngp
 from lsenerf_tpu_torch.ops import hash_encoding as the
 
 # 5 levels, res 4..64: levels 0-2 dense, 3-4 hashed (2^10 rows)
-T_CFG = the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, blocked_rows_log2=10)
+T_CFG = the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, layout="blocked",
+                               blocked_rows_log2=10)
 
 
 @pytest.mark.cuda
@@ -87,12 +89,12 @@ ENCODE_CASES = {
     "uniform-L5": ("uniform", T_CFG, 4099),
     "one_cell-L5": ("one_cell", T_CFG, 4099),
     "rays-L5": ("rays", T_CFG, 4112),
-    "rays-L16": ("rays", the.HashEncodingConfig(), 56_192 - 7),
-    "rays48-L16": ("rays48", the.HashEncodingConfig(), 168_480 - 5),
+    "rays-L16": ("rays", the.HashEncodingConfig(layout="blocked"), 56_192 - 7),
+    "rays48-L16": ("rays48", the.HashEncodingConfig(layout="blocked"), 168_480 - 5),
     "uniform-L2": ("uniform", the.HashEncodingConfig(
-        num_levels=2, base_res=4, max_res=16, blocked_rows_log2=10), 1000),
+        num_levels=2, base_res=4, max_res=16, layout="blocked", blocked_rows_log2=10), 1000),
     "rays-L3": ("rays", the.HashEncodingConfig(
-        num_levels=3, base_res=4, max_res=64, blocked_rows_log2=10), 1000),
+        num_levels=3, base_res=4, max_res=64, layout="blocked", blocked_rows_log2=10), 1000),
 }
 
 
@@ -155,6 +157,63 @@ def test_encode_bwd_matches_plain_on_card(case, dtype):
     assert not dtab[:, 54:].any()
     again, _ = combine.encode_bwd(p, tab, gg, lv)
     assert torch.equal(dpos, again), "dpos differs from call to call"
+
+
+# (positions, config, n) for K7a and K7b: the ngp layout at L = 5 with
+# 2^10 entries a level, in one cell and along rays, a level window, and at
+# the badnerf preset's 16 levels of 2^19 entries (56,192 samples, less 7)
+# with the window [4, 16) of the strided field's fine encode
+NGP_CFG = the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, log2_hashmap_size=10)
+NGP_CASES = {
+    "uniform-L5": ("uniform", NGP_CFG, 4099),
+    "one_cell-L5": ("one_cell", NGP_CFG, 4099),
+    "rays-L5-window-1-4": ("rays", the.HashEncodingConfig(
+        num_levels=5, base_res=4, max_res=64, log2_hashmap_size=10, level_lo=1, level_hi=4), 4112),
+    "rays-L16": ("rays", the.HashEncodingConfig(), 56_192 - 7),
+    "rays-L16-window-4-16": ("rays", the.HashEncodingConfig(level_lo=4), 56_192 - 7),
+}
+
+
+def _ngp_inputs(case, dtype, dev):
+    kind, cfg, n = NGP_CASES[case]
+    rng = np.random.default_rng(9)
+    p = torch.from_numpy(_positions(kind, n, rng)).to(dev)
+    tab = torch.from_numpy(rng.standard_normal(cfg.table_shape).astype(np.float32)).to(dev, dtype)
+    gg = torch.from_numpy(rng.standard_normal((n, cfg.out_dim)).astype(np.float32)).to(dev)
+    return p, tab, gg, the.levels_for(cfg, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(NGP_CASES))
+def test_ngp_encode_matches_plain_on_card(case, dtype):
+    """K7a and K7b against their plain versions. The keys are the same bits,
+    so the forward differs by the order of the 8-corner sum only; the table
+    gradient's atomics add in an order that changes from run to run; dpos
+    sums level terms that cancel (atol scales with its largest element) and
+    is the same bits from call to call."""
+    p, tab, gg, lv = _ngp_inputs(case, dtype, _card())
+    torch.testing.assert_close(ngp.encode_fwd(p, tab, lv), ngp.encode_fwd_plain(p, tab, lv),
+                               rtol=1e-5, atol=1e-6)
+    dpos, dtab = ngp.encode_bwd(p, tab, gg, lv)
+    wdpos, wdtab = ngp.encode_bwd_plain(p, tab, gg, lv)
+    torch.testing.assert_close(dpos, wdpos, rtol=1e-4, atol=1e-6 * float(wdpos.abs().max()))
+    torch.testing.assert_close(dtab, wdtab, rtol=0, atol=1e-5 * float(wdtab.abs().max()))
+    lo, hi = lv.lo << lv.log2_T, (lv.lo + lv.num) << lv.log2_T
+    assert not dtab[:lo].any() and not dtab[hi:].any(), "levels outside the window moved"
+    again, _ = ngp.encode_bwd(p, tab, gg, lv)
+    assert torch.equal(dpos, again), "dpos differs from call to call"
+
+
+@pytest.mark.cuda
+def test_ngp_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    p, tab, gg, lv = _ngp_inputs("uniform-L5", torch.float32, dev)
+    for args in ((p.double(), tab, lv), (p, tab[1:], lv), (p, tab.half(), lv), (p, tab.T, lv)):
+        with pytest.raises(ValueError):
+            ngp.encode_fwd(*args)
+    with pytest.raises(ValueError):
+        ngp.encode_bwd(p, tab, gg[:, :-2], lv)
 
 
 def _same(got, want):

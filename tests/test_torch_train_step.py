@@ -116,7 +116,8 @@ def test_step_encode_inputs_watches_one_step(monkeypatch):
     from lsenerf_tpu_torch.ops import hash_encoding as the
     from lsenerf_tpu_torch.ops import occupancy as occ_lib
 
-    hcfg = the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, blocked_rows_log2=10)
+    hcfg = the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, layout="blocked",
+                                 blocked_rows_log2=10)
 
     def tiny(device=None):
         col, evs = make_synthetic_scene(n_cams=3, h=8, w=8)

@@ -3,7 +3,7 @@ one small configuration built twice, once from the JAX package and once
 from the port, so both run the same branches on the same inputs.
 
 The configuration takes the flagship's branches at a small size: a blocked
-hash grid with dense and hashed levels, a 32^3 x 2 occupancy grid with 256
+hash grid with dense and hashed levels (or an ngp one, `layout="ngp"`), a 32^3 x 2 occupancy grid with 256
 candidates (hierarchical march with the packed phase-2 rule: 256 % 8 == 0,
 32 % 8 == 0, (32/8) % 4 == 0, 256/8 > 24, 8^3 % 32 == 0), 16 samples
 resampled to 8 by the proposal, co_map with identity/powpow mappers and
@@ -38,8 +38,9 @@ from lsenerf_tpu_torch.models import lsenerf as tmodel
 from lsenerf_tpu_torch.ops import hash_encoding as the
 from lsenerf_tpu_torch.ops import occupancy as tocc
 
-# res 4..128 over 6 levels; 2^10 rows per hashed level: levels 0-2 dense
-HASH = dict(num_levels=6, base_res=4, max_res=128, blocked_rows_log2=10)
+# res 4..128 over 6 levels; blocked: 2^10 rows per hashed level, levels 0-2
+# dense; ngp: 2^10 entries a level
+HASH = dict(num_levels=6, base_res=4, max_res=128, blocked_rows_log2=10, log2_hashmap_size=10)
 GRID = dict(resolution=32, levels=2)
 MODEL = dict(
     max_samples=16, max_candidates=256, proposal_samples=8, use_mapping=True,
@@ -48,31 +49,33 @@ MODEL = dict(
 SCENE = dict(n_cams=6, h=16, w=16, focal=20.0)
 
 
-def hash_configs(dtype="float32", **over):
-    kw = dict(HASH, gather_dtype=dtype)
+def hash_configs(dtype="float32", layout="blocked", **over):
+    """(JAX, port) HashEncodingConfig of HASH in `layout`, updated by `over`."""
+    kw = dict(HASH, gather_dtype=dtype, layout=layout)
     kw.update(over)
-    # dense_grad_rows=64 keeps the JAX backward's default split: exact
-    # one-hot sums on the dense levels, the sorted windows on hashed ones
-    j = jhe.HashEncodingConfig(layout="blocked", combine_impl="pallas",
-                               dense_grad_rows=64, **kw)
+    # dense_grad_rows=64 keeps the JAX blocked backward's default split:
+    # exact one-hot sums on the dense levels, the sorted windows on hashed
+    # ones; the Pallas combine runs in interpret mode
+    j = jhe.HashEncodingConfig(combine_impl="pallas", dense_grad_rows=64, **kw)
     return j, the.HashEncodingConfig(**kw)
 
 
 def model_configs(dtype="float32", rgb_loss_type="linspace", model=None, hash=None,
-                  grid=None, emb="global_emb"):
+                  grid=None, emb="global_emb", layout="blocked", field=None):
     """(JAX ModelConfig, port ModelConfig): MODEL updated by `model`, HASH
-    by `hash`, GRID by `grid`, with embedding type `emb`."""
-    jh, th = hash_configs(dtype, **(hash or {}))
+    in `layout` by `hash`, GRID by `grid`, FieldConfig fields (coarse_stride,
+    coarse_levels, use_contraction) from `field`, with embedding type
+    `emb`."""
+    jh, th = hash_configs(dtype, layout, **(hash or {}))
     kw = dict(MODEL, rgb_loss_type=rgb_loss_type, **(model or {}))
     g = dict(GRID, **(grid or {}))
+    f = dict(compute_dtype=dtype, **(field or {}))
     j = jmodel.ModelConfig(
-        field=jfield.FieldConfig(hash=jh, compute_dtype=dtype,
-                                 embedding=jemb.EmbeddingConfig(embedding_type=emb)),
+        field=jfield.FieldConfig(hash=jh, embedding=jemb.EmbeddingConfig(embedding_type=emb), **f),
         grid=jocc.OccGridConfig(**g), **kw,
     )
     t = tmodel.ModelConfig(
-        field=tfield.FieldConfig(hash=th, compute_dtype=dtype,
-                                 embedding=temb.EmbeddingConfig(embedding_type=emb)),
+        field=tfield.FieldConfig(hash=th, embedding=temb.EmbeddingConfig(embedding_type=emb), **f),
         grid=tocc.OccGridConfig(**g), **kw,
     )
     return j, t
@@ -113,13 +116,13 @@ CAM = dict(mode="SO3xR3", optim_type="ns")
 
 def trainers(dtype="float32", rays=96, dm_seed=0, col_cam=CAM, evs_cam=CAM, deblur=False,
              dM=None, prevnext=False, model=None, hash=None, grid=None, emb="global_emb",
-             rgb_frac=0.66, fresh_grid=False):
+             rgb_frac=0.66, fresh_grid=False, layout="blocked", field=None):
     """(JAX trainer, its state, port trainer set up with the JAX params).
     `col_cam`/`evs_cam` are CameraOptConfig fields; `deblur` sets both the
     model's rgb_loss_type and the data manager's rgb_loss_mode; `dM` is
     set on both colour datasets; `prevnext` gives both event datasets
-    explicit prev/next cameras; `model`, `hash`, `grid` and `emb` go to
-    model_configs; `rgb_frac` 1.0 is an RGB-only run, with no event
+    explicit prev/next cameras; `model`, `hash`, `grid`, `emb`, `layout`
+    and `field` go to model_configs; `rgb_frac` 1.0 is an RGB-only run, with no event
     dataset (as train.py builds it); `fresh_grid` keeps JAX's fresh
     (jittered, all occupied) occupancy grid in place of sparse_grid()."""
     import jax
@@ -127,7 +130,8 @@ def trainers(dtype="float32", rays=96, dm_seed=0, col_cam=CAM, evs_cam=CAM, debl
 
     from lsenerf_tpu_torch import convert
 
-    jm, tm = model_configs(dtype, "deblur" if deblur else "linspace", model, hash, grid, emb)
+    jm, tm = model_configs(dtype, "deblur" if deblur else "linspace", model, hash, grid, emb,
+                           layout, field)
     dmc = dict(train_num_rays_per_batch=rays, rgb_frac=rgb_frac,
                rgb_loss_mode="deblur" if deblur else "mse")
     jcol, jevs = jsyn.make_synthetic_scene(**SCENE)
@@ -158,7 +162,7 @@ def trainers(dtype="float32", rays=96, dm_seed=0, col_cam=CAM, evs_cam=CAM, debl
     else:
         occs, binaries = sparse_grid(**{k: v for k, v in (grid or {}).items()
                                         if k in ("resolution", "levels")})
-    tt.setup(params=convert.params_from_numpy(p["model"], p["camera_opt"]),
+    tt.setup(params=convert.params_from_numpy(p["model"], p["camera_opt"], hash_layout=layout),
              occ=convert.occ_state_from_numpy(occs, binaries))
     state = state.replace(occ=jocc.OccGridState(
         occs=jax.numpy.asarray(occs), binaries=jax.numpy.asarray(binaries)))
