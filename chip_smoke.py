@@ -24,7 +24,12 @@ Phases, each fatal on failure (exit code 1):
      kernels, against their plain versions and timed: uniform positions at
      the badnerf preset's shape (56,192 samples, 16 levels of 2^19 entries)
      with an f32 and a bf16 table, the same with the level window [4, 16),
-     and the positions and cotangent of one real ngp f32 badnerf step; and
+     and the positions and cotangent of one real ngp f32 badnerf step; K7a
+     also at the inputs of that trainer's eval render chunk (4096 rays x 48
+     samples) and of its step-0 occupancy update's first density chunk
+     (131,072 cells); K7a bit for bit at every shape, timed warm and with
+     a cold L2 (128 MiB written before each call), with its table loads
+     per launch as worked out from its two designs (k7a_requests); and
      a fifth small step, ngp f32 with coarse_stride 2 and the aabb field in
      place of the scene contraction (3b);
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
@@ -349,19 +354,90 @@ def ngp_bounds(pos, table, lv):
     return bound(fwd_bytes, fwd_ops), bound(bwd_bytes, bwd_ops), entries
 
 
-def check_ngp_encode(name, pos, table, gfeat, lv):
-    """K7a and K7b against their plain versions on one input, then timed.
-    Returns {kernel name: result}."""
+def k7a_requests(pos, lv, entry_bytes):
+    """K7a's table loads per launch on these positions, worked out from the
+    two designs, not measured: L1 wavefronts (one per distinct 128-byte line
+    a warp's load instruction touches) and L2 sector requests (each
+    distinct 32-byte sector a warp reads, L1 keeping a line between the
+    instructions of one warp). Entries are `entry_bytes` (8 f32, 4 bf16).
+    A thread a (sample, level) (K7a before this design): a warp on 32
+    consecutive sample-levels, one load instruction a corner. Level-grouped
+    warps (this K7a): a warp on one level of 32 consecutive samples, one
+    aligned two-entry load a (cy, cz) for the cx = 0 corner and its pair,
+    and for lanes whose base x is odd one load of the cx = 1 corner,
+    issued only where some lane needs it. Positions and outputs are not
+    counted. Returns (wavefronts, sectors) before and now."""
     import torch
 
     from lsenerf_tpu_torch.ops import ngp
 
+    keys = ngp.corners(pos, lv)[0]  # (8, L, n), corner c = cx*4 + cy*2 + cz
+    L, n = keys.shape[1:]
+    line = {8: 4, 4: 5}[entry_bytes]  # log2 of the entries a line
+    sec = line - 2  # and a sector
+
+    def distinct(g):  # the distinct values in each row of the last dim, -1 not counted
+        s = g.sort(dim=-1).values
+        d = 1 + (s[..., 1:] != s[..., :-1]).sum(-1)
+        return int((d - (s[..., 0] < 0).long()).sum())
+
+    def warps(x):  # (..., m) -> (..., W, 32), the last warp padded with its last lane
+        extra = -x.shape[-1] % 32
+        x = torch.cat([x, x[..., -1:].expand(*x.shape[:-1], extra)], -1)
+        return x.reshape(*x.shape[:-1], -1, 32)
+
+    old = warps(keys.permute(0, 2, 1).reshape(8, n * L))  # (8, W, 32)
+    old_sec = (old >> sec).permute(1, 0, 2).reshape(old.shape[1], -1)
+    new = warps(keys)  # (8, L, W, 32)
+    odd = warps(torch.floor(pos[None, :, 0] * lv.scale[:, None]).long() % 2 == 1)  # (L, W, 32)
+    single = torch.where(odd, new[4:], -1)  # -1: the lane loads nothing
+    new_sec = torch.cat([new[:4] >> sec, single >> sec]).permute(1, 2, 0, 3).reshape(L, -1, 256)
+    return ((distinct(old >> line), distinct(old_sec)),
+            (distinct(new[:4] >> line) + distinct(single >> line), distinct(new_sec)))
+
+
+def check_k7a(name, pos, table, lv):
+    """K7a against its plain version on one input, bit for bit; then timed
+    warm (`timings`) and with a cold L2 (`cold_ms`), beside its bound and
+    its table loads per launch as worked out from the designs."""
+    import torch
+
+    from lsenerf_tpu_torch.ops import ngp
+    from lsenerf_tpu_torch.timing import cold_ms
+
     out = ngp.encode_fwd(pos, table, lv)
     want = ngp.encode_fwd_plain(pos, table, lv)
     torch.cuda.synchronize()
-    # the same keys and weights, the corners added in the same order
-    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
-    err1 = float((out - want).abs().max())
+    # the same keys, weights and order of the 8-corner sum: the same bits
+    if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+        fail(f"K7a at {name}: not the plain version's bits (max abs err "
+             f"{float((out - want).abs().max()):.3e})")
+    del out, want
+    (b_ms, b_by), _, entries = ngp_bounds(pos, table, lv)
+    fn = lambda: ngp.encode_fwd(pos, table, lv)  # noqa: E731
+    r = dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+             **timings(fn, lambda: ngp.encode_fwd_plain(pos, table, lv)))
+    r["cold_ms"] = cold_ms(fn)
+    print(f"{ngp.K7A.name} at {name}: max_abs_err 0 (the same bits), {fmt(r)}; cold L2 "
+          f"{r['cold_ms']:.5f} ms; {entries} distinct entries ({table.dtype}) at n={pos.shape[0]}, "
+          f"levels [{lv.lo}, {lv.lo + lv.num}) of {lv.levels} x 2^{lv.log2_T}")
+    (w0, s0), (w1, s1) = k7a_requests(pos, lv, ngp.F * table.element_size())
+    m = pos.shape[0] * lv.num
+    print(f"K7a table loads per launch at {name}, worked out from the designs (not measured): a "
+          f"thread a sample-level, {w0} L1 wavefronts and {s0} L2 sector requests; level-grouped "
+          f"warps, {w1} L1 wavefronts and {s1} L2 sector requests ({s0 / m:.2f} and {s1 / m:.2f} "
+          f"sectors per sample-level)")
+    return r
+
+
+def check_ngp_encode(name, pos, table, gfeat, lv):
+    """K7a (check_k7a) and K7b against their plain versions on one input,
+    then timed. Returns {kernel name: result}."""
+    import torch
+
+    from lsenerf_tpu_torch.ops import ngp
+
+    res = {ngp.K7A.name: check_k7a(name, pos, table, lv)}
     dpos, dtab = ngp.encode_bwd(pos, table, gfeat, lv)
     wdpos, wdtab = ngp.encode_bwd_plain(pos, table, gfeat, lv)
     torch.cuda.synchronize()
@@ -372,65 +448,59 @@ def check_ngp_encode(name, pos, table, gfeat, lv):
     lo, hi = lv.lo << lv.log2_T, (lv.lo + lv.num) << lv.log2_T
     if dtab[:lo].any() or dtab[hi:].any():
         fail(f"K7b at {name}: table gradient outside the level window [{lv.lo}, {lv.lo + lv.num})")
-    err2 = max(float((dpos - wdpos).abs().max()), float((dtab - wdtab).abs().max()))
+    err = max(float((dpos - wdpos).abs().max()), float((dtab - wdtab).abs().max()))
     dpos2, _ = ngp.encode_bwd(pos, table, gfeat, lv)
     torch.cuda.synchronize()
     if not torch.equal(dpos, dpos2):
         fail(f"K7b at {name}: dpos differs between two calls on the same inputs")
-    del out, want, dpos, dtab, wdpos, wdtab, dpos2
+    del dpos, dtab, wdpos, wdtab, dpos2
 
-    b1, b2, entries = ngp_bounds(pos, table, lv)
-    res = {}
-    for k, err, fn, plain, (b_ms, b_by) in (
-        (ngp.K7A, err1, lambda: ngp.encode_fwd(pos, table, lv),
-         lambda: ngp.encode_fwd_plain(pos, table, lv), b1),
-        (ngp.K7B, err2, lambda: ngp.encode_bwd(pos, table, gfeat, lv),
-         lambda: ngp.encode_bwd_plain(pos, table, gfeat, lv), b2),
-    ):
-        r = res[k.name] = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-                               **timings(fn, plain))
-        print(f"{k.name} at {name}: max_abs_err {err:.3e}, {fmt(r)}; {entries} distinct entries "
-              f"({table.dtype}) at n={pos.shape[0]}, levels [{lv.lo}, {lv.lo + lv.num}) of "
-              f"{lv.levels} x 2^{lv.log2_T}")
+    _, (b_ms, b_by), entries = ngp_bounds(pos, table, lv)
+    r = res[ngp.K7B.name] = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **timings(
+        lambda: ngp.encode_bwd(pos, table, gfeat, lv),
+        lambda: ngp.encode_bwd_plain(pos, table, gfeat, lv)))
+    print(f"{ngp.K7B.name} at {name}: max_abs_err {err:.3e}, {fmt(r)}; {entries} distinct entries "
+          f"({table.dtype}) at n={pos.shape[0]}, levels [{lv.lo}, {lv.lo + lv.num}) of "
+          f"{lv.levels} x 2^{lv.log2_T}")
     return res
 
 
+# flagship.ngp_encode_shapes' inputs, as 3a-ngp names them
+NGP_SHAPES = {
+    "uniform": "uniform positions, f32 table",
+    "bf16": "uniform positions, bf16 table",
+    "window_4_16": "uniform positions, f32 table, levels [4, 16)",
+    "step": "one ngp f32 badnerf step's inputs",
+    "eval_chunk": "one eval render chunk (4096 rays x 48 samples)",
+    "occupancy": "the step-0 occupancy update's first density chunk",
+}
+
+
 def check_ngp(dev):
-    """Phase 3a, ngp: K7a/K7b against their plain versions at the badnerf
-    preset's shape with the golden's 16 levels of 2^19 entries, on uniform
-    random positions with an f32 and a bf16 table and with the level window
-    [4, 16) (the strided field's fine encode), and on one real ngp f32
-    badnerf step's inputs. Returns the f32 uniform results, with the others
-    under "shapes" ("bf16", "window_4_16", "step")."""
-    import dataclasses
+    """Phase 3a, ngp: K7a (and K7b where a backward runs) against their
+    plain versions at flagship.ngp_encode_shapes: the badnerf preset's
+    shape with the golden's 16 levels of 2^19 entries, on uniform random
+    positions with an f32 and a bf16 table and with the level window [4,
+    16) (the strided field's fine encode), on one real ngp f32 badnerf
+    step's inputs, and, for K7a alone, where most of its launches are: one
+    eval render chunk of that trainer (4096 rays x 48 samples, ray-major)
+    and its step-0 occupancy update. Returns the f32 uniform results, with
+    the others under "shapes"."""
+    from lsenerf_tpu_torch.flagship import ngp_encode_shapes
+    from lsenerf_tpu_torch.ops import ngp
 
-    import torch
-
-    from lsenerf_tpu_torch.flagship import step_encode_inputs
-    from lsenerf_tpu_torch.ops import hash_encoding as he
-
-    hcfg = he.HashEncodingConfig()  # JAX's default: ngp, 16 levels of 2^19
-    gen = torch.Generator(device=dev).manual_seed(0)
-    n = 878 * 4 * 16  # the badnerf preset's rays x proposal samples
-    pos = torch.rand((n, 3), generator=gen, device=dev)
-    table = torch.rand(hcfg.table_shape, generator=gen, device=dev) * 2 - 1
-    gfeat = torch.randn((n, hcfg.out_dim), generator=gen, device=dev)
-    lv = he.levels_for(hcfg, dev)
-    res = check_ngp_encode("uniform positions, f32 table", pos, table, gfeat, lv)
-    shapes = {"bf16": check_ngp_encode("uniform positions, bf16 table", pos,
-                                       table.to(torch.bfloat16), gfeat, lv)}
-    wcfg = dataclasses.replace(hcfg, level_lo=4)
-    shapes["window_4_16"] = check_ngp_encode(
-        "uniform positions, f32 table, levels [4, 16)", pos, table,
-        gfeat[:, : wcfg.out_dim].contiguous(), he.levels_for(wcfg, dev))
-    del pos, table, gfeat
     t0 = time.time()
-    spos, stable, sgfeat, slv = step_encode_inputs(dev, preset="badnerf", hash_layout="ngp",
-                                                   compute_dtype="float32")
-    print(f"one ngp f32 badnerf step for K7b's inputs: {time.time() - t0:.1f} s, n={spos.shape[0]}")
-    shapes["step"] = check_ngp_encode("one ngp f32 badnerf step's inputs", spos, stable, sgfeat, slv)
+    inputs = ngp_encode_shapes(dev)
+    print(f"the ngp shapes' inputs (one ngp f32 badnerf step and an eval chunk): "
+          f"{time.time() - t0:.1f} s; n = {({k: v[0].shape[0] for k, v in inputs.items()})}")
+    shapes = {}
+    for name, (pos, table, gfeat, lv) in inputs.items():
+        label = NGP_SHAPES[name]
+        shapes[name] = (check_ngp_encode(label, pos, table, gfeat, lv) if gfeat is not None
+                        else {ngp.K7A.name: check_k7a(label, pos, table, lv)})
+    res = shapes.pop("uniform")
     for k in res:
-        res[k]["shapes"] = {name: r[k] for name, r in shapes.items()}
+        res[k]["shapes"] = {name: r[k] for name, r in shapes.items() if k in r}
     return res
 
 

@@ -25,29 +25,46 @@
 //
 // What bounds them on the card: scattered requests, not bytes or
 // operations. Per sample-level K7a loads 8 vertices at hashed addresses
-// (8 sector requests, the coarse levels' shared by the samples of a ray)
 // and writes 8 bytes; K7b loads the same 8 and sends 8 float2 atomics, each
 // its own L2 request (~79 G/s scattered on the H100,
 // lsenerf_tpu_torch/l2_atomic_probe.py; that probe also shows that this
 // toolkit has the float2 atomicAdd, which Hopper runs on global memory).
 // The f32 table is 64 MiB at 16 levels of 2^19 entries and K7b's gradient
 // another 64 MiB, more than the 50 MB L2 holds; the bf16 copy, 32 MiB,
-// fits.
+// fits. K7a's time follows the L2 sector requests of its table loads (each
+// distinct 32-byte sector a warp reads, 4 f32 entries of which it uses one
+// or two at a fine level): 86-112 G sectors/s over the six shapes that
+// chip_smoke.py times (k7a_requests there counts them).
 //
-// Design (simple first; the times are in PERF.md):
-// - K7a gives one thread a (sample, level) pair, the pairs in the output's
-//   order: thread t takes sample t / Lw, level t % Lw, so a warp's output
-//   stores are contiguous 8-byte pieces and a sample's position is read by
-//   the Lw neighbouring threads of its levels. Every thread has its 8
-//   loads in flight at once. (A thread per sample walking its levels, as
-//   in K7b, was slower here: fewer loads in flight.)
+// Design (the times are in PERF.md §6):
+// - K7a gives a warp one level of the window over 32 consecutive samples,
+//   a block 64 samples x 4 levels (8 warps). Neighbouring samples of a ray
+//   then sit in one load instruction, so where they share a cube (the
+//   coarse levels) their corners are one request; the grid runs level
+//   group by level group (blockIdx level-group-major), so the blocks
+//   resident at once read about 4 levels of the table (16 MiB of the f32
+//   one), not all 16; where a cube's base x coordinate is even, its two
+//   x-neighbours are entries h and h ^ 1, one aligned 16-byte (f32) or
+//   8-byte (bf16) load (half the cubes: 4 loads a thread in place of 8);
+//   and the block stages its positions and its results in
+//   shared memory, so positions are read once, coalesced, and a sample's 4
+//   levels go out as 32 contiguous bytes, one sector. It replaced a thread
+//   a (sample, level) (thread t: sample t / Lw, level t % Lw, 8 loads in
+//   flight a thread, every level live at once), which it beat at all six
+//   shapes in one call, by 16-34% warm and 19-36% with a cold L2
+//   (lsenerf_tpu_torch/k7a_compare.py; NVIDIA H100 80GB HBM3 at 700 W):
+//   0.0485 ms against 0.0671 at 56,192 uniform samples x 16 levels (f32),
+//   0.0380 against 0.0568 at one ngp f32 badnerf step's inputs, 0.0845
+//   against 0.1026 at one eval render chunk (196,608 samples, 48 a ray).
+//   With one warp a level, 64 samples a block and 6 blocks an SM it was
+//   the fastest of the block shapes tried.
 // - K7b gives one thread a sample, which walks the window's levels in
 //   order. A launch's samples (56,192 at the badnerf preset's batch) are
 //   all resident at once, so they work on about the same level at a time,
 //   and the working set of the atomics and loads is a level or two of the
 //   table and its gradient (8 MiB a level, f32), not all of them. It
-//   replaced K7a's mapping, under which every level was live at once,
-//   and is faster (PERF.md §6 has both times). The thread sums its levels'
+//   replaced a thread a (sample, level), under which every level was
+//   live at once, and is faster (PERF.md §6 has both times). The thread sums its levels'
 //   position-gradient terms in level order in registers: no atomics on
 //   dpos, and the same bits from call to call. The block's cotangent
 //   (64 samples x Lw levels) is staged in shared memory, read coalesced.
@@ -71,7 +88,10 @@ namespace {
 
 constexpr uint32_t kPrime1 = 2654435761u;
 constexpr uint32_t kPrime2 = 805459861u;
-constexpr int kFwdThreads = 256;
+constexpr int kFwdSamples = 64;   // K7a: samples a block
+constexpr int kFwdGroup = 4;      // K7a: levels a block, one warp a level per 32 samples
+constexpr int kFwdThreads = kFwdSamples * kFwdGroup;
+constexpr int kFwdBlocksPerSM = 6;  // K7a: at most 42 registers a thread
 constexpr int kBwdSamples = 64;  // K7b: samples a block, one a thread
 constexpr int kMaxLevels = 64;
 
@@ -112,34 +132,103 @@ __device__ __forceinline__ long corner(int c, const int b[3], const float w[3],
   return base + (long)(h & mask);
 }
 
+// Entries e & ~1 and e | 1 of the table, as f32: one aligned 16-byte (f32)
+// or 8-byte (bf16) load.
 template <bool kBF16>
-__global__ void __launch_bounds__(kFwdThreads)
-    ngp_fwd_kernel(const float* __restrict__ pos, const void* __restrict__ table,
-                   const float* __restrict__ scale, float2* __restrict__ out,
-                   long pairs, int L, int lo, int log2_T) {
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= pairs) return;
-  const long i = t / L;
-  const int l = (int)(t - i * L);
-  int b[3];
-  float w[3];
-  cube(pos, i, __ldg(scale + l), b, w);
-  const uint32_t mask = (1u << log2_T) - 1u;
-  const long base = (long)(lo + l) << log2_T;
-  long e[8];
-  float wt[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) e[c] = corner(c, b, w, mask, base, &wt[c]);
-  float2 f[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) f[c] = load_vertex<kBF16>(table, e[c]);
-  float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    a0 = __fadd_rn(a0, __fmul_rn(f[c].x, wt[c]));
-    a1 = __fadd_rn(a1, __fmul_rn(f[c].y, wt[c]));
+__device__ __forceinline__ void load_pair(const void* __restrict__ table, long e, float2* lo,
+                                          float2* hi) {
+  if (kBF16) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(table) + (e >> 1));
+    *lo = make_float2(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u));
+    *hi = make_float2(__uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  } else {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(table) + (e >> 1));
+    *lo = make_float2(f.x, f.y);
+    *hi = make_float2(f.z, f.w);
   }
-  out[t] = make_float2(a0, a1);
+}
+
+// Block b = g * sample_blocks + s: levels kFwdGroup*g .. of the window (the
+// last group may be ragged) for samples kFwdSamples*s .. ; warp w takes
+// level w / kWarpsPerLevel of the group over 32 consecutive samples. The
+// block's positions and its (samples, levels) results pass through shared
+// memory, so that both are read and written coalesced.
+template <bool kBF16>
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
+    ngp_fwd_kernel(const float* __restrict__ pos, const void* __restrict__ table,
+                   const float* __restrict__ scale, float2* __restrict__ out, int n, int L,
+                   int lo, int log2_T, int sample_blocks) {
+  constexpr int kWarpsPerLevel = kFwdSamples / 32;
+  __shared__ float p_s[kFwdSamples * 3];
+  __shared__ float2 o_s[kFwdSamples * kFwdGroup];  // (samples, levels), as in out
+  const int g = blockIdx.x / sample_blocks;
+  const long i0 = (long)(blockIdx.x - g * sample_blocks) * kFwdSamples;
+  const int live = (int)min((long)kFwdSamples, (long)n - i0);
+  const int l0 = g * kFwdGroup;
+  const int levels = min(kFwdGroup, L - l0);
+  for (int e = threadIdx.x; e < live * 3; e += kFwdThreads) p_s[e] = __ldg(pos + i0 * 3 + e);
+  __syncthreads();
+  const int j = (threadIdx.x >> 5) / kWarpsPerLevel;
+  const int k = ((threadIdx.x >> 5) % kWarpsPerLevel) * 32 + (threadIdx.x & 31);
+  if (j < levels && k < live) {
+    const int l = l0 + j;
+    const float sc = __ldg(scale + l);
+    int b[3];
+    float u[3][2];  // (1 - w, w) a dimension
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float s = __fmul_rn(p_s[k * 3 + d], sc);
+      const float f = floorf(s);
+      u[d][1] = __fsub_rn(s, f);
+      u[d][0] = __fsub_rn(1.0f, u[d][1]);
+      b[d] = (int)f;
+    }
+    const uint32_t mask = (1u << log2_T) - 1u;
+    const long base = (long)(lo + l) << log2_T;
+    const uint32_t hy[2] = {(uint32_t)b[1] * kPrime1, (uint32_t)(b[1] + 1) * kPrime1};
+    const uint32_t hz[2] = {(uint32_t)b[2] * kPrime2, (uint32_t)(b[2] + 1) * kPrime2};
+    // corner c = (cx << 2) | yz. With b[0] even, b[0] + 1 == b[0] | 1, so the
+    // cx = 1 corner hashes to the cx = 0 corner's entry ^ 1 (the level's
+    // base is even): the pair is one aligned load. With b[0] odd the cx = 1
+    // corner is a load of its own.
+    const bool paired = !(b[0] & 1);
+    long e0[4];
+    float2 p[4][2], x1[4];
+#pragma unroll
+    for (int yz = 0; yz < 4; ++yz) {
+      const uint32_t r = hy[yz >> 1] ^ hz[yz & 1];
+      e0[yz] = base + (long)(((uint32_t)b[0] ^ r) & mask);
+      load_pair<kBF16>(table, e0[yz], &p[yz][0], &p[yz][1]);
+      x1[yz] = make_float2(0.0f, 0.0f);
+      if (!paired)
+        x1[yz] = load_vertex<kBF16>(table, base + (long)(((uint32_t)(b[0] + 1) ^ r) & mask));
+    }
+    float2 v[8];
+#pragma unroll
+    for (int yz = 0; yz < 4; ++yz) {
+      const bool odd = e0[yz] & 1;
+      v[yz] = odd ? p[yz][1] : p[yz][0];
+      v[4 + yz] = !paired ? x1[yz] : odd ? p[yz][0] : p[yz][1];
+    }
+    // (wx' * wy') * wz', and the corners added in order, as JAX and the
+    // plain version add them
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float wt = __fmul_rn(__fmul_rn(u[0][c >> 2], u[1][(c >> 1) & 1]), u[2][c & 1]);
+      const float t0 = __fmul_rn(v[c].x, wt), t1 = __fmul_rn(v[c].y, wt);
+      a0 = c ? __fadd_rn(a0, t0) : t0;
+      a1 = c ? __fadd_rn(a1, t1) : t1;
+    }
+    o_s[k * levels + j] = make_float2(a0, a1);
+  }
+  __syncthreads();
+  // a sample's `levels` results are contiguous in out: 32 bytes at 4 levels
+  float2* o = out + i0 * L + l0;
+  for (int e = threadIdx.x; e < live * levels; e += kFwdThreads) {
+    const int s = e / levels;
+    o[(long)s * L + (e - s * levels)] = o_s[e];
+  }
 }
 
 // Block b: samples 64b .. 64b+63, one a thread, each walking its levels in
@@ -210,14 +299,20 @@ int ngp_encode_fwd(const float* pos, const void* table, int table_bf16, const fl
   if (n == 0) return 0;
   if (L < 1 || L > kMaxLevels || lo < 0 || log2_T < 1 || log2_T > 30)
     return (int)cudaErrorInvalidValue;
-  const long pairs = (long)n * L;
-  const unsigned int blocks = (unsigned int)((pairs + kFwdThreads - 1) / kFwdThreads);
+  // the x-pair loads: two entries, 16 bytes (f32) or 8 (bf16), aligned
+  if (reinterpret_cast<uintptr_t>(table) % (table_bf16 ? 8 : 16))
+    return (int)cudaErrorMisalignedAddress;
+  const int sample_blocks = (n + kFwdSamples - 1) / kFwdSamples;
+  const int groups = (L + kFwdGroup - 1) / kFwdGroup;
+  const unsigned int blocks = (unsigned int)sample_blocks * groups;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float2* o = reinterpret_cast<float2*>(out);
   if (table_bf16)
-    ngp_fwd_kernel<true><<<blocks, kFwdThreads, 0, s>>>(pos, table, scale, o, pairs, L, lo, log2_T);
+    ngp_fwd_kernel<true><<<blocks, kFwdThreads, 0, s>>>(pos, table, scale, o, n, L, lo, log2_T,
+                                                       sample_blocks);
   else
-    ngp_fwd_kernel<false><<<blocks, kFwdThreads, 0, s>>>(pos, table, scale, o, pairs, L, lo, log2_T);
+    ngp_fwd_kernel<false><<<blocks, kFwdThreads, 0, s>>>(pos, table, scale, o, n, L, lo, log2_T,
+                                                        sample_blocks);
   return (int)cudaGetLastError();
 }
 

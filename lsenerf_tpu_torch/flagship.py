@@ -39,8 +39,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from lsenerf_tpu_torch.data.datamanager import DataManagerConfig, MultiCamDataManager
 from lsenerf_tpu_torch.data.synthetic import make_synthetic_scene
+from lsenerf_tpu_torch.engine import renderer
 from lsenerf_tpu_torch.engine.trainer import CameraOptConfig, Trainer, TrainerConfig
 from lsenerf_tpu_torch.models import embeddings as emb_lib
 from lsenerf_tpu_torch.models import field as field_lib
@@ -129,31 +132,118 @@ def flagship_trainer(device=None, dm_seed: int = 0, production: bool = False) ->
     return preset_trainer("lsenerf", production, device, dm_seed)
 
 
-def step_encode_inputs(device=None, preset: str | None = None, **field):
-    """The arguments the encode's backward kernel (K2, combine.encode_bwd,
-    or for hash_layout="ngp" K7b, ngp.encode_bwd) is given in one real
-    train step: a fresh flagship trainer (or the preset's production
-    trainer, its field changed by `field` as preset_model_config takes it)
-    takes its step 0 (the occupancy update, the march, the field and the
-    backward) with the wrapper watched. Returns (positions, table,
-    cotangent, levels); the positions come ray-major, as many samples a ray
-    as the march gives (16 for the flagship, 48 under F=0)."""
-    ops = ngp if field.get("hash_layout") == "ngp" else combine
-    seen, real = [], ops.encode_bwd
+def step_encode_inputs(device=None, preset: str | None = None):
+    """The arguments the blocked encode's backward kernel (K2,
+    combine.encode_bwd) is given in one real train step: a fresh flagship
+    trainer (or the preset's production trainer) takes its step 0 (the
+    occupancy update, the march, the field and the backward) with the
+    wrapper watched. Returns (positions, table, cotangent, levels); the
+    positions come ray-major, as many samples a ray as the march gives (16
+    for the flagship, 48 under F=0). The ngp layout's are ngp_encode_calls'."""
+    seen, real = [], combine.encode_bwd
 
     def watch(positions, table, gfeat, levels):
         seen.append((positions.clone(), table.clone(), gfeat.clone(), levels))
         return real(positions, table, gfeat, levels)
 
-    if preset is None and not field:
+    if preset is None:
         trainer = flagship_trainer(device=device)
     else:
-        trainer = preset_trainer(preset or "lsenerf", preset is not None, device, **field)
-    ops.encode_bwd = watch
+        trainer = preset_trainer(preset, True, device)
+    combine.encode_bwd = watch
     try:
         trainer.step(trainer.dm.next_train(0))
     finally:
-        ops.encode_bwd = real
+        combine.encode_bwd = real
     if len(seen) != 1:
         raise RuntimeError(f"one train step called the encode's backward {len(seen)} times, not once")
     return seen[0]
+
+
+def ngp_encode_calls(device=None, trainer: Trainer | None = None, chunk: int = 4096) -> dict:
+    """K7a's and K7b's arguments where the ngp main path calls them, in the
+    real_scale_badnerf_ngpf32 golden's model at these widths (a fresh
+    `preset_trainer("badnerf", hash_layout="ngp", compute_dtype="float32")`,
+    or `trainer`): its step 0 (the occupancy update's density chunks, then
+    the step's field and its backward) and one eval render chunk of `chunk`
+    rays of view 0 (the eval's 48 samples a ray, ray-major), with both
+    wrappers watched. Returns {"occupancy": [(positions, table, levels) a
+    density chunk], "step": (positions, table, cotangent, levels) of the
+    backward, "eval_chunk": (positions, table, levels)}."""
+    if trainer is None:
+        trainer = preset_trainer("badnerf", device=device, hash_layout="ngp",
+                                 compute_dtype="float32")
+    fwd_seen, bwd_seen = [], []
+    real_fwd, real_bwd = ngp.encode_fwd, ngp.encode_bwd
+
+    def watch_fwd(positions, table, levels):
+        fwd_seen.append((positions.clone(), table.clone(), levels))
+        return real_fwd(positions, table, levels)
+
+    def watch_bwd(positions, table, gfeat, levels):
+        bwd_seen.append((positions.clone(), table.clone(), gfeat.clone(), levels))
+        return real_bwd(positions, table, gfeat, levels)
+
+    dev = trainer.device
+    cams = trainer.dm.col.cameras.to(dev)
+    h, w = cams.height, cams.width
+    m = min(chunk, h * w)
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
+    coords = torch.stack([ys.reshape(-1), xs.reshape(-1)], 1).float()[:m]
+    zeros = torch.zeros((m,), dtype=torch.long, device=dev)
+    occ_calls = []
+
+    def occ_update(*args, **kw):
+        real_occ(*args, **kw)
+        occ_calls.append(len(fwd_seen))
+
+    real_occ = trainer.occ_update
+    trainer.occ_update = occ_update
+    ngp.encode_fwd, ngp.encode_bwd = watch_fwd, watch_bwd
+    try:
+        trainer.step(trainer.dm.next_train(0))
+        n_step = len(fwd_seen)
+        with torch.no_grad():
+            renderer.render_chunk(trainer.params["model"], cams, trainer.occ, coords, zeros, zeros,
+                                  None, trainer.model_config)
+    finally:
+        ngp.encode_fwd, ngp.encode_bwd = real_fwd, real_bwd
+        del trainer.occ_update
+    n_occ = occ_calls[0] if occ_calls else 0
+    if n_occ < 1 or n_step != n_occ + 1 or len(fwd_seen) != n_step + 1 or len(bwd_seen) != 1:
+        raise RuntimeError(f"step 0 and an eval chunk called K7a {len(fwd_seen)} times "
+                           f"({n_occ} in the occupancy update) and K7b {len(bwd_seen)} times, not "
+                           f"once a density chunk, once in the step, once in the chunk and once")
+    return {"occupancy": fwd_seen[:n_occ], "step": bwd_seen[0], "eval_chunk": fwd_seen[n_step]}
+
+
+# the badnerf preset's field samples a step: 878 pixels x 4 rays x 16 samples
+NGP_SAMPLES = 878 * 4 * 16
+
+
+def ngp_encode_shapes(device=None) -> dict:
+    """K7a's and K7b's inputs at the ngp layout's shapes, {name:
+    (positions, table, cotangent or None, levels)}: NGP_SAMPLES uniform
+    positions with JAX's default grid (16 ngp levels of 2^19 entries) and a
+    U(-1, 1) f32 table ("uniform"), its bf16 copy ("bf16") and the level
+    window [4, 16) ("window_4_16"), all drawn from seed 0 on `device`; then
+    from ngp_encode_calls one step's ("step"), one eval render chunk's
+    ("eval_chunk") and the step-0 occupancy update's first density chunk
+    ("occupancy"), the last two with no cotangent (no backward runs)."""
+    hcfg = he.HashEncodingConfig()
+    gen = torch.Generator(device=device).manual_seed(0)
+    pos = torch.rand((NGP_SAMPLES, 3), generator=gen, device=device)
+    table = torch.rand(hcfg.table_shape, generator=gen, device=device) * 2 - 1
+    gfeat = torch.randn((NGP_SAMPLES, hcfg.out_dim), generator=gen, device=device)
+    lv = he.levels_for(hcfg, device)
+    wcfg = dataclasses.replace(hcfg, level_lo=4)
+    calls = ngp_encode_calls(device)
+    return {
+        "uniform": (pos, table, gfeat, lv),
+        "bf16": (pos, table.to(torch.bfloat16), gfeat, lv),
+        "window_4_16": (pos, table, gfeat[:, : wcfg.out_dim].contiguous(),
+                        he.levels_for(wcfg, device)),
+        "step": calls["step"],
+        "eval_chunk": (*calls["eval_chunk"][:2], None, calls["eval_chunk"][2]),
+        "occupancy": (*calls["occupancy"][0][:2], None, calls["occupancy"][0][2]),
+    }

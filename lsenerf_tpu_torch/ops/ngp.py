@@ -139,15 +139,19 @@ def encode_bwd_plain(positions, table, gfeat, lv: Levels):
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = cuda_build.load(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built ngp_encode library's two entries."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ngp_encode_fwd.argtypes = [p, p, i, p, p, i, i, i, i, p]
     lib.ngp_encode_fwd.restype = i
     lib.ngp_encode_bwd.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p]
     lib.ngp_encode_bwd.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return bind(cuda_build.load(SOURCE))
 
 
 _TABLE_TYPES = (torch.bfloat16, torch.float32)
@@ -175,16 +179,24 @@ def encode_fwd(positions, table, lv: Levels) -> torch.Tensor:
     if positions.device.type == "cpu":
         return encode_fwd_plain(positions, table, lv)
     n = _check(positions, table, lv)
+    if table.data_ptr() % (2 * F * table.element_size()):
+        # K7a loads a cube's x-neighbours as one aligned pair of entries
+        raise ValueError("table must start on a two-entry boundary")
     out = torch.empty((n, lv.num * F), dtype=torch.float32, device=positions.device)
     if n == 0:
         return out
-    err = _library().ngp_encode_fwd(
+    K7A.count(launch_fwd(_library(), positions, table, lv, out))
+    return out
+
+
+def launch_fwd(lib: ctypes.CDLL, positions, table, lv: Levels, out) -> int:
+    """Launch `lib`'s ngp_encode_fwd (bound by `bind`) on checked inputs
+    into out (n, Lw*2); returns its CUDA error code."""
+    return lib.ngp_encode_fwd(
         positions.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16),
-        lv.scale.data_ptr(), out.data_ptr(), n, lv.num, lv.lo, lv.log2_T,
+        lv.scale.data_ptr(), out.data_ptr(), positions.shape[0], lv.num, lv.lo, lv.log2_T,
         cuda_build.stream(positions),
     )
-    K7A.count(err)
-    return out
 
 
 def encode_bwd(positions, table, gfeat, lv: Levels):

@@ -7,6 +7,10 @@
   so that no host time lies between them, and the graph is replayed between
   CUDA events. Each captured call runs its wrapper's Python once, at
   capture; a replay runs no Python and counts no launch.
+- cold_ms: the card alone with a cold L2: the median of single calls, each
+  after a 128 MiB buffer was written (more than the H100's 50 MB L2), the
+  CUDA events around the call alone, and a spin kernel ahead of the
+  write, so that the host has enqueued the call before the card reaches it.
 - host_us: the host's cost per call, `calls` calls enqueued back to back
   with no synchronise between them, then one synchronise (not timed). Keep
   `calls` times the launches per call well below what the card's launch
@@ -61,6 +65,31 @@ def device_ms(fn, calls: int = 20, replays: int = 5) -> float:
     del graph
     torch.cuda.synchronize()
     return sorted(times)[replays // 2]
+
+
+FLUSH_BYTES = 128 << 20  # cold_ms's writes: more than the H100's 50 MB L2
+SPIN_CYCLES = 2_000_000  # ~1 ms of the card: the host enqueues what follows meanwhile
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Median milliseconds of fn() after FLUSH_BYTES of writes, between CUDA
+    events around fn() alone."""
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    fn()
+    times = []
+    for i in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        buf.fill_(float(i))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del buf
+    times.sort()
+    return times[len(times) // 2]
 
 
 def host_us(fn, calls: int = 400) -> float:

@@ -1,7 +1,7 @@
 """The port's kernels against their plain PyTorch versions on the card: K1
 and K2 (lsenerf_tpu_torch/ops/combine.py) and K7a and K7b
-(lsenerf_tpu_torch/ops/ngp.py, with level windows) in an f32-table and a
-bf16-table arm, also where many samples of a warp share rows (one cell, rays), at the
+(lsenerf_tpu_torch/ops/ngp.py, with level windows; K7a bit for bit) in an
+f32-table and a bf16-table arm, also where many samples of a warp share rows (one cell, rays), at the
 flagship's 16 levels (16 and 48 samples a ray) and at 2 and 3 levels, and
 the gathers G1-G3 (lsenerf_tpu_torch/ops/gather.py), held to exact
 equality, G2 at the shapes that pick each of its paths and G3 at several
@@ -66,9 +66,17 @@ def _positions(kind, n, rng):
     """Unit positions (n, 3) f32: uniform; all inside one cell of the two
     coarsest levels of T_CFG; or rays of 16 ("rays") or 48 ("rays48")
     samples along short segments of the same length (48 a ray are 3x as
-    dense), ray-major as the march gives them, all inside the unit cube."""
+    dense), ray-major as the march gives them, all inside the unit cube;
+    for the ngp kernels also on multiples of 1/64 ("faces": cell faces at
+    every level of a power-of-2 scale, so base corners of both parities)
+    and uniform in [-1.5, 2.5]^3 ("outside": negative base corners, which
+    the field zeroes before the encode but the wrappers take)."""
     if kind == "uniform":
         return rng.random((n, 3)).astype(np.float32)
+    if kind == "faces":
+        return (rng.integers(0, 65, (n, 3)) / 64.0).astype(np.float32)
+    if kind == "outside":
+        return rng.uniform(-1.5, 2.5, (n, 3)).astype(np.float32)
     if kind == "one_cell":
         return (0.30 + 0.05 * rng.random((n, 3))).astype(np.float32)
     k = 48 if kind == "rays48" else 16
@@ -162,15 +170,32 @@ def test_encode_bwd_matches_plain_on_card(case, dtype):
 # (positions, config, n) for K7a and K7b: the ngp layout at L = 5 with
 # 2^10 entries a level, in one cell and along rays, a level window, and at
 # the badnerf preset's 16 levels of 2^19 entries (56,192 samples, less 7)
-# with the window [4, 16) of the strided field's fine encode
+# with the window [4, 16) of the strided field's fine encode. K7a's blocks
+# take 64 samples x 4 levels: n of 1 and 129 and windows of 1, 3, 5 and 12
+# levels leave ragged sample blocks and level groups; cell faces give base
+# corners of both parities (the x-pair load and its single-load branch),
+# and positions outside the cube negative ones.
 NGP_CFG = the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, log2_hashmap_size=10)
+
+
+def _ngp_cfg(**kw):
+    return the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, log2_hashmap_size=10, **kw)
+
+
 NGP_CASES = {
     "uniform-L5": ("uniform", NGP_CFG, 4099),
     "one_cell-L5": ("one_cell", NGP_CFG, 4099),
-    "rays-L5-window-1-4": ("rays", the.HashEncodingConfig(
-        num_levels=5, base_res=4, max_res=64, log2_hashmap_size=10, level_lo=1, level_hi=4), 4112),
+    "rays-L5-window-1-4": ("rays", _ngp_cfg(level_lo=1, level_hi=4), 4112),
     "rays-L16": ("rays", the.HashEncodingConfig(), 56_192 - 7),
     "rays-L16-window-4-16": ("rays", the.HashEncodingConfig(level_lo=4), 56_192 - 7),
+    "uniform-L5-n1": ("uniform", NGP_CFG, 1),
+    "rays-L5-n129": ("rays", NGP_CFG, 129),
+    "uniform-L5-window-2-3": ("uniform", _ngp_cfg(level_lo=2, level_hi=3), 4099),
+    "rays-L5-window-0-3": ("rays", _ngp_cfg(level_hi=3), 1000),
+    "faces-L5": ("faces", NGP_CFG, 4099),
+    "faces-L16": ("faces", the.HashEncodingConfig(), 5000),
+    "outside-L5": ("outside", NGP_CFG, 4099),
+    "outside-L16-window-4-16": ("outside", the.HashEncodingConfig(level_lo=4), 5000),
 }
 
 
@@ -206,10 +231,26 @@ def test_ngp_encode_matches_plain_on_card(case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(NGP_CASES))
+def test_ngp_fwd_is_the_plain_bits_on_card(case, dtype):
+    """K7a computes the plain forward's keys and weights and adds the 8
+    corners in its order: the same values, and the same bits (signed zeros
+    too)."""
+    p, tab, _, lv = _ngp_inputs(case, dtype, _card())
+    got, want = ngp.encode_fwd(p, tab, lv), ngp.encode_fwd_plain(p, tab, lv)
+    assert torch.equal(got, want)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_ngp_wrappers_refuse_what_the_kernels_do_not_take():
     dev = _card()
     p, tab, gg, lv = _ngp_inputs("uniform-L5", torch.float32, dev)
-    for args in ((p.double(), tab, lv), (p, tab[1:], lv), (p, tab.half(), lv), (p, tab.T, lv)):
+    # the right shape one entry off K7a's aligned x-pair loads
+    shifted = torch.empty((tab.numel() + 2,), device=dev)[2:].view(tab.shape)
+    for args in ((p.double(), tab, lv), (p, tab[1:], lv), (p, tab.half(), lv), (p, tab.T, lv),
+                 (p, shifted, lv)):
         with pytest.raises(ValueError):
             ngp.encode_fwd(*args)
     with pytest.raises(ValueError):

@@ -199,3 +199,37 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
     assert ngp.encode_fwd(pos, table, lv).shape == (8, tcfg.out_dim)
     with pytest.raises(ValueError, match="CUDA"):
         ngp._check(pos, table, lv)
+
+
+def _pair_positions(kind, n, rng):
+    """Unit-cube positions (n, 3), on grid faces at the given levels, or
+    outside the cube (negative base corners), as the wrapper accepts them."""
+    if kind == "uniform":
+        return rng.random((n, 3)).astype(np.float32)
+    if kind == "faces":  # multiples of 1/64: faces of every level with a power-of-2 scale
+        return (rng.integers(0, 65, (n, 3)) / 64.0).astype(np.float32)
+    return rng.uniform(-1.5, 2.5, (n, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("log2_T", [1, 4, 10, 19])
+@pytest.mark.parametrize("window", [(0, 5), (2, 3), (4, 5)])
+@pytest.mark.parametrize("kind", ["uniform", "faces", "outside"])
+def test_even_base_pairs_the_x_corners(kind, window, log2_T):
+    """The invariant K7a's x-pair load relies on: wherever a cube's base x
+    coordinate is even, its corners with cx = 0 and cx = 1 (same cy, cz)
+    have global keys that differ by exactly 1, the smaller even; so the
+    pair is one aligned two-entry load. Both parities occur."""
+    lo, hi = window
+    cfg = the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, log2_hashmap_size=log2_T,
+                                 level_lo=lo, level_hi=hi)
+    lv = the.levels_for(cfg, "cpu")
+    pos = torch.from_numpy(_pair_positions(kind, 997, np.random.default_rng(log2_T + lo)))
+    keys, _, _ = ngp.corners(pos, lv)  # (8, Lw, n), corner c = cx*4 + cy*2 + cz
+    b0 = torch.floor(pos[None, :, 0] * lv.scale[:, None]).long()
+    even = b0 % 2 == 0
+    assert even.any() and (~even).any()
+    k0, k1 = keys[:4], keys[4:]
+    assert torch.equal(k0[:, even] ^ 1, k1[:, even])
+    assert torch.equal(torch.minimum(k0, k1)[:, even] % 2, torch.zeros_like(k0[:, even]))
+    if kind == "outside":
+        assert (b0 < 0).any()

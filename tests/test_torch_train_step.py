@@ -136,3 +136,39 @@ def test_step_encode_inputs_watches_one_step(monkeypatch):
     n = pos.shape[0]
     assert n > 0 and pos.shape == (n, 3) and gfeat.shape == (n, 2 * levels.num)
     assert table.shape == (hcfg.total_rows, 64) and levels.num == 5
+
+
+def test_ngp_encode_calls_watches_a_step_and_an_eval_chunk():
+    """The capture of K7a's and K7b's arguments (used by chip_smoke.py) on a
+    tiny ngp trainer: one K7a call a density chunk of the occupancy update,
+    one in the step, one in the eval chunk (48 samples a ray, as many rays
+    as the view has); K7b once; both wrappers and occ_update restored."""
+    from lsenerf_tpu_torch import flagship
+    from lsenerf_tpu_torch.data.datamanager import DataManagerConfig, MultiCamDataManager
+    from lsenerf_tpu_torch.data.synthetic import make_synthetic_scene
+    from lsenerf_tpu_torch.engine.trainer import Trainer, TrainerConfig
+    from lsenerf_tpu_torch.models import field as field_lib
+    from lsenerf_tpu_torch.models.lsenerf import ModelConfig
+    from lsenerf_tpu_torch.ops import hash_encoding as the
+    from lsenerf_tpu_torch.ops import ngp
+    from lsenerf_tpu_torch.ops import occupancy as occ_lib
+
+    hcfg = the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, log2_hashmap_size=10)
+    col, evs = make_synthetic_scene(n_cams=3, h=8, w=8)
+    dm = MultiCamDataManager(DataManagerConfig(train_num_rays_per_batch=16), col, evs)
+    mcfg = ModelConfig(field=field_lib.FieldConfig(hash=hcfg),
+                       grid=occ_lib.OccGridConfig(resolution=32, levels=2),
+                       max_samples=16, max_candidates=256, proposal_samples=8)
+    trainer = Trainer(TrainerConfig(), mcfg, dm, device="cpu")
+    trainer.setup()
+    real = ngp.encode_fwd, ngp.encode_bwd
+    calls = flagship.ngp_encode_calls(trainer=trainer)
+    assert (ngp.encode_fwd, ngp.encode_bwd) == real and "occ_update" not in vars(trainer)
+    cells = occ_lib.num_update_cells(mcfg.grid) * mcfg.grid.levels
+    assert sum(c[0].shape[0] for c in calls["occupancy"]) == cells
+    pos, table, gfeat, lv = calls["step"]
+    assert pos.shape[0] > 0 and gfeat.shape == (pos.shape[0], 2 * lv.num)
+    assert table.shape == hcfg.table_shape
+    epos, etable, elv = calls["eval_chunk"]
+    assert epos.shape == (8 * 8 * mcfg.max_samples, 3) and elv.num == 5
+    assert not torch.equal(etable, table), "the eval chunk reads the table after the step"
