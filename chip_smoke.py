@@ -31,7 +31,8 @@ Phases, each fatal on failure (exit code 1):
      a cold L2 (128 MiB written before each call), with its table loads
      per launch as worked out from its two designs (k7a_requests); and
      a fifth small step, ngp f32 with coarse_stride 2 and the aabb field in
-     place of the scene contraction (3b);
+     place of the scene contraction, and a sixth with compact_chunk 128
+     (the field on the live chunks of the validity-sorted samples) (3b);
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
@@ -64,13 +65,31 @@ Phases, each fatal on failure (exit code 1):
      (lsenerf_tpu_torch/parity.py NGPF32) on the same scene: 200 training
      steps through K7a/K7b and eval.sh's 60; the encode kernels' counters
      are set to 0 before each stage;
+  4i. on a short scene of the same profile (4 frames, an 8-pose full
+     trajectory), `python -m lsenerf_tpu_torch.render --traj full` with
+     4h's checkpoint: every written frame must equal render_image's output
+     for its view (ms a frame); then the viewer's HTTP server on
+     127.0.0.1:0 in a thread over the same model: GET /, GET /info and POST
+     /render at each resolution for rgb, depth and accumulation, a PNG
+     reply decoding to exactly session.render's array (ms a request);
+  4j. two short CLI runs on that scene: with use_native, whose first two
+     batches must equal the native prefetcher's built directly at the
+     same seed; and with proposal_warmup_steps, whose steps must run
+     without the proposal up to the switch and at F=16 after it;
   4f. scripts/parity.py --tiny through the same CLI (lsenerf_tpu_torch/
      parity.py): 1500 steps on the 64x64 golden scene at each of four
      seeds; the mean PSNR and SSIM must lie within parity.tiny_gate's
      three standard errors of the JAX package's own runs (the distance
      to scripts/golden_parity.json is printed beside them);
+  4k. data parallel (lsenerf_tpu_torch/parallel/ddp.py): two gloo ranks,
+     spawned, share the card (NCCL refuses two ranks on one device) and
+     take 3 steps of the full-width badnerf ngp f32 trainer, each on its
+     half of a fixed global batch and background, held against one
+     process's steps on the whole batches (data_parallel's docstring has
+     the tolerances); the ranks' grids after step 0's sharded occupancy
+     update equal bit for bit; then one step under NCCL at world size 1;
   5. a `kernels` JSON line (K1/K2/K7a/K7b launches summed over phases 4
-     to 4h),
+     to 4k, the ranks' included),
      the card line, and the result line {"ok": true, "device": {...}} last.
 
 Every kernel and library call is timed three ways (lsenerf_tpu_torch/
@@ -817,10 +836,12 @@ def leaves(tree, prefix=""):
 
 def trainer_state(trainer) -> dict:
     """Everything a checkpoint holds, copied to the CPU."""
+    import torch
+
     return dict(params=leaves(trainer.params), adam=trainer.adam_state(),
                 opt_count=trainer.opt_count, step_count=trainer.step_count,
                 occs=trainer.occ.occs.cpu().clone(), binaries=trainer.occ.binaries.cpu().clone(),
-                rng=trainer._gen.get_state().clone())
+                rng=torch.cat([trainer._gen.get_state(), trainer._bg_gen.get_state()]))
 
 
 def fixed_batch_loss(trainer) -> float:
@@ -862,14 +883,16 @@ def same_state(a: dict, b: dict) -> list:
 class CliProbe:
     """Hooks around the port's own functions for one `train.main` call,
     restored when it ends. It records a CUDA event as each train step
-    starts and the step's loss; hands the loop's trainer to `before` and
-    `after` (called around the training loop); snapshots the trainer's state
-    and a fixed batch's loss when the loop saves step `snapshot_step`; and
-    keeps the first SSIM call's inputs and result."""
+    starts, the step's loss and the proposal's sample count it ran at, and
+    the first `keep_batches` batches; hands the loop's trainer to `before`
+    and `after` (called around the training loop); snapshots the trainer's
+    state and a fixed batch's loss when the loop saves step `snapshot_step`;
+    and keeps the first SSIM call's inputs and result."""
 
-    def __init__(self, before=None, after=None, snapshot_step=None):
+    def __init__(self, before=None, after=None, snapshot_step=None, keep_batches=0):
         self.before, self.after, self.snapshot_step = before, after, snapshot_step
         self.events, self.losses, self.snapshot, self.ssim = [], [], None, None
+        self.keep_batches, self.batches, self.proposals = keep_batches, [], []
 
     def __enter__(self):
         import torch
@@ -884,11 +907,14 @@ class CliProbe:
         self._restore = [(Trainer, "step", step0), (loop, "run_training_loop", loop0),
                          (checkpoints, "save_checkpoint", save0), (metrics, "ssim", ssim0)]
 
-        def step(trainer, batch, bg_color=None):
+        def step(trainer, batch, bg_color=None, **kw):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             probe.events.append((trainer.step_count, ev))
-            out = step0(trainer, batch, bg_color)
+            probe.proposals.append(trainer.model_config.proposal_samples)
+            if len(probe.batches) < probe.keep_batches:
+                probe.batches.append({k: v.copy() for k, v in batch.items()})
+            out = step0(trainer, batch, bg_color, **kw)
             probe.losses.append(out["loss"])
             return out
 
@@ -974,20 +1000,25 @@ def eval_mean(run_dir: str, keys=("psnr", "ssim", "num_rays_per_sec", "fps")) ->
     return means
 
 
-def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60), scene=None, device_flag=()):
+def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60, 20), scene=None,
+             device_flag=()):
     """Phases 4e and 4h: the CLI path (lsenerf_tpu_torch.train.main, in
     process) on the reference scene at the real-scale profile of
     scripts/golden_real_scale.py: train with the headline protocol and its
     cadences, resume exactly from the middle checkpoint, the eval.sh
     protocol, and an lsenerf_emb run through emb_eval.sh's two stages
     (4e); then a run with the real_scale_badnerf_ngpf32 golden's flags and
-    its eval.sh (4h). `steps`: train, resume, eval.sh, emb train, emb stage
-    1, emb stage 2, ngpf32 train, its eval.sh. Returns the encode kernels'
+    its eval.sh (4h); then on a short scene of the same profile the render
+    and viewer entry points with the 4h run's checkpoint (4i), and two
+    short runs with the native prefetcher and the proposal warmup (4j).
+    `steps`: train, resume, eval.sh, emb train, emb stage 1, emb stage 2,
+    ngpf32 train, its eval.sh, each 4j run. Returns the encode kernels'
     launches summed over the stages."""
     import math
     import statistics
     import tempfile
 
+    import numpy as np
     import torch
 
     from lsenerf_tpu_torch import parity, train
@@ -996,7 +1027,7 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60), scene=None, 
     from lsenerf_tpu_torch.engine.config import load_config
     from lsenerf_tpu_torch.ops import metrics
 
-    n_train, n_resume, n_eval, n_emb, n_pre, n_post, n_ngp, n_ngp_eval = steps
+    n_train, n_resume, n_eval, n_emb, n_pre, n_post, n_ngp, n_ngp_eval, n_knob = steps
     scene = scene or dict(n_cams=200, h=480, w=640, focal=0.9 * 640, n_val=4, texture_freq=24.0)
     total = {}
     peak = 0
@@ -1173,8 +1204,347 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60), scene=None, 
         ] + EVAL_FLAGS, CliProbe(), layout="ngp")
         print(f"4h ngpf32 eval.sh ({n_ngp_eval} refinement steps): "
               f"{json.dumps(eval_mean(ngp_eval))}; {card}")
-    print(f"4e-4h peak memory {peak / 2**30:.2f} GiB; launches {total}; {card}")
+
+        # 4i-4j on a short reference scene of the same profile
+        t0 = time.time()
+        short = os.path.join(work, "short_scene")
+        write_reference_scene(short, with_prevnext=True, with_msk=True, with_full_camera=True,
+                              **dict(scene, n_cams=4, n_val=1))
+        device = device_flag[1] if device_flag else None
+        for k, v in render_viewer(card, ngp_run, short, os.path.join(work, "renders"),
+                                  device).items():
+            total[k] = total.get(k, 0) + v
+        print(f"4i render + viewer: {time.time() - t0:.1f} s wall; {card}")
+
+        # 4j: the native prefetcher's batches and the proposal warmup's switch
+        t0 = time.time()
+        knob = ["--data", short, "--steps-per-save", "100000", "--steps-per-eval-batch", "100000",
+                "--steps-per-eval-image", "100000", "--steps-per-eval-all-images", "100000"] + HEADLINE
+        direct = {}
+
+        def native_direct(t):
+            direct["batches"] = native_batches(t, seed=96, n=2)
+
+        probe = CliProbe(keep_batches=2, after=native_direct)
+        stage("4j use_native", ["lsenerf", "--output-dir", os.path.join(work, "native"),
+                                "--max-num-iterations", str(n_knob),
+                                "--pipeline.datamanager.use-native", "True"] + knob, probe)
+        keys = ("col_indices", "col_rgb", "evs_indices", "evs_values")
+        for i, (got, want) in enumerate(zip(probe.batches, direct["batches"])):
+            bad = [k for k in keys if not np.array_equal(got[k], want[k])]
+            if bad:
+                fail(f"4j use_native: batch {i}'s {bad} differ from the native sampler's at seed 96")
+        print(f"4j use_native: the run's first {len(probe.batches)} batches equal the native "
+              f"prefetcher's at seed 96, array for array ({', '.join(keys)}); {card}")
+        warm = n_knob // 2
+        probe = CliProbe()
+        stage("4j proposal warmup", ["lsenerf", "--output-dir", os.path.join(work, "warmup"),
+                                     "--max-num-iterations", str(n_knob),
+                                     "--pipeline.model.proposal-warmup-steps", str(warm)] + knob,
+              probe)
+        want = [0] * warm + [16] * (n_knob - warm)
+        steps = [i for i, _ in probe.events]
+        if probe.proposals != want or steps != list(range(n_knob)):
+            fail(f"4j proposal warmup: steps {steps} ran at F {probe.proposals}, not {want}")
+        print(f"4j proposal warmup: steps 0-{warm - 1} without the proposal, {warm}-{n_knob - 1} "
+              f"at F=16, one trainer throughout; 4j {time.time() - t0:.1f} s wall; {card}")
+    print(f"4e-4j peak memory {peak / 2**30:.2f} GiB; launches {total}; {card}")
     return total
+
+
+def native_batches(trainer, seed: int, n: int) -> list:
+    """The first n batches of the native prefetcher built directly over
+    the trainer's datasets and budgets (what the data manager gives it)."""
+    import numpy as np
+
+    from lsenerf_tpu_torch.data.dataset import LazyFrameArray
+    from lsenerf_tpu_torch.data.native_loader import NativePrefetcher
+
+    dm = trainer.dm
+    cfg = dm.config
+    col_u8 = np.ascontiguousarray(np.clip(dm.col.images * 255, 0, 255).astype(np.uint8))
+    eimgs = dm.evs.eimgs
+    sel = None
+    if isinstance(eimgs, LazyFrameArray) and eimgs.src.dtype == np.int16:
+        evs, sel = eimgs.src, eimgs.sel
+    else:
+        evs = np.ascontiguousarray(np.asarray(eimgs, dtype=np.float32))
+    limit = len(eimgs) if dm.evs.prev_cameras is not None else min(len(eimgs), len(dm.evs.cameras) - 1)
+    pf = NativePrefetcher(col_u8, cfg.train_num_col_rays_per_batch, evs,
+                          cfg.train_num_evs_rays_per_batch, limit, dm.evs.e_thresh, seed=seed,
+                          evs_sel=sel)
+    try:
+        return [pf.next() for _ in range(n)]
+    finally:
+        pf.close()
+
+
+def render_viewer(card: str, run_dir: str, data: str, out_dir: str, device=None) -> dict:
+    """Phase 4i: `python -m lsenerf_tpu_torch.render` (in process) renders
+    every camera of the full trajectory of `data` with the run's
+    checkpoint, and each written frame must equal render_image's output for
+    that view; then the viewer's HTTP server, on 127.0.0.1:0 in a thread,
+    answers GET /, GET /info and POST /render at each resolution for each
+    output, and a PNG reply must decode to exactly session.render's array.
+    Returns the encode kernels' launches of the render and the requests.
+    `device` "cpu" rehearses it with the plain versions."""
+    import http.client
+    import statistics
+    import threading
+
+    import numpy as np
+    import torch
+
+    from lsenerf_tpu_torch import render
+    from lsenerf_tpu_torch.data.imageio import decode_png, read_png
+    from lsenerf_tpu_torch.engine import renderer, viewer
+
+    ckpt, cfg = os.path.join(run_dir, "checkpoints"), os.path.join(run_dir, "config.yml")
+    _, launches, secs = launches_run(lambda: render.main([
+        "--load-dir", ckpt, "--load-config", cfg, "--data", data, "--traj", "full",
+        "--output-dir", out_dir] + ([] if device is None else ["--device", device])))
+    if launches["ngp_encode_fwd"] == 0:
+        fail(f"4i render: K7a was never launched: {launches}")
+    trainer, col, sp, _ = render.load_trained(ckpt, cfg, data, device)
+    cams = sp.all_color_cameras().to(trainer.device)
+    frames = sorted(os.listdir(os.path.join(out_dir, "eval_results", "img")))
+    if frames != [f"{i:03d}.png" for i in range(len(cams))]:
+        fail(f"4i render: wrote {frames}, not one frame a camera of {len(cams)}")
+    ids = col.appearance_ids
+    frame_ms = []
+    for i in range(len(cams)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = renderer.render_image(trainer.params["model"], cams, i, trainer.occ,
+                                    trainer.model_config, appearance_id=int(ids[min(i, len(ids) - 1)]))
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        img = read_png(os.path.join(out_dir, "eval_results", "img", frames[i]))
+        want = np.clip(out["rgb"] * 255, 0, 255).astype(np.uint8)
+        if not np.array_equal(img, want):
+            fail(f"4i render: frame {i} differs from render_image in "
+                 f"{int((img != want).any(-1).sum())} pixels (max {int(np.abs(img.astype(int) - want).max())})")
+    print(f"4i render: {len(cams)} frames of {cams.width}x{cams.height} (the full trajectory of a "
+          f"{len(col.cameras)}-frame scene) through `python -m lsenerf_tpu_torch.render` in "
+          f"{secs:.1f} s wall (load included), each frame equal to render_image's; render_image "
+          f"{statistics.median(frame_ms):.1f} ms a frame (median, host clock, synchronised; "
+          f"{1e3 / statistics.median(frame_ms):.2f} fps); launches {launches}; {card}")
+
+    session = viewer.ViewerSession(trainer.params["model"], col.cameras.to(trainer.device),
+                                   trainer.occ, trainer.model_config,
+                                   appearance_id=int(col.appearance_ids[0]), image_format="png")
+    session.warmup()
+    srv = viewer.make_server(session, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    replies = []
+
+    def requests():
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1], timeout=120)
+        conn.request("GET", "/")
+        r = conn.getresponse()
+        if r.status != 200 or b"lsenerf_tpu_torch" not in r.read():
+            fail("4i viewer: GET / did not serve the page")
+        conn.request("GET", "/info")
+        r = conn.getresponse()
+        info = json.loads(r.read())
+        if r.status != 200 or info["resolutions"] != list(session.resolutions):
+            fail(f"4i viewer: GET /info answered {r.status} {info}")
+        c2w = viewer.orbit_c2w(0.6, 0.3, info["radius"], info["target"]).tolist()
+        for res in info["resolutions"]:
+            for output in info["outputs"]:
+                body = json.dumps({"c2w": c2w, "max_dim": res, "output": output, "seq": len(replies)})
+                t0 = time.perf_counter()
+                conn.request("POST", "/render", body=body)
+                r = conn.getresponse()
+                data = r.read()
+                ms = (time.perf_counter() - t0) * 1e3
+                if r.status != 200:
+                    fail(f"4i viewer: POST /render {res} {output}: {r.status} {data[:200]}")
+                replies.append((res, output, c2w, r.getheader("Content-Type"), data, ms,
+                                float(r.getheader("X-Render-Ms"))))
+        conn.close()
+
+    try:
+        _, v_launches, v_secs = launches_run(requests)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    for res, output, c2w, ctype, data, _, _ in replies:
+        if ctype != "image/png" or not np.array_equal(decode_png(data), session.render(c2w, res, output)):
+            fail(f"4i viewer: the {ctype} reply at {res} {output} is not session.render's array")
+    per = {r: statistics.median(x[5] for x in replies if x[0] == r) for r in session.resolutions}
+    render_ms = {r: statistics.median(x[6] for x in replies if x[0] == r) for r in session.resolutions}
+    print(f"4i viewer: GET /, GET /info and {len(replies)} POST /render "
+          f"({', '.join(session.OUTPUTS)} at {list(session.resolutions)}), each PNG reply "
+          f"decoding to session.render's array; ms a request (median, client clock) "
+          f"{ {r: round(v, 2) for r, v in per.items()} }, of it the render (X-Render-Ms) "
+          f"{ {r: round(v, 2) for r, v in render_ms.items()} }; {v_secs:.1f} s wall; "
+          f"launches {v_launches}; {card}")
+    return {k: launches[k] + v_launches[k] for k in launches}
+
+
+DP_WORLD, DP_STEPS = 2, 3
+
+
+def dp_trainer(device, dp=None):
+    """The data-parallel phase's trainer: the badnerf preset at full width
+    with the ngp layout in f32 (the real_scale_badnerf_ngpf32 golden's
+    model)."""
+    from lsenerf_tpu_torch.flagship import preset_trainer
+
+    return preset_trainer("badnerf", device=device, hash_layout="ngp", compute_dtype="float32", dp=dp)
+
+
+def dp_rank(rank, world, init_method, device, batches, bgs, out_dir):
+    """A rank of phase 4k, spawned: gloo on the card it shares with the
+    other rank, DP_STEPS steps each on its share of the global batch and
+    background; saves its losses, its grid after step 0's occupancy update,
+    its step times and launches, and (rank 0) the params. `device` "cpu"
+    rehearses it."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from lsenerf_tpu_torch.parallel import ddp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dp = ddp.init(rank, world, "gloo", init_method)
+    try:
+        trainer = dp_trainer(device, dp)
+        for k in encode_kernels():
+            k.launches = 0
+        losses, grid, step_ms = [], None, []
+        for i, (b, bg) in enumerate(zip(batches, bgs)):
+            bg = ddp.shard_rays(torch.from_numpy(bg).to(device), trainer.bundle_sizes(b), rank, world)
+            t0 = time.perf_counter()
+            # float() of the loss waits for the step's work on the card
+            losses.append(float(trainer.step(ddp.shard_batch(b, rank, world), bg_color=bg)["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:  # the grid of the sharded update, the averaged gradients
+                grid = (trainer.occ.occs.cpu(), trainer.occ.binaries.cpu())
+                grads = step_grads(trainer)
+        torch.save(dict(losses=losses, occs=grid[0], binaries=grid[1], step_ms=step_ms,
+                        grads=grads if rank == 0 else None,
+                        launches={k.name: k.launches for k in encode_kernels()},
+                        params=leaves(trainer.params) if rank == 0 else None),
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        ddp.shutdown()
+
+
+def step_grads(trainer) -> dict:
+    """{path: the last step's gradient, on the CPU} of the leaves that
+    have one."""
+    from lsenerf_tpu_torch.engine.trainer import tree_leaves
+
+    return {p: t.grad.detach().cpu().clone() for p, t in tree_leaves(trainer.params)
+            if t.grad is not None}
+
+
+def params_outside(got: dict, want: dict, rtol=2e-5, atol=2e-6) -> dict:
+    """{path: (elements outside rtol/atol, the leaf's elements, the largest
+    difference)} of two {path: tensor} trees, for the leaves with any."""
+    out = {}
+    for k, w in want.items():
+        diff = (got[k].float() - w.float()).abs()
+        n = int((diff > atol + rtol * w.float().abs()).sum())
+        if n:
+            out[k] = (n, w.numel(), float(diff.max()))
+    return out
+
+
+def data_parallel(dev, card: str) -> dict:
+    """Phase 4k: two ranks share the card over gloo (NCCL refuses two ranks
+    on one device) and take DP_STEPS steps of the full-width badnerf ngp
+    f32 trainer, each on its half of a fixed global batch and background,
+    held against one process's steps on the whole batches: each step's loss
+    within rel 1e-5 (JAX's tolerance for its mesh step); step 0's gradients,
+    averaged over the ranks, within 1e-5 of each leaf's largest gradient
+    (the sums run in another order); the params after the last step within
+    JAX's rtol 2e-5 / atol 2e-6 but for at most 1e-3 of a leaf's elements,
+    none by more than 2 lr a step: Adam's eps of 1e-15 turns a gradient
+    that cancels to rounding noise into a step of up to lr, whose sign the
+    summation order picks. The ranks' grids after step 0's sharded
+    occupancy update must be equal bit for bit. Then one step under an
+    NCCL group of world size 1. Returns the encode kernels' launches of the
+    ranks and the NCCL step."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from lsenerf_tpu_torch.parallel import ddp
+
+    t_phase = time.time()
+    ref = dp_trainer(dev)
+    batches = [ref.dm.next_train(i) for i in range(DP_STEPS)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bgs = [torch.rand((ref.num_rays(b), 3), generator=gen, device=dev) for b in batches]
+    ref_losses, ref_grid = [], None
+    for i, (b, bg) in enumerate(zip(batches, bgs)):
+        ref_losses.append(float(ref.step(b, bg_color=bg)["loss"]))
+        if i == 0:
+            ref_grid = (ref.occ.occs.cpu(), ref.occ.binaries.cpu())
+            ref_grads = step_grads(ref)
+    ref_params = leaves(ref.params)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out:
+        t0 = time.time()
+        ddp.spawn(dp_rank, DP_WORLD, (DP_WORLD, f"tcp://localhost:{ddp.free_port()}", str(dev),
+                                      batches, [bg.cpu().numpy() for bg in bgs], out))
+        spawn_s = time.time() - t0
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
+                 for r in range(DP_WORLD)]
+    a, b = ranks
+    if not (torch.equal(a["occs"], b["occs"]) and torch.equal(a["binaries"], b["binaries"])):
+        fail("4k data parallel: the ranks' occupancy grids after step 0 differ")
+    grid_diff = float((a["occs"] - ref_grid[0]).abs().max())
+    if a["losses"] != b["losses"]:
+        fail(f"4k data parallel: the ranks report different losses {a['losses']} / {b['losses']}")
+    rel = [abs(x - y) / abs(y) for x, y in zip(a["losses"], ref_losses)]
+    outside = params_outside(a["params"], ref_params)
+    gdiff = {p: float((a["grads"][p] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+             for p, g in ref_grads.items()}
+    print(f"4k step 0 gradients, averaged over the ranks vs one process's: max |difference| / "
+          f"max |gradient| per leaf {json.dumps({p: float(f'{v:.3e}') for p, v in gdiff.items()})}")
+    print(f"4k data parallel (2 gloo ranks on one card, badnerf ngp f32, {DP_STEPS} steps of "
+          f"{ref.num_rays(batches[0])} rays): losses {a['losses']} vs one process {ref_losses} "
+          f"(relative {[f'{x:.2e}' for x in rel]}); params after {DP_STEPS} steps outside rtol "
+          f"2e-5 / atol 2e-6 (elements, of, largest difference): {outside or 'none'}; grids after "
+          f"step 0 equal across ranks bit for bit, "
+          f"{'equal' if grid_diff == 0 else f'{grid_diff:.2e} from'} the one process's; "
+          f"{card}")
+    if max(rel) > 1e-5:
+        fail(f"4k data parallel: loss relative differences {rel} above 1e-5")
+    if max(gdiff.values()) > 1e-5:
+        fail(f"4k data parallel: step 0's averaged gradients differ from one process's: {gdiff}")
+    lr = ref.config.fields_optimizer.lr
+    if any(n > 1e-3 * size or worst > 2 * lr * DP_STEPS for n, size, worst in outside.values()):
+        fail(f"4k data parallel: params differ from one process's beyond the bound: {outside}")
+    launches = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    if min(launches[k] for k in LAYOUT_KERNELS["ngp"]) == 0:
+        fail(f"4k data parallel: a kernel of the ngp layout was never launched: {launches}")
+    print(f"4k data parallel step times on rank 0 (a correctness run, not a speed: gloo copies "
+          f"each all-reduce through the host; host clock to the loss's read): "
+          f"{[round(x, 3) for x in a['step_ms']]} "
+          f"ms (step 0 with the sharded occupancy update); spawn to join {spawn_s:.1f} s; "
+          f"launches {launches}; {card}")
+
+    # NCCL at world size 1: the same step 0 as the one process's
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{ddp.free_port()}", rank=0,
+                            world_size=1)
+    try:
+        trainer = dp_trainer(dev, ddp.DataParallel(0, 1))
+        (loss, *_), n_launches, _ = launches_run(
+            lambda: [float(trainer.step(batches[0], bg_color=bgs[0])["loss"])])
+    finally:
+        ddp.shutdown()
+    if abs(loss - ref_losses[0]) > 1e-6 * abs(ref_losses[0]):
+        fail(f"4k NCCL world 1: loss {loss} vs one process's {ref_losses[0]}")
+    print(f"4k {backend} world size 1: step 0 loss {loss} vs one process's {ref_losses[0]}; launches "
+          f"{n_launches}; 4k {time.time() - t_phase:.1f} s wall; {card}")
+    return {k: launches[k] + n_launches[k] for k in launches}
 
 
 def tiny_golden(card: str, device=None):
@@ -1258,6 +1628,7 @@ def main() -> int:
     check_small_step(dev, "ngp f32, coarse_stride 2, aabb field", so3, so3,
                      hash=dict(layout="ngp"),
                      field=dict(coarse_stride=2, coarse_levels=2, use_contraction=False))
+    check_small_step(dev, "compact_chunk 128", so3, so3, model=dict(compact_chunk=128))
     check_pretrain(dev)
     g_res, g_launches = check_gathers(dev)
     paths = {
@@ -1271,6 +1642,7 @@ def main() -> int:
     by_path = {p: run_path(dev, card, p, make) for p, make in paths.items()}
     by_path["cli"] = cli_path(card)
     by_path["tiny_golden"] = tiny_golden(card)
+    by_path["data_parallel"] = data_parallel(dev, card)
     launches = {k: sum(n[k] for n in by_path.values()) for k in by_path["flagship"]}
     for k in ngp.KERNELS:
         if launches[k.name] == 0:

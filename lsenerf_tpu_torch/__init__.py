@@ -11,9 +11,12 @@ The port of the JAX package `lsenerf_tpu`, module for module:
   data/      datasets, the scene parser and PNG codec, the synthetic scene,
              the pixel sampler
   engine/    the config tree, schedules, the trainer (`Trainer.step`), the
-             training loop, checkpoints, the full-image render and eval
+             training loop, checkpoints, the full-image render and eval,
+             the web viewer
+  parallel/  data parallelism over ranks (one process a rank)
   train.py   the CLI (`python -m lsenerf_tpu_torch.train`); parity.py its
-             metric-parity harness
+             metric-parity harness; render.py and viewer.py the render and
+             viewer entry points
 
 The port imports torch and numpy only. Entry points run on `cuda` unless
 the caller passes `device="cpu"`; without a card they raise.

@@ -3,7 +3,8 @@ the eval artifacts (no imaging library on the card's machine).
 
 `read_png` takes non-interlaced 8-bit gray, gray+alpha, RGB and RGBA files
 with any of the five PNG row filters, and palette files. `write_png`
-writes gray, RGB or RGBA with filter 0 (none) on every row. `read_image`
+writes gray, RGB or RGBA with filter 0 (none) on every row;
+`encode_png`/`decode_png` do the same in memory. `read_image`
 also reads JPEG frames, through PIL, which it imports only for them.
 """
 
@@ -58,7 +59,11 @@ def read_png(path: str) -> np.ndarray:
     """(h, w) uint8 for gray, (h, w, c) for gray+alpha, RGB (palette
     files decoded to RGB or RGBA) and RGBA."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """read_png of a file's bytes (`path` names them in errors)."""
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     idat, palette, trns = [], None, None
@@ -91,6 +96,13 @@ def read_png(path: str) -> np.ndarray:
 
 def write_png(path: str, img: np.ndarray) -> None:
     """Write an (h, w) or (h, w, 1|3|4) uint8 image, filter 0 on every row."""
+    data = encode_png(img)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """The bytes of write_png's file."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8, not {img.dtype}")
@@ -104,11 +116,12 @@ def write_png(path: str, img: np.ndarray) -> None:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
+    return b"".join([
+        _SIGNATURE,
+        chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)),
+        chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)),
+        chunk(b"IEND", b""),
+    ])
 
 
 def read_image(path: str) -> np.ndarray:

@@ -14,7 +14,10 @@ checkpoint is one file, `torch.save` of nested dicts of CPU tensors, ints
 and floats (no pickled classes; `torch.load(weights_only=True)` reads it):
 {"step", "params" (the parameter tree), "occ" {"occs", "binaries"},
 "opt" {"count", "adam" {leaf path: {"exp_avg", "exp_avg_sq", "step"}}},
-"rng" (the generator's state)}.
+"rng" {"occ": the occupancy draws' generator state, "bg": (ranks, n) each
+rank's background generator state}}. Under data parallelism every rank
+calls save_checkpoint (it gathers the ranks' generators), rank 0 writes,
+and every rank resumes from the file.
 """
 
 from __future__ import annotations
@@ -38,18 +41,24 @@ def _cpu_tree(tree: dict) -> dict:
 
 def save_checkpoint(ckpt_dir: str, step: int, trainer) -> str:
     """Save the trainer's whole state as the resume point after `step`."""
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = osp.abspath(osp.join(ckpt_dir, f"step-{step:09d}"))
+    rng = trainer.rng_state()
+    if trainer.dp is not None and not trainer.dp.is_main:
+        trainer.dp.barrier()
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "step": int(step),
         "params": _cpu_tree(trainer.params),
         "occ": {"occs": trainer.occ.occs.cpu(), "binaries": trainer.occ.binaries.cpu()},
         "opt": {"count": int(trainer.opt_count), "adam": trainer.adam_state()},
-        "rng": trainer._gen.get_state(),
+        "rng": rng,
     }
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+    if trainer.dp is not None:
+        trainer.dp.barrier()
     return path
 
 
@@ -123,5 +132,5 @@ def restore_into_state(trainer, params: dict, occ: dict, step: int, opt: Optiona
                                binaries=occ["binaries"].to(dev).clone())
     trainer.step_count = int(step) + 1
     if rng is not None:
-        trainer._gen.set_state(rng)
+        trainer.set_rng_state(rng)
     return opt is not None and trainer.load_adam_state(opt["adam"], opt["count"])

@@ -489,21 +489,14 @@ def _resolve_proposal_samples(config: ExperimentConfig) -> int:
 
 
 def check_supported(config: ExperimentConfig) -> None:
-    """Raise NotImplementedError for options the port does not have yet."""
-    m = config.pipeline.model
-    off_default = "ROADMAP.md §1, 'Off-default knobs'"
-    unsupported = [
-        (config.machine.num_devices > 1, "machine.num_devices > 1", "ROADMAP.md §1, 'Data parallel'"),
-        (config.is_render, "is_render", "ROADMAP.md §1, 'Viewer and renders'"),
-        (config.pipeline.datamanager.use_native, "use_native (the C++ prefetcher)", off_default),
-        (m.proposal_warmup_steps > 0, "proposal_warmup_steps > 0", off_default),
-        (m.compact_chunk > 0, "compact_chunk > 0", off_default),
-        (m.grad_overflow_telemetry, "grad_overflow_telemetry (the port's table gradient is "
-         "exact: there is no windowed update to count)", off_default),
-    ]
-    for bad, what, where in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet: {where}")
+    """Raise NotImplementedError for the one option the port does not
+    take: grad_overflow_telemetry counts the updates the TPU's windowed
+    table gradient drops, and the port's table gradient is exact atomics
+    (ROADMAP.md §3)."""
+    if config.pipeline.model.grad_overflow_telemetry:
+        raise NotImplementedError(
+            "grad_overflow_telemetry is not ported: the port's table gradient is exact, "
+            "so there is no windowed update to count (ROADMAP.md §3)")
 
 
 def build_runtime_configs(config: ExperimentConfig):
@@ -547,6 +540,7 @@ def build_runtime_configs(config: ExperimentConfig):
         packed_phase2=m.packed_phase2,
         proposal_samples=_resolve_proposal_samples(config),
         proposal_uniform_frac=m.proposal_uniform_frac,
+        compact_chunk=m.compact_chunk,
         background_color=m.background_color,
         evs_loss_weight=m.evs_loss_weight,
         event_loss_type=m.event_loss_type,

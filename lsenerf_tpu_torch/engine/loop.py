@@ -8,6 +8,11 @@ for single steps:
   - the checkpoint cadence and the final checkpoint;
   - an optional torch.profiler trace of the first ~30 steps
     (LSENERF_PROFILE_DIR in the CLI).
+A render run (`is_render`) skips the occupancy updates and the
+eval-ray-batch cadence, as the JAX loop does. Under data parallelism
+(trainer.dp) the evals and the log run on rank 0 while the other ranks
+wait at a barrier; every rank takes the checkpoint cadence (rank 0
+writes).
 Cadences fire on absolute step numbers, so a resumed run keeps the
 original schedule: step s fires a cadence of `every` when (s + 1) is a
 multiple of it.
@@ -50,6 +55,7 @@ def run_training_loop(
     apply_cam_opt: bool = False,
     evs_only: bool = False,
     profile_dir: Optional[str] = None,
+    is_render: bool = False,
 ):
     """Run `num_steps` steps (default max_num_iterations) from the
     trainer's current step. Returns the last step's metrics as floats."""
@@ -63,10 +69,18 @@ def run_training_loop(
     start = trainer.step_count
     end = start + num_steps
 
+    dp = trainer.dp
+    if dp is not None and not dp.is_main:
+        eval_ds = logger = profile_dir = None  # evals, logs and the trace are rank 0's
     eval_cams = None
     if eval_ds is not None:
         eval_cams = eval_ds.cameras.to(trainer.device)
         eval_batch_rng = np.random.default_rng(cfg.seed + 17)
+
+    def wait_for_main(it: int, *cadences):
+        """The other ranks wait for rank 0's evals at step it."""
+        if dp is not None and any(_covered(it + 1, every, 1) for every in cadences):
+            dp.barrier()
 
     prof = None
     if profile_dir:
@@ -76,7 +90,8 @@ def run_training_loop(
 
     metrics = {}
     for it in range(start, end):
-        metrics = trainer.step(dm.next_train(it))
+        batch = dm.next_train(it)
+        metrics = trainer.step(batch, update_occ=False) if is_render else trainer.step(batch)
         if prof is not None and it - start >= 30:
             prof.stop()
             prof = None
@@ -88,7 +103,7 @@ def run_training_loop(
                 raise RuntimeError(f"non-finite loss at step {it}: {scal}")
             if _covered(it, PRINT_EVERY, 1) and logger is not None:
                 print(f"step {it}: " + ", ".join(f"{k}={v:.4f}" for k, v in scal.items()))
-        if eval_cams is not None and _covered(it + 1, cfg.steps_per_eval_batch, 1):
+        if eval_cams is not None and not is_render and _covered(it + 1, cfg.steps_per_eval_batch, 1):
             nb = eval_batch_rays
             vi = eval_batch_rng.integers(0, len(eval_ds), nb)
             ys = eval_batch_rng.integers(0, eval_cams.height, nb)
@@ -107,6 +122,7 @@ def run_training_loop(
             if logger is not None:
                 logger.log(it, {"eval_psnr": psnr_v})
             print(f"[eval-image @ {it}] view {vi} psnr {psnr_v:.2f}")
+        wait_for_main(it, cfg.steps_per_eval_image, 0 if is_render else cfg.steps_per_eval_batch)
         if ckpt_dir is not None and _covered(it + 1, cfg.steps_per_save, 1):
             ckpt_lib.save_checkpoint(ckpt_dir, it, trainer)
         if eval_ds is not None and base_dir is not None and _covered(
@@ -115,6 +131,7 @@ def run_training_loop(
                 trainer, eval_ds, base_dir, chunk=eval_chunk, apply_cam_opt=apply_cam_opt,
                 evs_only=evs_only)
             print(f"[eval @ {it}] " + ", ".join(f"{k}={v:.4f}" for k, v in means.items()))
+        wait_for_main(it, cfg.steps_per_eval_all_images)
     if prof is not None:
         prof.stop()
     if ckpt_dir is not None:

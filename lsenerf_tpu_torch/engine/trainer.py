@@ -5,8 +5,10 @@ with deblur's 4 exposure poses, and the event cameras on it through dM)
 and `prevnext` (explicit prev/next event cameras, detected from the
 dataset), and deblur with any of them; the run modes, which freeze
 parameter groups (EVAL the field, PRETRAIN all but the test embedding,
-RENDER everything); the eval-ray-batch loss; and the state a checkpoint
-holds. Data parallelism is not ported yet.
+RENDER everything); the eval-ray-batch loss; the state a checkpoint
+holds; and data parallelism over ranks (`dp`, parallel/ddp.py): the
+gradients averaged over the ranks before Adam, the occupancy sweep
+sharded over them.
 
 `Trainer.step(batch)` is the public entry. PyTorch runs eagerly, so there
 is no jitted step: the step is the forward, `backward()` and the optimizer
@@ -15,6 +17,7 @@ update, on `self.device`.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field as dc_field, replace
 from typing import Optional
 
@@ -134,12 +137,15 @@ class Trainer:
     """Owns the data manager, configs, parameters, optimizer and grid."""
 
     def __init__(self, config: TrainerConfig, model_config: model_lib.ModelConfig,
-                 dm: MultiCamDataManager, device=None, all_cameras=None):
+                 dm: MultiCamDataManager, device=None, all_cameras=None, dp=None):
         """`all_cameras`: the full RGB trajectory the spline's knots are
         placed on, where the train split is only part of it; by default
-        the train cameras."""
+        the train cameras. `dp`: this process's rank (a
+        parallel.ddp.DataParallel), None for a single process; the data
+        manager then samples this rank's share."""
         self.model_config = model_config.normalized()
         self.dm = dm
+        self.dp = dp
         self.device = resolve_device(device)
         self.col_cams = dm.col.cameras.to(self.device) if dm.col is not None else None
         self.evs_cams = dm.evs.cameras.to(self.device) if dm.evs is not None else None
@@ -197,9 +203,45 @@ class Trainer:
         self.occ = occ if occ is not None else occ_lib.init_occ_grid(
             self.model_config.grid, self.device
         )
+        if self.dp is not None:
+            self.dp.broadcast_([t for _, t in tree_leaves(self.params)])
         self.rebuild_optimizer()
+        # the occupancy draws (the same on every rank) and this rank's
+        # random background colours
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self._bg_gen = torch.Generator(device=self.device).manual_seed(seed + 2 + self.rank)
         self.step_count = 0
+
+    @contextlib.contextmanager
+    def model_override(self, **fields):
+        """The model config with `fields` replaced for the duration (the
+        proposal warmup's proposal_samples=0); the parameters, Adam's state
+        and the grid carry over, since none depends on them."""
+        saved = self.model_config
+        self.model_config = replace(saved, **fields)
+        try:
+            yield self
+        finally:
+            self.model_config = saved
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.dp is None else self.dp.rank
+
+    def rng_state(self) -> dict:
+        """The generators' states for a checkpoint: {"occ": the occupancy
+        draws', "bg": (ranks, n) every rank's background generator}. Under
+        data parallelism every rank calls it (it gathers)."""
+        bg = self._bg_gen.get_state()
+        bgs = [bg] if self.dp is None else self.dp.all_gather_object(bg)
+        return {"occ": self._gen.get_state(), "bg": torch.stack(bgs)}
+
+    def set_rng_state(self, rng: dict) -> None:
+        """rng_state()'s generators, each rank its own background row
+        (a rank the checkpoint has no row for keeps its fresh one)."""
+        self._gen.set_state(rng["occ"])
+        if self.rank < rng["bg"].shape[0]:
+            self._bg_gen.set_state(rng["bg"][self.rank].clone())
 
     def rebuild_optimizer(self) -> None:
         """A fresh optimizer (no moments, count 0) over the current leaves,
@@ -296,15 +338,20 @@ class Trainer:
         the event loss reads the prev bundle's output twice."""
         return "denerf" in self.model_config.event_loss_type
 
+    def bundle_sizes(self, batch: dict) -> list:
+        """Rays of each bundle one step renders for this batch, in the
+        order of the background's rows: RGB, prev and next event rays."""
+        has_col, has_evs = self._has()
+        sizes = []
+        if has_col:
+            sizes.append(len(batch["col_indices"]) * (4 if self.model_config.rgb_loss_type == "deblur" else 1))
+        if has_evs:
+            sizes += [len(batch["evs_indices"])] * (1 if self._denerf() else 2)
+        return sizes
+
     def num_rays(self, batch: dict) -> int:
         """Rays one step renders for this batch (the background's rows)."""
-        has_col, has_evs = self._has()
-        n = 0
-        if has_col:
-            n += len(batch["col_indices"]) * (4 if self.model_config.rgb_loss_type == "deblur" else 1)
-        if has_evs:
-            n += (1 if self._denerf() else 2) * len(batch["evs_indices"])
-        return n
+        return sum(self.bundle_sizes(batch))
 
     def loss_fn(self, params: dict, occ, batch: dict, step: int, bg_color=None):
         """(params, occ, batch, step, background) -> (loss, metrics): one
@@ -346,7 +393,8 @@ class Trainer:
             ]
             prev_out, next_out = ev_outs[0], ev_outs[-1]
         loss_dict = model_lib.compute_losses(
-            params["model"], mcfg, col_out, prev_out, next_out, col_batch, evs_batch
+            params["model"], mcfg, col_out, prev_out, next_out, col_batch, evs_batch,
+            batch_sum=None if self.dp is None else self.dp.batch_sum,
         )
         total = sum(loss_dict.values())
         metrics = dict(loss_dict)
@@ -384,7 +432,7 @@ class Trainer:
         the other backgrounds, which need none."""
         if self.model_config.background_color != "random":
             return None
-        return torch.rand((n, 3), generator=self._gen, device=self.device)
+        return torch.rand((n, 3), generator=self._bg_gen, device=self.device)
 
     def grads(self, batch: dict, bg_color=None):
         """Loss, metrics and the gradients (a dict path -> tensor) of one
@@ -403,14 +451,20 @@ class Trainer:
                  for p, t in tree_leaves(self.params)}
         return loss, metrics, grads
 
-    def step(self, batch: dict, bg_color=None) -> dict:
-        """One training step on a data-manager batch (numpy or tensors).
-        Runs the occupancy update first every `update_interval` steps, as
-        the JAX training loop does. Returns detached metric tensors."""
-        if self.step_count % self.model_config.grid.update_interval == 0:
+    def step(self, batch: dict, bg_color=None, update_occ: bool = True) -> dict:
+        """One training step on a data-manager batch (numpy or tensors;
+        under data parallelism this rank's share). Runs the occupancy
+        update first every `update_interval` steps where `update_occ`, as
+        the JAX training loop does (a render run's loop does not). Returns
+        detached metric tensors, under data parallelism the ranks' mean."""
+        if update_occ and self.step_count % self.model_config.grid.update_interval == 0:
             self.occ_update()
         batch = self.batch_to_device(batch)
         loss, metrics, _ = self.grads(batch, bg_color)
+        if self.dp is not None:
+            self.dp.average_grads([t.grad for _, t in tree_leaves(self.params) if t.grad is not None])
+            metrics = self.dp.average_metrics(dict(metrics, loss=loss))
+            loss = metrics.pop("loss")
         if self.optimizer is not None:
             for group, sched in zip(self.optimizer.param_groups, self.schedules):
                 group["lr"] = sched(self.opt_count)
@@ -473,7 +527,11 @@ class Trainer:
     def occ_update(self, cell_ids=None, positions=None) -> None:
         """Sampled EMA update: densities at random jittered cells of every
         level, evaluated in chunks of OCC_CHUNK positions. The tests pass
-        the JAX package's cell draws as cell_ids/positions."""
+        the JAX package's cell draws as cell_ids/positions. Under data
+        parallelism every rank draws the same cells and evaluates its share
+        of them; the others' are -inf, which the max-scatter leaves as the
+        decayed grid, and an all-reduce MAX of the ranks' grids makes the
+        whole update, the same on every rank."""
         mcfg = self.model_config
         gcfg = mcfg.grid
         if cell_ids is None:
@@ -481,15 +539,17 @@ class Trainer:
                 self._gen, gcfg, occ_lib.num_update_cells(gcfg), self.device
             )
         flat = positions.reshape(-1, 3)
+        lo, hi = (0, flat.shape[0]) if self.dp is None else self.dp.share(flat.shape[0])
         field_params = self.params["model"]["field"]
-        dens = torch.cat([
-            field_lib.density_fn(field_params, flat[i : i + OCC_CHUNK], mcfg.field)[:, 0]
-            for i in range(0, flat.shape[0], OCC_CHUNK)
-        ])
         step_size = mcfg.march_config().render_step_size
-        self.occ = occ_lib.sampled_update(
-            self.occ, cell_ids, dens.reshape(cell_ids.shape) * step_size, gcfg
-        )
+        dens = torch.full((flat.shape[0],), float("-inf"), device=flat.device)
+        for i in range(lo, hi, OCC_CHUNK):
+            j = min(i + OCC_CHUNK, hi)
+            dens[i:j] = field_lib.density_fn(field_params, flat[i:j], mcfg.field)[:, 0] * step_size
+        occs = occ_lib.scatter_update(self.occ.occs, cell_ids, dens.reshape(cell_ids.shape), gcfg)
+        if self.dp is not None:
+            self.dp.max_(occs)
+        self.occ = occ_lib.OccGridState(occs=occs, binaries=occ_lib.binarize(occs, gcfg))
 
 
 def _as_leaves(tree: dict, device) -> dict:

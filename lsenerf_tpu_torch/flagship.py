@@ -113,14 +113,16 @@ def preset_configs(preset: str, production: bool = True, **field):
 
 
 def preset_trainer(preset: str, production: bool = True, device=None, dm_seed: int = 0,
-                   **field) -> Trainer:
+                   dp=None, **field) -> Trainer:
     """A preset's trainer (preset_configs) on the flagship's scene, set up
-    with fresh parameters from its seed."""
+    with fresh parameters from its seed; `dp` makes it a rank of a
+    data-parallel group (parallel/ddp.py)."""
     cfg, mcfg, dmc = preset_configs(preset, production, **field)
     col, evs = make_synthetic_scene(n_cams=12, h=64, w=64, focal=60.0)
     if dmc.rgb_frac >= 1.0:
         evs = None  # train.py parses no event data for an RGB-only run
-    trainer = Trainer(cfg, mcfg, MultiCamDataManager(dmc, col, evs, seed=dm_seed), device=device)
+    trainer = Trainer(cfg, mcfg, MultiCamDataManager(dmc, col, evs, seed=dm_seed), device=device,
+                      dp=dp)
     trainer.setup()
     return trainer
 

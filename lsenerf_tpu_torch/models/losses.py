@@ -28,13 +28,21 @@ def log_loss(evs: torch.Tensor, prev_rad: torch.Tensor, next_rad: torch.Tensor) 
 
 
 def enerf_norm_loss(evs: torch.Tensor, prev_rad: torch.Tensor, next_rad: torch.Tensor,
-                    e_thresh: torch.Tensor) -> torch.Tensor:
+                    e_thresh: torch.Tensor, batch_sum=None) -> torch.Tensor:
     """E-NeRF-style loss: delta-log radiance and the unscaled event frame,
-    each divided by its norm over the batch."""
+    each divided by its norm over the batch. Where the batch is split over
+    ranks, `batch_sum` sums a per-rank tensor over them (with a gradient),
+    so that the norms are the global batch's."""
+
+    def norm(x):
+        if batch_sum is None:
+            return torch.linalg.norm(x, dim=0, keepdim=True)
+        return torch.sqrt(batch_sum((x * x).sum(0, keepdim=True)))
+
     delta_log = _delta_log(prev_rad, next_rad)
-    log_norm = torch.linalg.norm(delta_log, dim=0, keepdim=True) + EPS
+    log_norm = norm(delta_log) + EPS
     evs_unscaled = (evs / e_thresh).detach()
-    evs_norm = (torch.linalg.norm(evs_unscaled, dim=0, keepdim=True) + EPS).detach()
+    evs_norm = (norm(evs_unscaled) + EPS).detach()
     return mse_loss(delta_log / log_norm, evs_unscaled / evs_norm)
 
 

@@ -27,9 +27,9 @@ def _norm_none(v):
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The JAX ModelConfig's fields, with its defaults, for the ported
-    paths (its compact_chunk, supergrid_matmul and grad_overflow_telemetry
-    are TPU layout options the port does not take)."""
+    """The JAX ModelConfig's fields, with its defaults (its
+    supergrid_matmul and grad_overflow_telemetry are TPU layout options the
+    port does not take)."""
 
     field: field_lib.FieldConfig = dc_field(default_factory=field_lib.FieldConfig)
     grid: occ_lib.OccGridConfig = dc_field(default_factory=occ_lib.OccGridConfig)
@@ -47,6 +47,9 @@ class ModelConfig:
     packed_phase2: bool = True
     proposal_samples: int = 0
     proposal_uniform_frac: float = 0.2
+    # evaluate the field only on the chunks of this many samples that hold
+    # a valid one (the valid samples sorted first); 0 evaluates every slot
+    compact_chunk: int = 0
     background_color: str = "random"  # random | black | white | last_sample
     evs_loss_weight: float = 1.0
     # log_loss | enerf_norm_loss; a name holding "denerf" renders no next
@@ -59,6 +62,15 @@ class ModelConfig:
     evs_mapping_method: Optional[str] = None
     map_mode: str = "evs_rgb"  # evs_rgb | rgb_evs | co_map
     ev_one_dim: Optional[str] = "learned"  # learned | gt | None: RGB -> gray before events
+
+    def __post_init__(self):
+        # compaction permutes the samples, and the strided coarse-level
+        # encode needs each ray's samples in order
+        if self.compact_chunk > 0 and self.field.coarse_stride > 1:
+            raise ValueError(
+                "compact_chunk > 0 and field.coarse_stride > 1 are mutually exclusive: sample "
+                "compaction destroys the per-ray sample structure the strided coarse-level "
+                "encode lerps over. Disable one of the two.")
 
     def normalized(self) -> "ModelConfig":
         """String "None"/"False"/"True" cleanup, as the CLI passes them."""
@@ -139,7 +151,11 @@ def render_bundle(
     if app_id is None:
         app_id = bundle.camera_indices
     # one id a ray: the field repeats each ray's code over its k samples
-    if config.field.coarse_stride > 1 and k > config.field.coarse_stride:
+    if config.compact_chunk and n * k > config.compact_chunk:
+        density, rgb = _compact_field_eval(
+            params["field"], samples.positions.reshape(-1, 3), samples.directions.reshape(-1, 3),
+            app_id.reshape(n, 1).expand(n, k).reshape(-1), samples.mask.reshape(-1), config, train)
+    elif config.field.coarse_stride > 1 and k > config.field.coarse_stride:
         # the strided coarse-level encode lerps along each ray's samples
         t_mid = 0.5 * (samples.t_starts + samples.t_ends)
         density, rgb = field_lib.field_apply_strided(
@@ -169,6 +185,33 @@ def render_bundle(
         "accumulation": composite.render_accumulation(weights),
         "num_samples_per_ray": samples.mask.sum(-1),
     }
+
+
+def _compact_field_eval(field_params: dict, positions, directions, app_ids, valid,
+                        config: ModelConfig, train: bool):
+    """The field on the chunks of compact_chunk samples that hold a valid
+    sample, zeros on the rest. The valid samples are sorted first (a stable
+    sort), so the live chunks are a prefix: its length is read from the
+    device once, one host sync a call, and the prefix is evaluated in one
+    field call (JAX skips each dead chunk with lax.cond instead). The
+    permutations' backward is a gather (ops/fast_gather.permute)."""
+    from lsenerf_tpu_torch.ops.fast_gather import permute
+
+    nk = positions.shape[0]
+    chunk = config.compact_chunk
+    order = torch.argsort((~valid).to(torch.uint8), stable=True)  # valid samples first
+    inv = torch.argsort(order)
+    n_live = min(nk, -(-int(valid.sum()) // chunk) * chunk)  # the host sync
+    density_s, rgb_s = positions.new_zeros((nk, 1)), positions.new_zeros((nk, 3))
+    if n_live:
+        density, rgb = field_lib.field_apply(
+            field_params, permute(positions, order, inv)[:n_live],
+            permute(directions, order, inv)[:n_live], app_ids[order[:n_live]], config.field,
+            train=train)
+        density_s = torch.cat([density, density_s[n_live:]])
+        rgb_s = torch.cat([rgb, rgb_s[n_live:]])
+    # back to ray-major order
+    return permute(density_s, inv, order), permute(rgb_s, inv, order)
 
 
 def _correct_evs_dim(params: dict, config: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -260,9 +303,12 @@ def slice_outputs(out: dict, start: int, stop: int) -> dict:
 
 
 def compute_losses(params, config: ModelConfig, col_out, prev_out, next_out,
-                   col_batch, evs_batch) -> dict:
+                   col_batch, evs_batch, batch_sum=None) -> dict:
     """rgb_loss (MSE) and the weighted event loss, which reads ev_out, or
-    rgb where there is no mapping."""
+    rgb where there is no mapping. Under data parallelism each loss is this
+    rank's share of the global batch's: the means over rays average over
+    the ranks, and enerf_norm_loss's norms over the batch take their sums
+    of squares over every rank through `batch_sum`."""
     loss_dict = {}
     if col_out is not None:
         loss_dict["rgb_loss"] = loss_lib.mse_loss(col_batch["image"], col_out["rgb"])
@@ -273,7 +319,8 @@ def compute_losses(params, config: ModelConfig, col_out, prev_out, next_out,
         if prev_in.shape[-1] != 1:
             evs = torch.cat([evs] * 3, dim=-1)
         if config.event_loss_type == "enerf_norm_loss":
-            ev_loss = loss_lib.enerf_norm_loss(evs, prev_in, next_in, evs_batch["e_thresh"])
+            ev_loss = loss_lib.enerf_norm_loss(evs, prev_in, next_in, evs_batch["e_thresh"],
+                                               batch_sum=batch_sum)
         else:
             ev_loss = loss_lib.log_loss(evs, prev_in, next_in)
         loss_dict["event_loss"] = config.evs_loss_weight * ev_loss

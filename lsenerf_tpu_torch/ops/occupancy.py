@@ -110,8 +110,24 @@ def build_super_binaries(binaries: torch.Tensor, factor: int) -> torch.Tensor:
     return sb
 
 
-def _binarize(occs: torch.Tensor, config: OccGridConfig) -> torch.Tensor:
+def binarize(occs: torch.Tensor, config: OccGridConfig) -> torch.Tensor:
     return occs > torch.clamp(occs.mean(), max=config.occ_thre)
+
+
+def scatter_update(occs: torch.Tensor, cell_ids: torch.Tensor, density_eval: torch.Tensor,
+                   config: OccGridConfig) -> torch.Tensor:
+    """Decay every cell, then set the sampled cells to
+    max(old * decay, density): the new EMA.
+
+    cell_ids: (levels, m) flat indices within each level; density_eval:
+    (levels, m); a density of -inf leaves its cell decayed. A cell drawn
+    twice gets the larger of its two values: JAX leaves the winner of a
+    duplicate scatter unspecified, the port makes it deterministic."""
+    occs_flat = occs.reshape(config.levels, -1)
+    updated = torch.maximum(torch.gather(occs_flat, 1, cell_ids) * config.ema_decay, density_eval)
+    new = occs_flat * config.ema_decay
+    new = new.scatter_reduce(1, cell_ids, updated, reduce="amax", include_self=False)
+    return new.reshape(occs.shape)
 
 
 def sampled_update(
@@ -120,21 +136,9 @@ def sampled_update(
     density_eval: torch.Tensor,
     config: OccGridConfig,
 ) -> OccGridState:
-    """Decay every cell, then set the sampled cells to
-    max(old * decay, density).
-
-    cell_ids: (levels, m) flat indices within each level; density_eval:
-    (levels, m). A cell drawn twice gets the larger of its two values: JAX
-    leaves the winner of a duplicate scatter unspecified, the port makes it
-    deterministic."""
-    occs_flat = state.occs.reshape(config.levels, -1)
-    updated = torch.maximum(
-        torch.gather(occs_flat, 1, cell_ids) * config.ema_decay, density_eval
-    )
-    new = occs_flat * config.ema_decay
-    new = new.scatter_reduce(1, cell_ids, updated, reduce="amax", include_self=False)
-    new = new.reshape(state.occs.shape)
-    return OccGridState(occs=new, binaries=_binarize(new, config))
+    """scatter_update, then the binaries at min(mean, occ_thre)."""
+    new = scatter_update(state.occs, cell_ids, density_eval, config)
+    return OccGridState(occs=new, binaries=binarize(new, config))
 
 
 def update_positions(cell_ids: torch.Tensor, jitter: torch.Tensor, config: OccGridConfig):

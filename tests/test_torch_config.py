@@ -188,16 +188,53 @@ def test_yaml_scalars_read_as_pyyaml_reads_them():
         assert tcfg.load_yaml(f"x: {s}") == yaml.safe_load(f"x: {s}"), s
 
 
-@pytest.mark.parametrize("flags,what", [
-    (["--machine.num-devices", "2"], "num_devices"),
-    (["--pipeline.datamanager.use-native", "True"], "use_native"),
-    (["--pipeline.model.proposal-warmup-steps", "100"], "proposal_warmup_steps"),
-    (["--is_render", "True"], "is_render"),
-    (["--pipeline.model.compact-chunk", "4096"], "compact_chunk"),
-])
-def test_unported_options_raise(flags, what):
-    cfg = tcfg.modify_config(tcfg.parse_cli(["lsenerf"] + flags))
-    with pytest.raises(NotImplementedError, match=what):
+# the options the JAX package takes off its defaults, each with the field
+# it lowers into: (flags, (object, field, value)) with object "model",
+# "trainer" or "dm" (the runtime configs) or "tree" (the CLI tree, which
+# train.py reads)
+OPTION_FLAGS = {
+    "num_devices": (["--machine.num-devices", "2"], ("tree", "machine.num_devices", 2)),
+    "use_native": (["--pipeline.datamanager.use-native", "True"], ("dm", "use_native", True)),
+    "proposal_warmup_steps": (["--pipeline.model.proposal-warmup-steps", "100"],
+                              ("tree", "pipeline.model.proposal_warmup_steps", 100)),
+    "is_render": (["--is_render", "True"], ("trainer", "mode", "render")),
+    "compact_chunk": (["--pipeline.model.compact-chunk", "4096"], ("model", "compact_chunk", 4096)),
+}
+
+
+@pytest.mark.parametrize("name", list(OPTION_FLAGS))
+def test_options_lower_as_jax(name):
+    """Each option lowers into the port's runtime configs field by field as
+    JAX's build_runtime_configs lowers it, and lands where the run reads
+    it; under --machine.num-devices 2 the ray budgets round to the ranks
+    as JAX's round_rays_to_mesh rounds them to a 2-device mesh."""
+    flags, (obj, field, value) = OPTION_FLAGS[name]
+    t, j = _lower_both(["lsenerf"] + flags)
+    trainer, model, dm, _ = tcfg.build_runtime_configs(t)
+    target = {"tree": t, "trainer": trainer, "model": model, "dm": dm}[obj]
+    for part in field.split("."):
+        target = getattr(target, part)
+    assert target == value
+    if name == "num_devices":
+        from lsenerf_tpu.parallel import mesh as mesh_lib
+        from lsenerf_tpu_torch.parallel import ddp
+
+        jdm = jcfg.build_runtime_configs(j)[2]
+        for d in (dm, jdm):
+            d.train_num_col_rays_per_batch, d.train_num_evs_rays_per_batch = 2319, 597
+        ddp.round_rays(dm, 2)
+        mesh_lib.round_rays_to_mesh(jdm, mesh_lib.make_mesh(2))
+        assert (dm.train_num_col_rays_per_batch, dm.train_num_evs_rays_per_batch) == (
+            jdm.train_num_col_rays_per_batch, jdm.train_num_evs_rays_per_batch) == (2318, 596)
+        assert dm.num_hosts == 2  # a process a rank; JAX's one process drives both devices
+
+
+def test_unported_options_raise():
+    """grad_overflow_telemetry counts the TPU's windowed table-gradient
+    drops; the port's table gradient is exact, and the flag raises."""
+    cfg = tcfg.modify_config(tcfg.parse_cli(["lsenerf", "--pipeline.model.grad-overflow-telemetry",
+                                             "True"]))
+    with pytest.raises(NotImplementedError, match="grad_overflow_telemetry"):
         tcfg.build_runtime_configs(cfg)
 
 
