@@ -33,6 +33,21 @@ Phases, each fatal on failure (exit code 1):
      a fifth small step, ngp f32 with coarse_stride 2 and the aabb field in
      place of the scene contraction, and a sixth with compact_chunk 128
      (the field on the live chunks of the validity-sorted samples) (3b);
+  3d. K3 (march_ts, csrc/march.cu) against march_ts_plain at the flagship
+     trainer's real march inputs (flagship.march_composite_calls: step
+     16, right after its occupancy update) in six cases: that step's grid;
+     the fresh all-ones grid, where every ray strides; a 20%-occupied
+     random grid; half the rays missing the aabb; with nears/fars; and the
+     flat march, the unpacked phase 2 and cone_angle 0. In each the
+     selection before the proposal must be the plain version's bits, and
+     with the proposal (F=16) at most 1e-4 of the samples may differ, each
+     a bin flip with its quantile within 1e-6 of a CDF step (the count is
+     printed). Then K5a/K5b (composite_fwd/_bwd, csrc/composite.cu)
+     against their plain versions at that step's densities, colours and
+     cotangents (3512 x 16), at 3510 x 48 and at an eval chunk's 4096 x 48,
+     for every background and both alpha_thre forms (forward rtol 1e-5 /
+     atol 1e-6, gradients rtol 1e-4 / atol 1e-6). Each kernel is timed
+     beside its plain version and its bound;
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
@@ -41,7 +56,9 @@ Phases, each fatal on failure (exit code 1):
      call that computes the same function, with G3's L2 bytes per launch as
      worked out from its design;
   4. the flagship train step (flagship.py) for STEPS steps on the card, with
-     K1's and K2's launch counters set to 0 just before and read just after;
+     the launch counters of K1, K2, K7a, K7b, K3, K5a and K5b set to 0
+     just before and read just after (every path of 4-4k must launch K3,
+     K5a and, where a backward runs, K5b);
   4b. the same for the production protocol's train step (flagship.py with
      production=True: RGB spline + deblur x4, 3510 rays), which must also
      move the spline's knots;
@@ -63,7 +80,7 @@ Phases, each fatal on failure (exit code 1):
      only the test embedding; stage 2 finds stage 1's run by the script's
      rule); then (4h) the real_scale_badnerf_ngpf32 golden's flags
      (lsenerf_tpu_torch/parity.py NGPF32) on the same scene: 200 training
-     steps through K7a/K7b and eval.sh's 60; the encode kernels' counters
+     steps through K7a/K7b and eval.sh's 60; the path kernels' counters
      are set to 0 before each stage;
   4i. on a short scene of the same profile (4 frames, an 8-pose full
      trajectory), `python -m lsenerf_tpu_torch.render --traj full` with
@@ -88,8 +105,8 @@ Phases, each fatal on failure (exit code 1):
      process's steps on the whole batches (data_parallel's docstring has
      the tolerances); the ranks' grids after step 0's sharded occupancy
      update equal bit for bit; then one step under NCCL at world size 1;
-  5. a `kernels` JSON line (K1/K2/K7a/K7b launches summed over phases 4
-     to 4k, the ranks' included),
+  5. a `kernels` JSON line (K1/K2/K7a/K7b/K3/K5a/K5b launches summed over
+     phases 4 to 4k, the ranks' included; G1-G3's from 3c),
      the card line, and the result line {"ok": true, "device": {...}} last.
 
 Every kernel and library call is timed three ways (lsenerf_tpu_torch/
@@ -523,6 +540,237 @@ def check_ngp(dev):
     return res
 
 
+def same_bits(a, b) -> bool:
+    """a and b equal bit for bit (floats as their int32 words)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def march_bound(o, d, nears, fars, state, gcfg, cfg):
+    """K3's least time on these rays: the bytes it must move (rays and
+    nears/fars read once; each distinct grid cell its lookups read, a byte
+    a bool and 4 a f32 EMA; the outputs written once), at the card's memory
+    rate (its operations are far below its bytes). The distinct cells come
+    from the plain version's lookups on these inputs (occupancy._take
+    watched). Returns (ms, "bytes", distinct cells by grid)."""
+    import torch
+
+    from lsenerf_tpu_torch.ops import march
+    from lsenerf_tpu_torch.ops import occupancy as occ_lib
+
+    seen, real = {}, occ_lib._take
+
+    def watch(grid, flat):
+        key = (grid.data_ptr(), grid.element_size(), tuple(grid.shape))
+        seen.setdefault(key, []).append(flat.reshape(-1))
+        return real(grid, flat)
+
+    occ_lib._take = watch
+    try:
+        t_starts, _, _ = march.march_ts_plain(o, d, nears, fars, state, gcfg, cfg)
+    finally:
+        occ_lib._take = real
+    cells = {f"{k[2]} x {k[1]} B": int(torch.unique(torch.cat(v)).numel()) for k, v in seen.items()}
+    grid_bytes = sum(int(torch.unique(torch.cat(v)).numel()) * k[1] for k, v in seen.items())
+    n, m = t_starts.shape
+    nbytes = n * 24 + (n * 4 if nears is not None else 0) + (n * 4 if fars is not None else 0)
+    nbytes += grid_bytes + n * m * 9
+    return bound(nbytes, 0)[0], "bytes", cells
+
+
+def check_march_case(label, o, d, nears, fars, state, gcfg, cfg):
+    """K3 against march_ts_plain on one input: the selection before the
+    proposal (max_samples slots) the same bits, then with the proposal at
+    most 1e-4 of the samples different, each a bin flip with its quantile
+    within 1e-6 of a step of the plain version's CDF. Returns the flips."""
+    import dataclasses
+
+    import torch
+
+    from lsenerf_tpu_torch.ops import march
+
+    pre = dataclasses.replace(cfg, proposal_samples=0)
+    got = march.march_ts(o, d, nears, fars, state, gcfg, pre)
+    want = march.march_ts_plain(o, d, nears, fars, state, gcfg, pre)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("t_starts", "t_ends", "mask"), got, want):
+        if not same_bits(g, w):
+            bad = int((g != w).sum())
+            fail(f"K3 at {label}: {name} before the proposal is not the plain version's bits "
+                 f"({bad} of {w.numel()} differ)")
+    counts = want[2].sum(1)
+    line = (f"K3 at {label}: {o.shape[0]} rays, the selection before the proposal the plain "
+            f"version's bits ({float(counts.float().mean()):.2f} samples a ray, "
+            f"{int((counts == 0).sum())} rays empty, {int((counts == pre.max_samples).sum())} full)")
+    flips = 0
+    if march.uses_proposal(cfg):
+        got = march.march_ts(o, d, nears, fars, state, gcfg, cfg)
+        wantf = march.march_ts_plain(o, d, nears, fars, state, gcfg, cfg)
+        diff = torch.zeros_like(wantf[2])
+        for g, w in zip(got, wantf):
+            diff |= g.view(torch.int32) != w.view(torch.int32) if g.dtype == torch.float32 else g != w
+        flips = int(diff.sum())
+        if flips:
+            _, cdf, u = march.proposal_cdf(*want, state, o, d, cfg, gcfg)
+            gap = (u[None, :, None] - cdf[:, None, :]).abs().amin(-1)[diff]
+            if flips > 1e-4 * diff.numel() or float(gap.max()) >= 1e-6:
+                fail(f"K3 at {label}: {flips} of {diff.numel()} proposal samples differ, their "
+                     f"quantiles up to {float(gap.max()):.3e} from a CDF step")
+        line += (f"; with the proposal (F={cfg.proposal_samples}) {flips} of {diff.numel()} "
+                 f"samples differ from the plain version's (bin flips, each within 1e-6 of a "
+                 f"CDF step)")
+    print(line)
+    return flips
+
+
+BACKGROUNDS = ("linear", "black", "white", "last_sample", "random")
+
+
+def check_composite_case(label, args, cot):
+    """K5a and K5b against their plain versions on one input, for each
+    background and both forms of alpha_thre (a float and the 0-dim device
+    tensor): forward to rtol 1e-5 / atol 1e-6, gradients to rtol 1e-4 /
+    atol 1e-6 (sums over a ray's samples in another order). Returns the
+    largest absolute errors (forward, backward)."""
+    import torch
+
+    from lsenerf_tpu_torch.ops import composite
+
+    density, rgb, ts, te, mask, alpha_thre, eps, bg, background = args
+    n = mask.shape[0]
+    gen = torch.Generator(device=density.device).manual_seed(5)
+    bg = bg if bg is not None else torch.rand((n, 3), generator=gen, device=density.device)
+    thre = float(alpha_thre) if isinstance(alpha_thre, torch.Tensor) else alpha_thre
+    errs = [0.0, 0.0]
+    for back in BACKGROUNDS:
+        for at in (thre, torch.tensor(thre, device=density.device)):
+            a = (density, rgb, ts, te, mask, at, eps, bg if back == "random" else None, back)
+            for i, (fn, plain, extra, rtol) in enumerate((
+                    (composite.composite_fwd, composite.composite_fwd_plain, (), 1e-5),
+                    (composite.composite_bwd, composite.composite_bwd_plain, cot, 1e-4))):
+                got, want = fn(*a, *extra), plain(*a, *extra)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    if not torch.allclose(g, w, rtol=rtol, atol=1e-6):
+                        fail(f"K5{'ab'[i]} at {label}, {back}, alpha_thre "
+                             f"{type(at).__name__}: max abs err {float((g - w).abs().max()):.3e}")
+                    errs[i] = max(errs[i], float((g - w).abs().max()))
+    print(f"K5a/K5b at {label} ({n} rays x {mask.shape[1]} samples): every background x both "
+          f"alpha_thre forms within tolerance; max abs err {errs[0]:.3e} / {errs[1]:.3e}")
+    return errs
+
+
+def composite_bounds(args, cot):
+    """K5a's and K5b's least times: the bytes each must move (density, rgb,
+    t_starts, t_ends and mask read once, the background colours and the
+    cotangents where given; the outputs written once)."""
+    density, rgb, ts, te, mask, alpha_thre, eps, bg, background = args
+    n, k = mask.shape
+    inputs = n * k * (4 + 12 + 4 + 4 + 1) + (n * 12 if bg is not None else 0)
+    fwd = inputs + n * 20
+    bwd = inputs + sum(g.numel() * 4 for g in cot if g is not None) + n * k * 16
+    return bound(fwd, 0), bound(bwd, 0)
+
+
+def check_march_composite(dev):
+    """Phase 3d: K3 (march_ts) and K5a/K5b (composite_fwd/_bwd) against
+    their plain versions at the flagship's inputs (flagship.
+    march_composite_calls: step 16, right after its occupancy update, and
+    an eval chunk). K3 in six cases: that step's rays and grid; the fresh
+    all-ones grid, where every ray strides; a 20%-occupied random grid;
+    the step's rays with half of them turned to miss the aabb; with
+    nears/fars; and the flat march, the unpacked phase 2 and cone_angle 0.
+    K5a/K5b at the step's densities, colours and cotangents (3512 x 16),
+    at 3510 x 48 and at the eval chunk's 4096 x 48, for every background
+    and both alpha_thre forms. Each kernel timed beside its plain version
+    and its bound. Returns {kernel name: results}."""
+    import dataclasses
+
+    import torch
+
+    from lsenerf_tpu_torch.flagship import march_composite_calls
+    from lsenerf_tpu_torch.ops import composite, march
+    from lsenerf_tpu_torch.ops import occupancy as occ_lib
+    from lsenerf_tpu_torch.timing import cold_ms
+
+    t0 = time.time()
+    calls = march_composite_calls(dev)
+    print(f"the flagship's step 16 and an eval chunk for K3/K5's inputs: {time.time() - t0:.1f} s")
+    o, d, nears, fars, state, gcfg, cfg = calls["march"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = o.shape[0]
+    shape = (gcfg.levels,) + (gcfg.resolution,) * 3
+    rand = occ_lib.OccGridState(occs=torch.rand(shape, generator=gen, device=dev),
+                                binaries=torch.rand(shape, generator=gen, device=dev) < 0.2)
+    half = gcfg.aabb_scale * 2.0 ** (gcfg.levels - 1)
+    miss_o, miss_d = o.clone(), d.clone()
+    out = torch.nn.functional.normalize(torch.randn((n // 2, 3), generator=gen, device=dev), dim=1)
+    miss_o[: n // 2] = out * (3.0 * half)
+    miss_d[: n // 2] = out
+    near = torch.rand((n,), generator=gen, device=dev)
+    far = near + 0.5 + 3.0 * torch.rand((n,), generator=gen, device=dev)
+    cases = [
+        ("step 16, after its occupancy update", o, d, nears, fars, state, cfg),
+        ("the fresh all-ones grid", o, d, nears, fars, occ_lib.init_occ_grid(gcfg, dev), cfg),
+        ("a 20%-occupied random grid", o, d, nears, fars, rand, cfg),
+        ("half the rays missing the aabb", miss_o, miss_d, nears, fars, state, cfg),
+        ("nears/fars", o, d, near, far, state, cfg),
+        ("the flat march", o, d, nears, fars, state, dataclasses.replace(cfg, hierarchical=False)),
+        ("the unpacked phase 2", o, d, nears, fars, state,
+         dataclasses.replace(cfg, packed_phase2=False)),
+        ("cone_angle 0", o, d, nears, fars, state, dataclasses.replace(cfg, cone_angle=0.0)),
+    ]
+    flips = {label: check_march_case(label, *rays, st, gcfg, c)
+             for label, *rays, st, c in cases}
+    res = {}
+
+    def timed(fn, plain, nbound):
+        r = dict(max_abs_err=0.0, bound_ms=nbound[0], bound_by=nbound[1], **timings(fn, plain))
+        r["cold_ms"] = cold_ms(fn)
+        return r
+
+    for key, label in (("march", "step 16"), ("eval_march", "an eval chunk (F=0)")):
+        a = calls[key]
+        b_ms, b_by, cells = march_bound(*a)
+        r = timed(lambda: march.march_ts(*a), lambda: march.march_ts_plain(*a), (b_ms, b_by))
+        r["distinct_cells"] = cells
+        print(f"{march.K3.name} at {label}: {fmt(r)}; cold L2 {r['cold_ms']:.5f} ms; distinct "
+              f"cells read {cells}")
+        res.setdefault(march.K3.name, {}).setdefault("shapes", {})[key] = r
+    k3 = res[march.K3.name]
+    k3.update(k3["shapes"].pop("march"), proposal_flips=flips)
+
+    comp, ecomp = calls["composite"], calls["eval_composite"]
+    cot = comp[9:]
+    rng = torch.Generator(device=dev).manual_seed(9)
+    shapes = {"step": (comp[:9], cot)}
+    for key, m in (("n3510_k48", 3510), ("eval_chunk", ecomp[0].shape[0])):
+        a = tuple(x[:m] if isinstance(x, torch.Tensor) and x.dim() else x for x in ecomp)
+        c = (torch.randn((m, 3), generator=rng, device=dev),
+             torch.randn((m, 1), generator=rng, device=dev),
+             torch.randn((m, 1), generator=rng, device=dev))
+        shapes[key] = (a, c)
+    for key, (a, c) in shapes.items():
+        errs = check_composite_case(key, a, c)
+        (fb, bb) = composite_bounds(a, c)
+        rf = timed(lambda: composite.composite_fwd(*a), lambda: composite.composite_fwd_plain(*a),
+                   fb)
+        rb = timed(lambda: composite.composite_bwd(*a, *c),
+                   lambda: composite.composite_bwd_plain(*a, *c), bb)
+        rf["max_abs_err"], rb["max_abs_err"] = errs
+        for k, r in ((composite.K5A, rf), (composite.K5B, rb)):
+            print(f"{k.name} at {key} ({a[4].shape[0]} x {a[4].shape[1]}): {fmt(r)}; cold L2 "
+                  f"{r['cold_ms']:.5f} ms")
+            res.setdefault(k.name, {}).setdefault("shapes", {})[key] = r
+    for k in (composite.K5A, composite.K5B):
+        res[k.name].update(res[k.name]["shapes"].pop("step"))
+    print(f"phase 3d in {time.time() - t0:.1f} s")
+    return res
+
+
 def bound(nbytes, ops):
     """The least time for the work: the larger of bytes over the memory rate
     and f32 operations over the peak f32 rate, in ms, and which bounds it."""
@@ -741,16 +989,27 @@ LAYOUT_KERNELS = {"blocked": ("blocked_encode_fwd", "blocked_encode_bwd"),
                   "ngp": ("ngp_encode_fwd", "ngp_encode_bwd")}
 
 
-def encode_kernels():
-    """K1, K2, K7a and K7b (their launch counters)."""
-    from lsenerf_tpu_torch.ops import combine, ngp
+# the kernels every render runs: K3, K5a and, where a backward runs, K5b
+RENDER_KERNELS = ("march_ts", "composite_fwd", "composite_bwd")
 
-    return combine.KERNELS + ngp.KERNELS
+
+def path_kernels():
+    """K1, K2, K7a, K7b, K3, K5a and K5b (their launch counters)."""
+    from lsenerf_tpu_torch.ops import combine, composite, march, ngp
+
+    return combine.KERNELS + ngp.KERNELS + march.KERNELS + composite.KERNELS
+
+
+def check_render_kernels(label: str, launches: dict, backward: bool = True) -> None:
+    """Fail unless the run launched K3 and K5a (and K5b with a backward)."""
+    names = RENDER_KERNELS if backward else RENDER_KERNELS[:2]
+    if min(launches[k] for k in names) == 0:
+        fail(f"{label}: K3/K5a/K5b were not all launched: {launches}")
 
 
 def run_path(dev, card: str, label: str, make):
     """Phases 4-4d and 4g: the trainer `make(device)` builds for STEPS steps
-    on the card. Returns the encode kernels' launches in the run."""
+    on the card. Returns the path kernels' launches in the run."""
     import math
 
     import torch
@@ -763,7 +1022,7 @@ def run_path(dev, card: str, label: str, make):
           f"batch {trainer.num_rays(batches[0])} rays")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in encode_kernels():
+    for k in path_kernels():
         k.launches = 0
     metrics = []
     ev = {}
@@ -775,7 +1034,7 @@ def run_path(dev, card: str, label: str, make):
     ev["b"] = torch.cuda.Event(enable_timing=True)
     ev["b"].record()
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in encode_kernels()}
+    launches = {k.name: k.launches for k in path_kernels()}
     ms = ev["a"].elapsed_time(ev["b"]) / (STEPS - TIMED_FROM)
     losses = [float(m["loss"]) for m in metrics]
     psnr = float(metrics[-1]["psnr"])
@@ -786,6 +1045,8 @@ def run_path(dev, card: str, label: str, make):
     fwd, bwd = LAYOUT_KERNELS[hcfg.layout]
     if launches[fwd] < STEPS + n_occ * chunks or launches[bwd] < STEPS:
         fail(f"{label}: kernel launch counts too low for {STEPS} steps: {launches}")
+    if min(launches[k] for k in RENDER_KERNELS) < STEPS:
+        fail(f"{label}: K3/K5a/K5b launched fewer than once a step: {launches}")
     rays = trainer.num_rays(batches[0])
     print(f"{label}: {STEPS} steps, loss {losses[0]:.5f} -> {losses[-1]:.5f}, psnr {psnr:.3f}, "
           f"samples/ray {float(metrics[-1]['num_samples_per_ray']):.2f}")
@@ -852,14 +1113,14 @@ def fixed_batch_loss(trainer) -> float:
 
     from lsenerf_tpu_torch.data.datamanager import MultiCamDataManager
 
-    counts = [k.launches for k in encode_kernels()]
+    counts = [k.launches for k in path_kernels()]
     dm = MultiCamDataManager(trainer.dm.config, trainer.dm.col, trainer.dm.evs, seed=1234)
     batch = trainer.batch_to_device(dm.next_train(0))
     gen = torch.Generator(device=trainer.device).manual_seed(5)
     bg = torch.rand((trainer.num_rays(batch), 3), generator=gen, device=trainer.device)
     with torch.no_grad():
         loss, _ = trainer.loss_fn(trainer.params, trainer.occ, batch, trainer.step_count, bg)
-    for k, n in zip(encode_kernels(), counts):
+    for k, n in zip(path_kernels(), counts):
         k.launches = n
     return float(loss)
 
@@ -973,16 +1234,16 @@ def torch_defaults():
 
 
 def launches_run(fn):
-    """fn() with the encode kernels' launch counters set to 0 just before
+    """fn() with the path kernels' launch counters set to 0 just before
     and read just after: (result, {kernel name: launches}, wall seconds)."""
     import torch
 
-    for k in encode_kernels():
+    for k in path_kernels():
         k.launches = 0
     t0 = time.time()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k.name: k.launches for k in encode_kernels()}, time.time() - t0
+    return out, {k.name: k.launches for k in path_kernels()}, time.time() - t0
 
 
 def eval_mean(run_dir: str, keys=("psnr", "ssim", "num_rays_per_sec", "fps")) -> dict:
@@ -1012,7 +1273,7 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60, 20), scene=No
     and viewer entry points with the 4h run's checkpoint (4i), and two
     short runs with the native prefetcher and the proposal warmup (4j).
     `steps`: train, resume, eval.sh, emb train, emb stage 1, emb stage 2,
-    ngpf32 train, its eval.sh, each 4j run. Returns the encode kernels'
+    ngpf32 train, its eval.sh, each 4j run. Returns the path kernels'
     launches summed over the stages."""
     import math
     import statistics
@@ -1042,6 +1303,7 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60, 20), scene=No
             total[k] = total.get(k, 0) + v
         if min(launches[k] for k in LAYOUT_KERNELS[layout]) == 0:
             fail(f"{label}: a kernel of the {layout} layout was never launched: {launches}")
+        check_render_kernels(label, launches)
         bad = [i for i, l in enumerate(probe.losses) if not math.isfinite(float(l))]
         if bad or not probe.losses:
             fail(f"{label}: {len(probe.losses)} steps, non-finite loss at {bad[:5]}")
@@ -1286,7 +1548,7 @@ def render_viewer(card: str, run_dir: str, data: str, out_dir: str, device=None)
     that view; then the viewer's HTTP server, on 127.0.0.1:0 in a thread,
     answers GET /, GET /info and POST /render at each resolution for each
     output, and a PNG reply must decode to exactly session.render's array.
-    Returns the encode kernels' launches of the render and the requests.
+    Returns the path kernels' launches of the render and the requests.
     `device` "cpu" rehearses it with the plain versions."""
     import http.client
     import statistics
@@ -1305,6 +1567,7 @@ def render_viewer(card: str, run_dir: str, data: str, out_dir: str, device=None)
         "--output-dir", out_dir] + ([] if device is None else ["--device", device])))
     if launches["ngp_encode_fwd"] == 0:
         fail(f"4i render: K7a was never launched: {launches}")
+    check_render_kernels("4i render", launches, backward=False)
     trainer, col, sp, _ = render.load_trained(ckpt, cfg, data, device)
     cams = sp.all_color_cameras().to(trainer.device)
     frames = sorted(os.listdir(os.path.join(out_dir, "eval_results", "img")))
@@ -1370,6 +1633,7 @@ def render_viewer(card: str, run_dir: str, data: str, out_dir: str, device=None)
         srv.shutdown()
         srv.server_close()
         thread.join()
+    check_render_kernels("4i viewer", v_launches, backward=False)
     for res, output, c2w, ctype, data, _, _ in replies:
         if ctype != "image/png" or not np.array_equal(decode_png(data), session.render(c2w, res, output)):
             fail(f"4i viewer: the {ctype} reply at {res} {output} is not session.render's array")
@@ -1412,7 +1676,7 @@ def dp_rank(rank, world, init_method, device, batches, bgs, out_dir):
     dp = ddp.init(rank, world, "gloo", init_method)
     try:
         trainer = dp_trainer(device, dp)
-        for k in encode_kernels():
+        for k in path_kernels():
             k.launches = 0
         losses, grid, step_ms = [], None, []
         for i, (b, bg) in enumerate(zip(batches, bgs)):
@@ -1426,7 +1690,7 @@ def dp_rank(rank, world, init_method, device, batches, bgs, out_dir):
                 grads = step_grads(trainer)
         torch.save(dict(losses=losses, occs=grid[0], binaries=grid[1], step_ms=step_ms,
                         grads=grads if rank == 0 else None,
-                        launches={k.name: k.launches for k in encode_kernels()},
+                        launches={k.name: k.launches for k in path_kernels()},
                         params=leaves(trainer.params) if rank == 0 else None),
                    os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -1467,7 +1731,7 @@ def data_parallel(dev, card: str) -> dict:
     that cancels to rounding noise into a step of up to lr, whose sign the
     summation order picks. The ranks' grids after step 0's sharded
     occupancy update must be equal bit for bit. Then one step under an
-    NCCL group of world size 1. Returns the encode kernels' launches of the
+    NCCL group of world size 1. Returns the path kernels' launches of the
     ranks and the NCCL step."""
     import tempfile
 
@@ -1524,6 +1788,7 @@ def data_parallel(dev, card: str) -> dict:
     launches = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
     if min(launches[k] for k in LAYOUT_KERNELS["ngp"]) == 0:
         fail(f"4k data parallel: a kernel of the ngp layout was never launched: {launches}")
+    check_render_kernels("4k data parallel", launches)
     print(f"4k data parallel step times on rank 0 (a correctness run, not a speed: gloo copies "
           f"each all-reduce through the host; host clock to the loss's read): "
           f"{[round(x, 3) for x in a['step_ms']]} "
@@ -1564,6 +1829,7 @@ def tiny_golden(card: str, device=None):
             lambda: [parity.run(work, seed, device=device) for seed in parity.TINY_SEEDS])
     if min(launches[k] for k in LAYOUT_KERNELS["blocked"]) == 0:
         fail(f"4f tiny golden: a kernel was never launched: {launches}")
+    check_render_kernels("4f tiny golden", launches)
     for seed, r in zip(parity.TINY_SEEDS, runs):
         print(f"4f tiny golden, seed {seed}: psnr {r['psnr']:.4f}, ssim {r['ssim']:.4f}")
     gate = parity.tiny_gate(runs)
@@ -1585,8 +1851,8 @@ def main() -> int:
         fail("no CUDA device is available")
     sys.path.insert(0, ROOT)
     try:
-        from lsenerf_tpu_torch.ops import combine, cuda_build
-        from lsenerf_tpu_torch.ops import gather, ngp
+        from lsenerf_tpu_torch.ops import combine, composite, cuda_build
+        from lsenerf_tpu_torch.ops import gather, march, ngp
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}: {e}")
 
@@ -1612,6 +1878,7 @@ def main() -> int:
 
     res = check_kernels(dev)
     res.update(check_ngp(dev))
+    res.update(check_march_composite(dev))
     so3 = CameraOptConfig(mode="SO3xR3")
     check_small_step(dev, "ns SO3xR3", so3, so3)
     check_small_step(dev, "spline + deblur, SE3 event deltas",
@@ -1644,9 +1911,11 @@ def main() -> int:
     by_path["tiny_golden"] = tiny_golden(card)
     by_path["data_parallel"] = data_parallel(dev, card)
     launches = {k: sum(n[k] for n in by_path.values()) for k in by_path["flagship"]}
-    for k in ngp.KERNELS:
+    for k in path_kernels():
         if launches[k.name] == 0:
             fail(f"{k.name} was never launched on the main paths: {launches}")
+    for p, n in by_path.items():
+        check_render_kernels(p, n)
 
     kernels = []
     for k, src_line in ((combine.K1, 58), (combine.K2, 76)):
@@ -1665,6 +1934,21 @@ def main() -> int:
         kernels.append(dict(
             name=k.name, route="cuda", source="lsenerf_tpu_torch/csrc/ngp_encode.cu",
             replaces=first, also_replaces=rest, launches=launches[k.name], **res[k.name],
+        ))
+    # K3 and K5a/K5b stand in for ops the JAX package shaped around the TPU
+    # (no Pallas kernel): the march with its one-hot compactions and its
+    # proposal, and the composite chain with its autodiff backward
+    march_lines = ["lsenerf_tpu/ops/march.py:156", "lsenerf_tpu/ops/march.py:216"]
+    chain = ["lsenerf_tpu/ops/composite.py:78", "lsenerf_tpu/ops/composite.py:83",
+             "lsenerf_tpu/ops/composite.py:117", "lsenerf_tpu/ops/composite.py:127"]
+    for k, src, first, rest in (
+        (march.K3, "march.cu", "lsenerf_tpu/ops/march.py:298", march_lines),
+        (composite.K5A, "composite.cu", "lsenerf_tpu/ops/composite.py:29", chain),
+        (composite.K5B, "composite.cu", "lsenerf_tpu/ops/composite.py:29", chain),
+    ):
+        kernels.append(dict(
+            name=k.name, route="cuda", source=f"lsenerf_tpu_torch/csrc/{src}", replaces=first,
+            also_replaces=rest, launches=launches[k.name], **res[k.name],
         ))
     # each gather kernel replaces several probe kernels; `replaces` names the
     # first of them and `also_replaces` the rest

@@ -15,7 +15,9 @@ and floats (no pickled classes; `torch.load(weights_only=True)` reads it):
 {"step", "params" (the parameter tree), "occ" {"occs", "binaries"},
 "opt" {"count", "adam" {leaf path: {"exp_avg", "exp_avg_sq", "step"}}},
 "rng" {"occ": the occupancy draws' generator state, "bg": (ranks, n) each
-rank's background generator state}}. Under data parallelism every rank
+rank's background generator state}}. A checkpoint of the port before the
+background had a generator of its own holds one state tensor under "rng";
+it resumes too (Trainer.set_rng_state). Under data parallelism every rank
 calls save_checkpoint (it gathers the ranks' generators), rank 0 writes,
 and every rank resumes from the file.
 """

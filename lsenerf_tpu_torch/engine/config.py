@@ -13,8 +13,7 @@ mappings of str, int, float, bool and None. yaml.safe_load reads the
 port's files to the same dict, and the reader reads the JAX CLI's
 yaml.safe_dump output.
 
-Options the port does not have yet raise NotImplementedError naming their
-ROADMAP.md item (`check_supported`). `machine.scan_steps` and
+Every option of the tree lowers. `machine.scan_steps` and
 `pipeline.model.supergrid_matmul` are kept so that JAX config trees load,
 and change nothing here: the port runs single steps, and its march has no
 one-hot matmul.
@@ -488,17 +487,6 @@ def _resolve_proposal_samples(config: ExperimentConfig) -> int:
     return 0 if m.embed_config.embedding_type == "evs_emb" else 16
 
 
-def check_supported(config: ExperimentConfig) -> None:
-    """Raise NotImplementedError for the one option the port does not
-    take: grad_overflow_telemetry counts the updates the TPU's windowed
-    table gradient drops, and the port's table gradient is exact atomics
-    (ROADMAP.md §3)."""
-    if config.pipeline.model.grad_overflow_telemetry:
-        raise NotImplementedError(
-            "grad_overflow_telemetry is not ported: the port's table gradient is exact, "
-            "so there is no windowed update to count (ROADMAP.md §3)")
-
-
 def build_runtime_configs(config: ExperimentConfig):
     """ExperimentConfig -> (TrainerConfig, ModelConfig, DataManagerConfig,
     ParserConfig) of the port."""
@@ -511,7 +499,6 @@ def build_runtime_configs(config: ExperimentConfig):
     from lsenerf_tpu_torch.ops import hash_encoding as he
     from lsenerf_tpu_torch.ops import occupancy as occ_lib
 
-    check_supported(config)
     m = config.pipeline.model
     dm = config.pipeline.datamanager
     scene_scale = dm.col_dataparser.scene_scale
@@ -550,6 +537,7 @@ def build_runtime_configs(config: ExperimentConfig):
         evs_mapping_method=m.evs_mapping_method,
         map_mode=m.map_mode,
         ev_one_dim=m.ev_one_dim,
+        grad_overflow_telemetry=m.grad_overflow_telemetry,
     ).normalized()
 
     def group(spec: OptimizerSpec) -> tr.OptimizerGroupConfig:

@@ -6,6 +6,12 @@ for single steps:
     and a non-finite loss stops the run;
   - the eval-ray-batch, eval-image and eval-all-images cadences;
   - the checkpoint cadence and the final checkpoint;
+  - the grad_overflow sentinel (TrainerConfig.grad_overflow_every, TRAIN
+    mode, blocked layout): after step s with (s + 1) a multiple of it,
+    Trainer.overflow_count of step s's batch, logged at step s and carried
+    in the returned metrics. JAX merges it into the step's metrics only,
+    whose log (s a multiple of 100) never falls on a sentinel step (s + 1
+    a multiple of 256), so the port logs the probe where it fires;
   - an optional torch.profiler trace of the first ~30 steps
     (LSENERF_PROFILE_DIR in the CLI).
 A render run (`is_render`) skips the occupancy updates and the
@@ -17,8 +23,9 @@ Cadences fire on absolute step numbers, so a resumed run keeps the
 original schedule: step s fires a cadence of `every` when (s + 1) is a
 multiple of it.
 
-The JAX loop retries a flaky remote TPU compile and skips an eval that
-fails; the port does neither: an eval that raises ends the run.
+The JAX loop retries a flaky remote TPU compile and skips an eval or a
+sentinel probe that fails; the port does neither: an eval or a probe that
+raises ends the run.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ def run_training_loop(
     trainer's current step. Returns the last step's metrics as floats."""
     from lsenerf_tpu_torch.engine import checkpoints as ckpt_lib
     from lsenerf_tpu_torch.engine import evaluation, renderer
+    from lsenerf_tpu_torch.engine.trainer import RunMode
     from lsenerf_tpu_torch.ops import metrics as metric_ops
 
     cfg = trainer.config
@@ -82,6 +90,11 @@ def run_training_loop(
         if dp is not None and any(_covered(it + 1, every, 1) for every in cadences):
             dp.barrier()
 
+    # the grad_overflow sentinel (JAX: training mode, blocked layout only)
+    overflow_every = cfg.grad_overflow_every if (
+        cfg.mode == RunMode.TRAIN and not is_render
+        and trainer.model_config.field.hash.layout == "blocked") else 0
+
     prof = None
     if profile_dir:
         prof = torch.profiler.profile(
@@ -95,6 +108,11 @@ def run_training_loop(
         if prof is not None and it - start >= 30:
             prof.stop()
             prof = None
+        if _covered(it + 1, overflow_every, 1):
+            overflow = trainer.overflow_count(batch)
+            metrics = dict(metrics, grad_overflow=overflow)
+            if logger is not None:
+                logger.log(it, {"grad_overflow": float(overflow)})
         if _covered(it, LOG_EVERY, 1):
             scal = {k: float(v) for k, v in metrics.items()}
             if logger is not None:

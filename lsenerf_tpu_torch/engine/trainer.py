@@ -82,6 +82,10 @@ class TrainerConfig:
     steps_per_eval_all_images: int = 25000
     seed: int = 42
     mode: str = RunMode.TRAIN
+    # the training loop's grad_overflow sentinel: every N steps, on the
+    # blocked layout in TRAIN mode, overflow_count of the step's batch
+    # (JAX's make_overflow_probe); 0 turns it off
+    grad_overflow_every: int = 256
     fields_optimizer: OptimizerGroupConfig = dc_field(default_factory=OptimizerGroupConfig)
     camera_optimizer: OptimizerGroupConfig = dc_field(
         default_factory=lambda: OptimizerGroupConfig(lr=1e-3, lr_final=1e-4, max_steps=5000)
@@ -236,9 +240,14 @@ class Trainer:
         bgs = [bg] if self.dp is None else self.dp.all_gather_object(bg)
         return {"occ": self._gen.get_state(), "bg": torch.stack(bgs)}
 
-    def set_rng_state(self, rng: dict) -> None:
+    def set_rng_state(self, rng) -> None:
         """rng_state()'s generators, each rank its own background row
-        (a rank the checkpoint has no row for keeps its fresh one)."""
+        (a rank the checkpoint has no row for keeps its fresh one). A
+        checkpoint written before the background had its own generator
+        holds one state tensor, which served both streams: both resume
+        from it."""
+        if isinstance(rng, torch.Tensor):
+            rng = {"occ": rng, "bg": rng[None]}
         self._gen.set_state(rng["occ"])
         if self.rank < rng["bg"].shape[0]:
             self._bg_gen.set_state(rng["bg"][self.rank].clone())
@@ -353,28 +362,37 @@ class Trainer:
         """Rays one step renders for this batch (the background's rows)."""
         return sum(self.bundle_sizes(batch))
 
+    def _step_bundles(self, cam_params: dict, batch: dict, step: int):
+        """The bundles one step renders, in order (RGB, prev and next event;
+        no next under denerf), and the RGB and event targets (None where
+        the batch has no such rays)."""
+        tcfg = self.config
+        has_col, has_evs = self._has()
+        col_gate = pose_opt.activation_gate(step, tcfg.col_cam_opt.scheme, tcfg.col_cam_opt.delay_cnt)
+        evs_gate = pose_opt.activation_gate(step, tcfg.evs_cam_opt.scheme, tcfg.evs_cam_opt.delay_cnt)
+        bundles, col_batch, evs_batch = [], None, None
+        if has_col:
+            bundles.append(self._make_col_bundle(cam_params, batch, col_gate))
+            col_batch = {"image": batch["col_rgb"]}
+        if has_evs:
+            prev_b, next_b = self._make_evs_bundles(cam_params, batch, evs_gate)
+            bundles.extend([prev_b] if self._denerf() else [prev_b, next_b])
+            evs_batch = {"image": batch["evs_values"], "e_thresh": batch["e_thresh"]}
+        return bundles, col_batch, evs_batch
+
     def loss_fn(self, params: dict, occ, batch: dict, step: int, bg_color=None):
         """(params, occ, batch, step, background) -> (loss, metrics): one
         volume render for all bundles (RGB, prev and next event; no next
         under denerf), split and post-processed per branch."""
-        mcfg, tcfg = self.model_config, self.config
+        mcfg = self.model_config
         has_col, has_evs = self._has()
         cam_params = params["camera_opt"]
-        col_gate = pose_opt.activation_gate(step, tcfg.col_cam_opt.scheme, tcfg.col_cam_opt.delay_cnt)
-        evs_gate = pose_opt.activation_gate(step, tcfg.evs_cam_opt.scheme, tcfg.evs_cam_opt.delay_cnt)
-        col_out = prev_out = next_out = col_batch = evs_batch = None
-        bundles = []
-        if has_col:
-            bundles.append(self._make_col_bundle(cam_params, batch, col_gate))
-            col_batch = {"image": batch["col_rgb"]}
-        denerf = self._denerf()
-        if has_evs:
-            prev_b, next_b = self._make_evs_bundles(cam_params, batch, evs_gate)
-            bundles.extend([prev_b] if denerf else [prev_b, next_b])
-            evs_batch = {"image": batch["evs_values"], "e_thresh": batch["e_thresh"]}
+        col_out = prev_out = next_out = None
+        bundles, col_batch, evs_batch = self._step_bundles(cam_params, batch, step)
         sizes = [len(b) for b in bundles]
         big = model_lib.concat_bundles(bundles) if len(bundles) > 1 else bundles[0]
         raw = model_lib.render_bundle(params["model"], big, occ, mcfg, train=True, bg_color=bg_color)
+        overflow = raw.pop("grad_overflow", None)  # one count, not sliced by bundle
         offs = np.concatenate([[0], np.cumsum(sizes)]).tolist()
         cursor = 0
         if has_col:
@@ -398,6 +416,8 @@ class Trainer:
         )
         total = sum(loss_dict.values())
         metrics = dict(loss_dict)
+        if overflow is not None:
+            metrics["grad_overflow"] = overflow.float()
         metrics.update(self._camera_metrics(cam_params))
         if col_out is not None:
             mse = ((col_out["rgb"] - col_batch["image"]) ** 2).mean()
@@ -487,6 +507,24 @@ class Trainer:
                                       train=False)
         mse = ((out["rgb"] - torch.as_tensor(gt, device=dev).float()) ** 2).mean()
         return {"eval_loss": mse, "eval_batch_psnr": -10.0 * torch.log10(mse)}
+
+    @torch.no_grad()
+    def overflow_count(self, batch: dict) -> Optional[torch.Tensor]:
+        """The grad_overflow sentinel's probe (JAX's make_overflow_probe):
+        the step's bundles for `batch` at the current parameters and step,
+        marched, and the table-gradient updates JAX's sorted windowed
+        backward would drop for their samples (model_lib.overflow_count);
+        None on the ngp layout, which has no such backward."""
+        mcfg = self.model_config
+        if mcfg.field.hash.layout != "blocked":
+            return None
+        from lsenerf_tpu_torch.ops import march
+
+        bundles, _, _ = self._step_bundles(self.params["camera_opt"], self.batch_to_device(batch),
+                                           self.step_count)
+        big = model_lib.concat_bundles(bundles) if len(bundles) > 1 else bundles[0]
+        samples = march.march_rays(big, self.occ, mcfg.grid, mcfg.march_config())
+        return model_lib.overflow_count(samples.positions.reshape(-1, 3), mcfg)
 
     # -- checkpoint state -----------------------------------------------------
 

@@ -249,3 +249,56 @@ def ngp_encode_shapes(device=None) -> dict:
         "eval_chunk": (*calls["eval_chunk"][:2], None, calls["eval_chunk"][2]),
         "occupancy": (*calls["occupancy"][0][:2], None, calls["occupancy"][0][2]),
     }
+
+
+def march_composite_calls(device=None, chunk: int = 4096, step: int = 16) -> dict:
+    """K3's and K5a/K5b's arguments where the flagship's main path calls
+    them: a fresh flagship trainer takes steps 0..`step` (its occupancy
+    updates at steps 0 and 16), with the wrappers watched in the last one,
+    then renders one eval chunk of `chunk` rays of view 0 (48 samples a
+    ray: an eval render runs no proposal). Returns {"march": march_ts's
+    arguments (o, d, nears, fars, occ_state, occ_config, march config) in
+    that step, "composite": composite_bwd's (density, rgb, t_starts,
+    t_ends, mask, alpha_thre, early_stop_eps, bg_color, background, g_rgb,
+    g_depth, g_acc) in it, "eval_march" and "eval_composite" (the
+    forward's, no cotangents) of the chunk}."""
+    from lsenerf_tpu_torch.ops import composite, march
+
+    trainer = flagship_trainer(device=device)
+    for i in range(step):
+        trainer.step(trainer.dm.next_train(i))
+    seen = {}
+    real = {"march_ts": march.march_ts, "composite_fwd": composite.composite_fwd,
+            "composite_bwd": composite.composite_bwd}
+
+    def watch(name, key):
+        def fn(*args):
+            seen.setdefault(key, []).append(tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+            return real[name](*args)
+        return fn
+
+    dev = trainer.device
+    cams = trainer.dm.col.cameras.to(dev)
+    h, w = cams.height, cams.width
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
+    coords = torch.stack([ys.reshape(-1), xs.reshape(-1)], 1).float()
+    coords = coords.repeat(-(-chunk // coords.shape[0]), 1)[:chunk]
+    zeros = torch.zeros((chunk,), dtype=torch.long, device=dev)
+    try:
+        march.march_ts = watch("march_ts", "march")
+        composite.composite_bwd = watch("composite_bwd", "composite")
+        trainer.step(trainer.dm.next_train(step))
+        march.march_ts = watch("march_ts", "eval_march")
+        composite.composite_fwd = watch("composite_fwd", "eval_composite")
+        with torch.no_grad():
+            renderer.render_chunk(trainer.params["model"], cams, trainer.occ, coords, zeros, zeros,
+                                  None, trainer.model_config)
+    finally:
+        for name, fn in real.items():
+            setattr(march if name == "march_ts" else composite, name, fn)
+    if any(len(seen.get(k, ())) != 1 for k in ("march", "composite", "eval_march",
+                                                "eval_composite")):
+        raise RuntimeError(f"step {step} and an eval chunk called K3/K5 "
+                           f"{ {k: len(v) for k, v in seen.items()} } times, not once each")
+    return {k: v[0] for k, v in seen.items()}

@@ -28,8 +28,7 @@ def _norm_none(v):
 @dataclass(frozen=True)
 class ModelConfig:
     """The JAX ModelConfig's fields, with its defaults (its
-    supergrid_matmul and grad_overflow_telemetry are TPU layout options the
-    port does not take)."""
+    supergrid_matmul is a TPU layout option the port does not take)."""
 
     field: field_lib.FieldConfig = dc_field(default_factory=field_lib.FieldConfig)
     grid: occ_lib.OccGridConfig = dc_field(default_factory=occ_lib.OccGridConfig)
@@ -62,6 +61,9 @@ class ModelConfig:
     evs_mapping_method: Optional[str] = None
     map_mode: str = "evs_rgb"  # evs_rgb | rgb_evs | co_map
     ev_one_dim: Optional[str] = "learned"  # learned | gt | None: RGB -> gray before events
+    # the blocked layout's train renders also return grad_overflow: the
+    # table-gradient updates JAX's sorted windowed backward would drop
+    grad_overflow_telemetry: bool = False
 
     def __post_init__(self):
         # compaction permutes the samples, and the strided coarse-level
@@ -173,18 +175,32 @@ def render_bundle(
     alpha_thre = config.alpha_thre
     if alpha_thre > 0.0:
         alpha_thre = torch.clamp(occ_state.occs.mean(), max=alpha_thre)
-    weights = composite.render_weights(samples, density, alpha_thre, config.early_stop_eps)
     background = config.background_color if train else "linear"
     if background == "random" and bg_color is None:
         background = "linear"
-    return {
-        "rgb": composite.render_rgb(
-            weights, rgb, bg_color if background == "random" else None, background
-        ),
-        "depth": composite.render_depth(weights, samples),
-        "accumulation": composite.render_accumulation(weights),
+    rgb_out, depth, acc = composite.composite(
+        density, rgb, samples, alpha_thre, config.early_stop_eps,
+        bg_color if background == "random" else None, background)
+    out = {
+        "rgb": rgb_out,
+        "depth": depth,
+        "accumulation": acc,
         "num_samples_per_ray": samples.mask.sum(-1),
     }
+    if train and config.grad_overflow_telemetry and config.field.hash.layout == "blocked":
+        out["grad_overflow"] = overflow_count(samples.positions.reshape(-1, 3), config)
+    return out
+
+
+def overflow_count(positions: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """The table-gradient updates the JAX package's sorted windowed backward
+    would drop for these sample positions (hash_encoding.blocked_overflow_count
+    of their contracted unit positions): the grad_overflow metric."""
+    from lsenerf_tpu_torch.ops import hash_encoding as he
+
+    with torch.no_grad():
+        unit, _ = field_lib.contract_positions(positions.detach(), config.field)
+        return he.blocked_overflow_count(unit, config.field.hash)
 
 
 def _compact_field_eval(field_params: dict, positions, directions, app_ids, valid,

@@ -62,6 +62,10 @@ class HashEncodingConfig:
     # num_levels
     level_lo: int = 0
     level_hi: int = 0
+    # JAX's blocked backward takes the levels of fewer rows than
+    # max(2^blocked_rows_log2, dense_grad_rows + 1) exactly; the port's
+    # grad_overflow count (blocked_overflow_count) skips them as JAX does
+    dense_grad_rows: int = 4096
 
     def __post_init__(self):
         if self.layout not in LAYOUTS:
@@ -122,10 +126,53 @@ class HashEncodingConfig:
 
 
 def _dense_level_count(config: HashEncodingConfig) -> int:
-    """Number of leading dense-keyed levels (rows < 2^blocked_rows_log2).
+    """Number of leading dense-keyed levels of the whole ladder (rows <
+    2^blocked_rows_log2): the levels whose keys index the block lattice.
     Rows per level are nondecreasing, so these are a prefix."""
     rows = config.blocked_level_rows()
     return int(np.searchsorted(rows, 2**config.blocked_rows_log2))
+
+
+def _exact_grad_level_count(config: HashEncodingConfig) -> int:
+    """JAX's _dense_level_count (hash_encoding.py:183): the leading levels
+    of the ACTIVE window that JAX's blocked backward takes exactly (rows <
+    max(2^blocked_rows_log2, dense_grad_rows + 1)); 0 with dense_grad_rows
+    <= 0. Unlike _dense_level_count it reads the window and
+    dense_grad_rows."""
+    lo, hi = config.active_range
+    if config.dense_grad_rows <= 0:
+        return 0
+    cut = max(2**config.blocked_rows_log2, config.dense_grad_rows + 1)
+    return int(np.searchsorted(config.blocked_level_rows()[lo:hi], cut))
+
+
+def _ru256(x: int) -> int:
+    return ((x + 255) // 256) * 256
+
+
+def blocked_overflow_count(positions: torch.Tensor, config: HashEncodingConfig,
+                           window: int = 512, max_updates_factor: int = 3) -> torch.Tensor:
+    """The grad_overflow metric: how many table-gradient updates JAX's
+    sorted windowed accumulate would drop for these (n, 3) unit positions
+    (lsenerf_tpu/ops/hash_encoding.py::blocked_overflow_count, with its
+    window and per-window cap). The port's own table gradient is exact
+    atomics and drops none; the count says whether JAX's would have, on
+    the same batch. Its arithmetic is JAX's, index for index. 0-dim int64."""
+    from lsenerf_tpu_torch.ops.fast_gather import window_overflow_count
+
+    level_rows = config.blocked_level_rows()
+    dense_L = _exact_grad_level_count(config)
+    if dense_L >= config.num_levels:
+        return torch.zeros((), dtype=torch.int64, device=positions.device)
+    dense_total = int(level_rows[:dense_L].sum())
+    total_rows = int(level_rows.sum())
+    keys = _blocked_keys_fracs(positions, config)[0]
+    keys_h = keys[dense_L:].reshape(-1).long() - dense_total
+    m = keys_h.shape[0]
+    n_windows = -(-(total_rows - dense_total) // window)
+    mean_per_window = max(1, m // n_windows)
+    max_updates = min(_ru256(max(window, max_updates_factor * mean_per_window)), _ru256(m))
+    return window_overflow_count(keys_h, total_rows - dense_total, window, max_updates)
 
 
 @functools.lru_cache(maxsize=None)

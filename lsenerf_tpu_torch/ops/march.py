@@ -5,20 +5,33 @@ march over every candidate where the hierarchical conditions fail or
 `hierarchical` is off, the per-ray nears/fars clip, stride compaction into
 `max_samples` slots, and proposal resampling.
 
-The TPU compacts with one-hot matmuls; the port scatters into the slots,
-which gives the same values. Everything here is non-differentiable: only
-the sample positions, rebuilt from the differentiable origins and
-directions, carry gradients.
+K3 `march_ts` (csrc/march.cu, built and loaded by cuda_build) is the whole
+selection in one kernel: a warp a ray, its compactions by ballots. Its
+plain version `march_ts_plain` is the same pipeline in torch ops; the TPU
+compacts with one-hot matmuls, the plain version scatters into the slots,
+which gives the same values. The wrapper runs the plain version for CPU
+tensors only; for CUDA tensors it launches the kernel or raises.
+Everything here is non-differentiable: only the sample positions, rebuilt
+from the differentiable origins and directions in torch, carry gradients.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from lsenerf_tpu_torch.cameras.rays import RayBundle, RaySamples
+from lsenerf_tpu_torch.ops import cuda_build
 from lsenerf_tpu_torch.ops import occupancy as occ_lib
+from lsenerf_tpu_torch.ops.cuda_build import Kernel
+
+SOURCE = cuda_build.CSRC / "march.cu"
+K3 = Kernel("march_ts")
+KERNELS = (K3,)
 
 
 @dataclass(frozen=True)
@@ -100,7 +113,7 @@ def packed_segment_lookup(binaries, o, d, mids, occ_config):
     )
     sup = (((lvl * S + ix // cf) * S + iy // cf) * S + iz // cf).reshape(n, k1, cf)
     fine = ((lvl * R + ix) * R + iy) * R + iz
-    occ = binaries.reshape(-1)[fine.reshape(-1)].reshape(n, k1, cf)
+    occ = occ_lib._take(binaries, fine).reshape(n, k1, cf)
     in_ends = (sup == sup[..., :1]) | (sup == sup[..., -1:])
     return torch.where(in_ends, occ, torch.ones_like(occ)).reshape(n, k1 * cf)
 
@@ -118,10 +131,9 @@ def _compact(sel, out_slot, k, values):
     return outs
 
 
-def proposal_resample(t_starts, t_ends, mask, occ_state, o, d, config, occ_config):
-    """Inverse-CDF relocation of the (n, k) candidate intervals to (n, F)
-    fine intervals by the occupancy EMA proposal (mass-1/F quadrature)."""
-    n, k = t_starts.shape
+def proposal_cdf(t_starts, t_ends, mask, occ_state, o, d, config, occ_config):
+    """The proposal's distribution over the (n, k) candidate intervals:
+    (pdf, cdf) (n, k) and the F quantiles u (F,) it is inverted at."""
     F = config.proposal_samples
     dt = t_ends - t_starts
     mids = 0.5 * (t_starts + t_ends)
@@ -130,15 +142,27 @@ def proposal_resample(t_starts, t_ends, mask, occ_state, o, d, config, occ_confi
     alpha = 1.0 - torch.exp(-tau)
     w = torch.where(mask, alpha, torch.zeros_like(alpha))
     count = mask.sum(1, keepdim=True)
-    valid = count > 0
     uni = mask.float() / torch.clamp(count, min=1).float()
-    wsum = w.sum(1, keepdim=True)
+    # the sums in f64, rounded once: with lam > 0 they are exact, so they
+    # do not depend on the order of the terms (K3 takes another)
+    wsum = w.double().sum(1, keepdim=True).float()
     lam = config.proposal_uniform_frac
     pdf = torch.where(
         wsum > 1e-12, (1.0 - lam) * w / torch.clamp(wsum, min=1e-12) + lam * uni, uni
     )
-    cdf = torch.cumsum(pdf, dim=1)
+    cdf = torch.cumsum(pdf.double(), dim=1).float()
     u = (torch.arange(F, dtype=t_starts.dtype, device=t_starts.device) + 0.5) / F
+    return pdf, cdf, u
+
+
+def proposal_resample(t_starts, t_ends, mask, occ_state, o, d, config, occ_config):
+    """Inverse-CDF relocation of the (n, k) candidate intervals to (n, F)
+    fine intervals by the occupancy EMA proposal (mass-1/F quadrature)."""
+    n, k = t_starts.shape
+    F = config.proposal_samples
+    pdf, cdf, u = proposal_cdf(t_starts, t_ends, mask, occ_state, o, d, config, occ_config)
+    dt = t_ends - t_starts
+    valid = mask.sum(1, keepdim=True) > 0
     idx = (u[None, :, None] > cdf[:, None, :]).sum(-1)  # (n, F)
     idx = torch.clamp(idx, max=k - 1)
 
@@ -167,7 +191,7 @@ def _hierarchical_candidates(o, d, t_lo, t_hi, occ_state, occ_config, config: Ma
     k1 = config.max_coarse_segments
     jc = torch.arange(mc + 1, dtype=torch.float32, device=dev)[None, :] * cf
     tc = ts_at_indices(t_lo, jc, config)
-    super_bin = occ_lib.build_super_binaries(occ_state.binaries, cf)
+    super_bin = occ_state.super_binaries(cf)
     occ_b = _lookup(super_bin, o, d, tc, occ_config)
     keep_c = (occ_b[:, :-1] | occ_b[:, 1:]) & (tc[:, :-1] < t_hi[:, None])
 
@@ -197,34 +221,39 @@ def _hierarchical_candidates(o, d, t_lo, t_hi, occ_state, occ_config, config: Ma
     return t0s, dts_base, occ & in_range
 
 
-@torch.no_grad()
-def _march_ts(bundle: RayBundle, occ_state, occ_config, config: MarchConfig):
-    """The selection pipeline: (t_starts, t_ends, mask), each (n, k)."""
-    n = len(bundle)
-    k = config.max_samples
-    o = bundle.origins.detach()
-    d = bundle.directions.detach()
-    dev = o.device
-
-    outer_half = occ_config.aabb_scale * (2.0 ** (occ_config.levels - 1))
-    t_enter, t_exit = ray_aabb_intersect(o, d, outer_half)
-    t_lo = torch.clamp(torch.clamp(t_enter, min=config.near_plane), min=0.0)
-    t_hi = torch.clamp(t_exit, max=config.far_plane)
-
-    if bundle.nears is not None:
-        t_lo = torch.maximum(t_lo, bundle.nears[:, 0])
-    if bundle.fars is not None:
-        t_hi = torch.minimum(t_hi, bundle.fars[:, 0])
-
+def use_hierarchical(occ_config, config: MarchConfig) -> bool:
+    """Does the hierarchical march apply (else the flat one)?"""
     cf = config.coarse_factor
-    use_hier = (
+    return (
         config.hierarchical
         and config.max_candidates % cf == 0
         and occ_config.resolution % cf == 0
         and (occ_config.levels == 1 or (occ_config.resolution // cf) % 4 == 0)
         and config.max_candidates // cf > config.max_coarse_segments
     )
-    if use_hier:
+
+
+def uses_proposal(config: MarchConfig) -> bool:
+    return 0 < config.proposal_samples < config.max_samples
+
+
+@torch.no_grad()
+def march_ts_plain(o, d, nears, fars, occ_state, occ_config, config: MarchConfig):
+    """The selection pipeline: o, d (n, 3), nears/fars (n,) or None ->
+    (t_starts, t_ends, mask), each (n, k), or (n, F) with the proposal."""
+    k = config.max_samples
+    dev = o.device
+
+    outer_half = occ_config.aabb_scale * (2.0 ** (occ_config.levels - 1))
+    t_enter, t_exit = ray_aabb_intersect(o, d, outer_half)
+    t_lo = torch.clamp(torch.clamp(t_enter, min=config.near_plane), min=0.0)
+    t_hi = torch.clamp(t_exit, max=config.far_plane)
+    if nears is not None:
+        t_lo = torch.maximum(t_lo, nears)
+    if fars is not None:
+        t_hi = torch.minimum(t_hi, fars)
+
+    if use_hierarchical(occ_config, config):
         t0s, dts_base, keep = _hierarchical_candidates(
             o, d, t_lo, t_hi, occ_state, occ_config, config
         )
@@ -246,16 +275,165 @@ def _march_ts(bundle: RayBundle, occ_state, occ_config, config: MarchConfig):
     t_starts, t_ends = _compact(sel, slot // stride, k, [t0s, t0s + dts])
     mask = torch.arange(k, device=dev)[None, :] < sel.sum(1)[:, None]
 
-    if 0 < config.proposal_samples < k:
+    if uses_proposal(config):
         t_starts, t_ends, mask = proposal_resample(
             t_starts, t_ends, mask, occ_state, o, d, config, occ_config
         )
     return t_starts, t_ends, mask
 
 
+# ---------------------------------------------------------------------------
+# K3: build, bind and launch
+# ---------------------------------------------------------------------------
+
+_PTRS = ("o", "d", "nears", "fars", "bin", "sup", "occs", "t_starts", "t_ends", "mask")
+_INTS = ("n", "levels", "R", "S", "hier", "packed", "cf", "mc", "k1", "k", "F", "geo")
+_FLOATS = ("aabb", "inv_aabb", "half", "neg_half", "near_plane", "far_plane", "step",
+           "inv_step", "t_crit", "base", "lam", "one_minus_lam", "inv_F", "F_f")
+
+
+class _MarchArgs(ctypes.Structure):
+    """csrc/march.cu's MarchArgs, field for field."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in _PTRS] + [(f, ctypes.c_int) for f in _INTS]
+                + [(f, ctypes.c_float) for f in _FLOATS])
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = cuda_build.load(SOURCE)
+    lib.march_ts.argtypes = [ctypes.POINTER(_MarchArgs), ctypes.c_void_p]
+    lib.march_ts.restype = ctypes.c_int
+    return lib
+
+
+MAX_SLOTS = 64  # k, max_coarse_segments
+MAX_ROUNDS = 64  # 32-candidate rounds of one sweep
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _inv_f32(x) -> float:
+    """The f32 reciprocal of f32(x): what torch's CUDA kernel multiplies by
+    where a tensor is divided by the Python scalar x."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+@functools.lru_cache(maxsize=64)
+def _scalars(occ_config, config: MarchConfig) -> dict:
+    """The kernel's scalar arguments, rounded as torch rounds them on CUDA."""
+    hier = use_hierarchical(occ_config, config)
+    cf = config.coarse_factor
+    k, F = config.max_samples, config.proposal_samples if uses_proposal(config) else 0
+    R = occ_config.resolution
+    mc = config.max_candidates // cf if hier else config.max_candidates
+    k1 = config.max_coarse_segments
+    if k > MAX_SLOTS or (hier and (k1 > MAX_SLOTS or cf > 32)):
+        raise ValueError(f"K3 takes at most {MAX_SLOTS} samples and coarse segments and a "
+                         f"coarse_factor of at most 32, got {k}, {k1} and {cf}")
+    rounds = max(-(-mc // 32), -(-k1 // (32 // cf))) if hier else -(-mc // 32)
+    if rounds > MAX_ROUNDS:
+        raise ValueError(f"K3 takes at most {MAX_ROUNDS} rounds of 32 candidates, got {rounds}")
+    half = occ_config.aabb_scale * (2.0 ** (occ_config.levels - 1))
+    step, cone = config.render_step_size, config.cone_angle
+    return dict(
+        levels=occ_config.levels, R=R, S=R // cf if hier else 0, hier=int(hier),
+        packed=int(hier and config.packed_phase2 and cf**3 % 32 == 0), cf=cf, mc=mc,
+        k1=k1, k=k, F=F, geo=int(cone > 0.0),
+        aabb=_f32(occ_config.aabb_scale), inv_aabb=_inv_f32(occ_config.aabb_scale),
+        half=_f32(half), neg_half=_f32(-half), near_plane=_f32(config.near_plane),
+        far_plane=_f32(config.far_plane), step=_f32(step), inv_step=_inv_f32(step),
+        t_crit=_f32(step / cone) if cone > 0.0 else 0.0, base=_f32(1.0 + cone),
+        lam=_f32(config.proposal_uniform_frac),
+        one_minus_lam=_f32(1.0 - config.proposal_uniform_frac),
+        inv_F=_inv_f32(F) if F else 0.0, F_f=float(F),
+    )
+
+
+def _check(o, d, nears, fars, occ_state, sc: dict) -> int:
+    """The ray count n, where K3 takes these inputs (all on one CUDA
+    device, f32 rays, the grid's shapes); else ValueError naming the first
+    check that fails. The device's type is checked last."""
+    dev = o.device
+    n = o.shape[0]
+    L, R = sc["levels"], sc["R"]
+    cuda_build.check("origins", o, (torch.float32,), (n, 3), dev)
+    cuda_build.check("directions", d, (torch.float32,), (n, 3), dev)
+    for name, t in (("nears", nears), ("fars", fars)):
+        if t is not None:
+            cuda_build.check(name, t, (torch.float32,), (n,), dev)
+    cuda_build.check("binaries", occ_state.binaries, (torch.bool,), (L, R, R, R), dev)
+    if sc["F"]:
+        cuda_build.check("occs", occ_state.occs, (torch.float32,), (L, R, R, R), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"K3 takes CUDA tensors, got {dev}")
+    return n
+
+
+@functools.lru_cache(maxsize=64)
+def _template(occ_config, config: MarchConfig):
+    """(the kernel's arguments with the scalars filled in, _scalars)."""
+    sc = _scalars(occ_config, config)
+    return _MarchArgs(**sc), sc
+
+
+def _fits(t, n: int, dev: int) -> bool:
+    """t is a contiguous f32 (n,) tensor on CUDA device dev."""
+    return (t.dtype == torch.float32 and t.shape == (n,) and t.get_device() == dev
+            and t.is_contiguous())
+
+
+def march_ts(o, d, nears, fars, occ_state, occ_config, config: MarchConfig):
+    """K3: march_ts_plain's (t_starts, t_ends, mask) in one kernel."""
+    if o.device.type == "cpu":
+        return march_ts_plain(o, d, nears, fars, occ_state, occ_config, config)
+    template, sc = _template(occ_config, config)
+    n, dev = o.shape[0], o.get_device()
+    b, occs = occ_state.binaries, occ_state.occs
+    grid = (sc["levels"],) + (sc["R"],) * 3
+    # the wrapper's host time is a good part of a call's: one expression
+    # over cheap tensor properties, and _check's message where it fails
+    if not (o.is_cuda and o.dtype == torch.float32 and o.shape == (n, 3) and o.is_contiguous()
+            and d.dtype == torch.float32 and d.shape == (n, 3) and d.get_device() == dev
+            and d.is_contiguous() and b.dtype == torch.bool and b.shape == grid
+            and b.get_device() == dev and b.is_contiguous()
+            and (nears is None or _fits(nears, n, dev)) and (fars is None or _fits(fars, n, dev))
+            and (not sc["F"] or (occs.dtype == torch.float32 and occs.shape == grid
+                                 and occs.get_device() == dev and occs.is_contiguous()))):
+        _check(o, d, nears, fars, occ_state, sc)
+        raise ValueError("the inputs do not fit K3")
+    sup = occ_state.super_binaries(config.coarse_factor) if sc["hier"] else None
+    m = sc["F"] or sc["k"]
+    t_starts = torch.empty((n, m), dtype=torch.float32, device=o.device)
+    t_ends = torch.empty_like(t_starts)
+    mask = torch.empty((n, m), dtype=torch.bool, device=o.device)
+    if n == 0:
+        return t_starts, t_ends, mask
+    args = _MarchArgs.from_buffer_copy(template)
+    args.o, args.d, args.bin, args.occs = o.data_ptr(), d.data_ptr(), b.data_ptr(), occs.data_ptr()
+    args.t_starts, args.t_ends, args.mask = t_starts.data_ptr(), t_ends.data_ptr(), mask.data_ptr()
+    args.n = n
+    if nears is not None:
+        args.nears = nears.data_ptr()
+    if fars is not None:
+        args.fars = fars.data_ptr()
+    if sup is not None:
+        args.sup = sup.data_ptr()
+    K3.count(_library().march_ts(ctypes.byref(args), cuda_build.stream(o)))
+    return t_starts, t_ends, mask
+
+
 def march_rays(bundle: RayBundle, occ_state, occ_config, config: MarchConfig) -> RaySamples:
     """Dense masked samples along each ray, skipping empty space."""
-    t_starts, t_ends, mask = _march_ts(bundle, occ_state, occ_config, config)
+
+    def column(t):
+        return None if t is None else t.detach()[:, 0].contiguous()
+
+    t_starts, t_ends, mask = march_ts(
+        bundle.origins.detach().contiguous(), bundle.directions.detach().contiguous(),
+        column(bundle.nears), column(bundle.fars), occ_state, occ_config, config)
     t_mid = 0.5 * (t_starts + t_ends)
     positions = bundle.origins[:, None, :] + t_mid[..., None] * bundle.directions[:, None, :]
     dirs = bundle.directions[:, None, :].expand(positions.shape)

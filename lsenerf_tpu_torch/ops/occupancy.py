@@ -31,8 +31,19 @@ class OccGridConfig:
 
 @dataclass
 class OccGridState:
+    """The grid. A state is never changed in place: every update makes a
+    new one, so what is derived from its binaries is built once a state."""
+
     occs: torch.Tensor  # (levels, R, R, R) f32 EMA densities
     binaries: torch.Tensor  # (levels, R, R, R) bool
+
+    def super_binaries(self, factor: int) -> torch.Tensor:
+        """build_super_binaries(self.binaries, factor), built at the first
+        call on this state and kept."""
+        cache = self.__dict__.setdefault("_super", {})
+        if factor not in cache:
+            cache[factor] = build_super_binaries(self.binaries, factor)
+        return cache[factor]
 
 
 def init_occ_grid(
@@ -79,10 +90,14 @@ def _flat_cell_index(x, y, z, R: int, config: OccGridConfig):
     return ((lvl * R + ix) * R + iy) * R + iz
 
 
+def _take(grid: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """grid's cells at flat indices (any shape)."""
+    return grid.reshape(-1)[flat.reshape(-1)].reshape(flat.shape)
+
+
 def _grid_lookup(grid: torch.Tensor, x, y, z, config: OccGridConfig):
     """Level-selecting cell lookup into a (levels, R, R, R) grid."""
-    flat = _flat_cell_index(x, y, z, grid.shape[-1], config)
-    return grid.reshape(-1)[flat.reshape(-1)].reshape(flat.shape)
+    return _take(grid, _flat_cell_index(x, y, z, grid.shape[-1], config))
 
 
 def ema_at_coords(occs: torch.Tensor, x, y, z, config: OccGridConfig):

@@ -1,15 +1,16 @@
 """Where the flagship train step's time goes on the card.
 
-    python -m lsenerf_tpu_torch.profile_step [--production | --preset NAME] [--warm 20] [--steps 8] [--out outputs/profile]
-        [--hash-layout ngp] [--compute-dtype float32]
+    python -m lsenerf_tpu_torch.profile_step [--production | --preset NAME] [--warm 17] [--timed 8] [--steps 7]
+        [--out outputs/profile] [--hash-layout ngp] [--compute-dtype float32]
 
 Runs the flagship trainer (flagship.py), with `--production` the
 production protocol's (RGB spline + deblur x4), or with `--preset` one of
 the four presets' (flagship.preset_trainer: lsenerf, lsenerf_emb, badnerf,
 badnerf_emb; `--hash-layout` and `--compute-dtype` change its field as
-the CLI's flags do), for `--warm` steps, then traces
-`--steps` steps with torch.profiler (CPU and CUDA activities, no occupancy
-update inside the window). Prints the step time from CUDA events, the
+the CLI's flags do), for `--warm` steps (the occupancy updates at steps 0
+and 16 among them), times `--timed` steps untraced (CUDA events), then
+traces `--steps` steps with torch.profiler (CPU and CUDA activities; no
+occupancy update in either window). Prints both step times, the
 device's busy time per step (the union of kernel intervals on the card),
 its idle share, the device time of the encode kernels (K1/K2 blocked,
 K7a/K7b ngp) and of the
@@ -18,15 +19,123 @@ appearance lookup's index_select and index_add), and the top
 kernels by device time; writes the full table and a Chrome trace under
 `--out` (profile_step[_production|_NAME][_LAYOUT_DTYPE].txt and
 ..._trace.json.gz).
+
+It also prints, for each layer of the step, its launches, device ms and
+host ms a step: bundles (the rays), march, field, composite, losses (the
+mappers' post-processing and the losses), backward (every kernel the
+autograd backward launches, the composite's and the encode's included),
+adam, and the rest ("other": batch copies, the background, metrics); then
+one occupancy update, traced alone, and its share a step (1 in 16). For
+the trace each layer's functions run inside a torch.profiler.record_function
+range ("layer:<name>"), patched in by name for the duration, so the same
+script measures a tree that names them the same (the parent of a change,
+unpacked beside it: copy this file into it and run it there). A kernel
+counts in the outermost layer range that was open on the host when its
+launching op started.
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
+import contextlib
+import functools
 import os
 import subprocess
 import sys
+
+LAYERS = ("bundles", "march", "field", "composite", "losses", "backward", "adam",
+          "occupancy update")
+
+
+def _layer_targets(trainer) -> list:
+    """(owner, attribute, layer) of every function a layer runs, where the
+    tree has it."""
+    import torch
+
+    from lsenerf_tpu_torch.models import field as field_lib
+    from lsenerf_tpu_torch.models import lsenerf as model_lib
+    from lsenerf_tpu_torch.ops import composite, march
+
+    want = [
+        (trainer, "_make_col_bundle", "bundles"), (trainer, "_make_evs_bundles", "bundles"),
+        (model_lib, "concat_bundles", "bundles"),
+        (march, "march_rays", "march"),
+        (field_lib, "field_apply", "field"), (field_lib, "field_apply_strided", "field"),
+        (model_lib, "_compact_field_eval", "field"),
+        # this tree's one call, or the chain of four its parent made
+        (composite, "composite", "composite"), (composite, "render_weights", "composite"),
+        (composite, "render_rgb", "composite"), (composite, "render_depth", "composite"),
+        (composite, "render_accumulation", "composite"),
+        (model_lib, "postprocess_outputs", "losses"), (model_lib, "compute_losses", "losses"),
+        (torch.Tensor, "backward", "backward"),
+        (trainer.optimizer, "step", "adam"),
+        (trainer, "occ_update", "occupancy update"),
+    ]
+    return [t for t in want if t[0] is not None and hasattr(t[0], t[1])]
+
+
+@contextlib.contextmanager
+def layer_ranges(trainer):
+    """Each layer's functions inside record_function("layer:<name>") for
+    the duration; the originals back after."""
+    import torch
+
+    saved = []
+    for owner, name, layer in _layer_targets(trainer):
+        fn = getattr(owner, name)
+        had = isinstance(owner, type) or name in getattr(owner, "__dict__", {})
+
+        def wrapped(*args, _fn=fn, _layer=layer, **kw):
+            with torch.profiler.record_function(f"layer:{_layer}"):
+                return _fn(*args, **kw)
+
+        functools.update_wrapper(wrapped, fn)
+        saved.append((owner, name, fn, had))
+        setattr(owner, name, wrapped)
+    try:
+        yield
+    finally:
+        for owner, name, fn, had in reversed(saved):
+            if had:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
+
+
+def layer_table(events, steps: int) -> dict:
+    """{layer: (launches, device ms, host ms) a step} of a trace's events:
+    each device kernel counts in the outermost "layer:" range open on the
+    host when the op that launched it started ("other" where none was)."""
+    ranges = sorted(
+        (e.time_range.start, e.time_range.end, e.name[len("layer:"):]) for e in events
+        if e.name.startswith("layer:") and e.device_type.name == "CPU")
+    outer, end = [], float("-inf")
+    for r in ranges:
+        if r[0] >= end:
+            outer.append(r)
+            end = r[1]
+    starts = [r[0] for r in outer]
+    table = {name: [0, 0.0, 0.0] for name in LAYERS + ("other",)}
+    for a, b, name in outer:
+        table[name][2] += (b - a) / 1e3
+    for e in events:
+        if e.device_type.name != "CPU" or not e.kernels:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        name = outer[i][2] if i >= 0 and e.time_range.start < outer[i][1] else "other"
+        table[name][0] += len(e.kernels)
+        table[name][1] += sum(k.duration for k in e.kernels) / 1e3
+    return {k: (v[0] / steps, v[1] / steps, v[2] / steps) for k, v in table.items()}
+
+
+def print_layers(title: str, table: dict) -> None:
+    print(f"{title}: launches, device ms and host ms a step by layer")
+    for name, (n, dev, host) in table.items():
+        print(f"  {name:17s} {n:8.1f} launches  {dev:8.4f} ms device  {host:8.3f} ms host")
+    tot = [sum(v[i] for v in table.values()) for i in range(2)]
+    print(f"  {'total':17s} {tot[0]:8.1f} launches  {tot[1]:8.4f} ms device")
 
 
 def _busy_ms(events) -> float:
@@ -54,8 +163,9 @@ def main(argv=None) -> int:
                       help="trace this preset's trainer (train_lse_data.sh's protocol)")
     ap.add_argument("--hash-layout", choices=["blocked", "ngp"], default="blocked")
     ap.add_argument("--compute-dtype", choices=["bfloat16", "float32"], default="bfloat16")
-    ap.add_argument("--warm", type=int, default=20)
-    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--warm", type=int, default=17)
+    ap.add_argument("--timed", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=7)
     ap.add_argument("--out", default="outputs/profile")
     args = ap.parse_args(argv)
 
@@ -82,22 +192,32 @@ def main(argv=None) -> int:
     if args.hash_layout != "blocked" or args.compute_dtype != "bfloat16":
         label += f"_{args.hash_layout}_{args.compute_dtype}"
     interval = trainer.model_config.grid.update_interval
-    n = args.warm + args.steps
+    traced_from = args.warm + args.timed
+    n = traced_from + args.steps
     batches = [trainer.dm.next_train(i) for i in range(n)]
     if args.warm // interval != (n - 1) // interval:
-        print("profile_step: the traced window holds an occupancy update", file=sys.stderr)
+        print("profile_step: the timed or traced window holds an occupancy update", file=sys.stderr)
     for b in batches[: args.warm]:
         trainer.step(b)
     torch.cuda.synchronize()
 
-    a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def timed(steps):
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        for b in batches[args.warm :]:
+        for b in steps:
             trainer.step(b)
         z.record()
         torch.cuda.synchronize()
-    step_ms = a.elapsed_time(z) / args.steps
+        return a.elapsed_time(z) / len(steps)
+
+    untraced_ms = timed(batches[args.warm : traced_from])
+    with layer_ranges(trainer), profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA]) as prof:
+        step_ms = timed(batches[traced_from:])
+    with layer_ranges(trainer), profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA]) as occ_prof:
+        trainer.occ_update()
+        torch.cuda.synchronize()
 
     # device-side events, without the user-annotation spans (such as
     # Optimizer.step) that cover other kernels
@@ -115,12 +235,15 @@ def main(argv=None) -> int:
     total_dev = sum(v[0] for v in kern.values()) / args.steps
     rays = trainer.num_rays(batches[0])
     print(f"card: {card}")
+    print(f"{label} step untraced {untraced_ms:.3f} ms ({rays / untraced_ms * 1e3:.0f} rays/s) over "
+          f"steps {args.warm}..{traced_from - 1}")
     print(f"{label} step {step_ms:.3f} ms ({rays / step_ms * 1e3:.0f} rays/s) over "
           f"{args.steps} traced steps; device busy {busy:.3f} ms/step, idle share "
           f"{1 - busy / step_ms:.3f}; kernel time sum {total_dev:.3f} ms/step; "
           f"{len(dev_events) / args.steps:.0f} device events/step")
     names = {"encode_fwd_kernel": "K1", "encode_bwd_kernel": "K2", "ngp_fwd_kernel": "K7a",
-             "ngp_bwd_kernel": "K7b"}
+             "ngp_bwd_kernel": "K7b", "march_kernel": "K3", "composite_fwd_kernel": "K5a",
+             "composite_bwd_kernel": "K5b"}
     for k, (t, c) in kern.items():
         for key, short in names.items():
             if key in k:
@@ -131,6 +254,12 @@ def main(argv=None) -> int:
         if "index" in k.lower():
             print(f"  index kernel {k[:70]}: {t / args.steps:.4f} ms/step, "
                   f"{c / args.steps:.1f} launches/step")
+    print_layers(f"{label} step, traced (layer ranges on)", layer_table(prof.events(), args.steps))
+    occ = layer_table(occ_prof.events(), 1)
+    print_layers("one occupancy update, traced alone", occ)
+    n_occ, dev_occ = sum(v[0] for v in occ.values()), sum(v[1] for v in occ.values())
+    print(f"  a step's share at 1 update in {interval} steps: {n_occ / interval:.1f} launches, "
+          f"{dev_occ / interval:.4f} ms device")
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])
     print("top device time per step:")
     for name, (t, c) in top[:15]:

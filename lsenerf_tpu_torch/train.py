@@ -16,8 +16,9 @@ process each, on cuda:0..N-1 over NCCL (over gloo on the CPU); a process
 that torchrun started joins its group instead (parallel/ddp.py). Rank 0
 writes the run dir, the logs and the checkpoints and runs the evals.
 `--is_render True` runs the render mode (nothing trains, no occupancy
-update, no eval-ray batch). `grad_overflow_telemetry` raises
-NotImplementedError (engine/config.py check_supported).
+update, no eval-ray batch). A training run on the blocked layout logs
+`grad_overflow` every 256 steps (engine/loop.py), and every step's with
+`--pipeline.model.grad-overflow-telemetry True`.
 """
 
 from __future__ import annotations

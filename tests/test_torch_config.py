@@ -20,6 +20,7 @@ import pytest
 import yaml
 
 from lsenerf_tpu.engine import config as jcfg
+from lsenerf_tpu.engine import trainer as jtr
 from lsenerf_tpu_torch.engine import config as tcfg
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -230,12 +231,15 @@ def test_options_lower_as_jax(name):
 
 
 def test_unported_options_raise():
-    """grad_overflow_telemetry counts the TPU's windowed table-gradient
-    drops; the port's table gradient is exact, and the flag raises."""
-    cfg = tcfg.modify_config(tcfg.parse_cli(["lsenerf", "--pipeline.model.grad-overflow-telemetry",
-                                             "True"]))
-    with pytest.raises(NotImplementedError, match="grad_overflow_telemetry"):
-        tcfg.build_runtime_configs(cfg)
+    """No option raises any more: grad_overflow_telemetry, the last one the
+    port refused, lowers into its ModelConfig as JAX's CLI lowers it, and
+    the sentinel's cadence is JAX's default."""
+    argv = ["lsenerf", "--pipeline.model.grad-overflow-telemetry", "True"]
+    tc, tm, _, _ = tcfg.build_runtime_configs(tcfg.modify_config(tcfg.parse_cli(argv)))
+    assert tm.grad_overflow_telemetry is True
+    jm = jcfg.build_runtime_configs(jcfg.modify_config(jcfg.parse_cli(argv)))[1]
+    assert jm.grad_overflow_telemetry is True
+    assert tc.grad_overflow_every == jtr.TrainerConfig().grad_overflow_every == 256
 
 
 # flags that lower into the hash encoding and the field, each alone on the

@@ -5,7 +5,10 @@ f32-table and a bf16-table arm, also where many samples of a warp share rows (on
 flagship's 16 levels (16 and 48 samples a ray) and at 2 and 3 levels, and
 the gathers G1-G3 (lsenerf_tpu_torch/ops/gather.py), held to exact
 equality, G2 at the shapes that pick each of its paths and G3 at several
-table and index shapes.
+table and index shapes; K3 (lsenerf_tpu_torch/ops/march.py) at the
+flagship's widths on three grids, its selection bit for bit, and K5a/K5b
+(lsenerf_tpu_torch/ops/composite.py) at 16 and 48 samples a ray for every
+background.
 
 This file imports neither JAX nor the JAX package, so a machine with the
 card and without JAX runs it on its own, skipping the JAX conftest:
@@ -368,3 +371,151 @@ def test_gather_sum_matches_plain_on_card(case):
     idx_np[:, ::11] = rng.choice([-1, T, T + 5, -(2**31)], size=idx_np[:, ::11].shape)
     idx = torch.from_numpy(idx_np).to(dev)
     _same(gather.gather_sum(table, idx), gather.gather_sum_plain(table, idx))
+
+
+# -- K3 (march_ts) and K5a/K5b (composite_fwd/_bwd) ---------------------------
+
+
+def _grid(kind, cfg, dev, seed=0):
+    """A flagship-sized occupancy grid: "ones" (fresh), "random" (20%
+    occupied) or "ball" (occupied inside a ball of radius 0.8)."""
+    from lsenerf_tpu_torch.ops import occupancy as occ_lib
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (cfg.levels,) + (cfg.resolution,) * 3
+    occs = torch.rand(shape, generator=gen, device=dev)
+    if kind == "ones":
+        return occ_lib.OccGridState(occs=occs, binaries=torch.ones(shape, dtype=torch.bool,
+                                                                     device=dev))
+    if kind == "random":
+        return occ_lib.OccGridState(occs=occs, binaries=torch.rand(shape, generator=gen,
+                                                                   device=dev) < 0.2)
+    c = (torch.arange(cfg.resolution, device=dev) + 0.5) / cfg.resolution * 2 - 1
+    x, y, z = torch.meshgrid(c, c, c, indexing="ij")
+    r = torch.sqrt(x**2 + y**2 + z**2)[None] * (2.0 ** torch.arange(cfg.levels, device=dev))[
+        :, None, None, None]
+    occs = occs * (r < 0.8)
+    return occ_lib.OccGridState(occs=occs, binaries=occs > min(float(occs.mean()), 0.01))
+
+
+MARCH_CASES = {
+    "packed_ball": dict(),
+    "unpacked_ball": dict(packed_phase2=False),
+    "flat_ball": dict(hierarchical=False),
+    "cone0_random": dict(cone_angle=0.0),
+    "packed_ones": dict(),
+    "packed_random_nearfar": dict(),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MARCH_CASES))
+def test_march_matches_plain_on_card(case):
+    """K3 against march_ts_plain at the flagship's widths (128^3 x 4 grid,
+    1024 candidates, 48 slots, F=16): the selection before the proposal
+    bit for bit, the proposal's samples equal but for bin flips at most
+    1e-4 of them, each within 1e-6 of a CDF step."""
+    import dataclasses
+
+    from lsenerf_tpu_torch.ops import march
+    from lsenerf_tpu_torch.ops import occupancy as occ_lib
+
+    dev = _card()
+    gcfg = occ_lib.OccGridConfig()
+    cfg = dataclasses.replace(
+        march.MarchConfig(render_step_size=2 * 3**0.5 / 1000, max_candidates=1024,
+                          proposal_samples=16), **MARCH_CASES[case])
+    state = _grid(case.split("_")[1], gcfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = 3000
+    o = torch.randn((n, 3), generator=gen, device=dev) * 1.5
+    d = torch.nn.functional.normalize(-o + 0.3 * torch.randn((n, 3), generator=gen, device=dev),
+                                      dim=1)
+    d[:100] = -d[:100]  # away from the grid: some miss it
+    nears = fars = None
+    if case.endswith("nearfar"):
+        nears = torch.rand((n,), generator=gen, device=dev)
+        fars = nears + 2.0 * torch.rand((n,), generator=gen, device=dev)
+    pre = dataclasses.replace(cfg, proposal_samples=0)
+    got = march.march_ts(o, d, nears, fars, state, gcfg, pre)
+    want = march.march_ts_plain(o, d, nears, fars, state, gcfg, pre)
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    assert want[2].any()
+    got = march.march_ts(o, d, nears, fars, state, gcfg, cfg)
+    wantf = march.march_ts_plain(o, d, nears, fars, state, gcfg, cfg)
+    diff = torch.zeros_like(wantf[2])
+    for g, w in zip(got, wantf):
+        diff |= (g.view(torch.int32) != w.view(torch.int32)) if g.dtype == torch.float32 else g != w
+    if diff.any():
+        _, cdf, u = march.proposal_cdf(*want, state, o, d, cfg, gcfg)
+        gap = (u[None, :, None] - cdf[:, None, :]).abs().amin(-1)[diff]
+        assert int(diff.sum()) <= 1e-4 * diff.numel() and float(gap.max()) < 1e-6
+
+
+def _composite_inputs(n, k, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = 0.01 + 0.2 * torch.rand((n, k), generator=gen, device=dev)
+    te = torch.cumsum(dt, 1)
+    ts = te - dt
+    mask = torch.rand((n, k), generator=gen, device=dev) < 0.8
+    dens = -3.0 * torch.log(torch.rand((n, k, 1), generator=gen, device=dev))
+    dens[0, 3, 0] = float("inf")
+    dens[1, 2, 0] = float("inf")
+    mask[1, 2] = False
+    dens[2] = 0.04
+    dens[3] = 500.0
+    rgb = torch.rand((n, k, 3), generator=gen, device=dev)
+    bg = torch.rand((n, 3), generator=gen, device=dev)
+    cot = (torch.randn((n, 3), generator=gen, device=dev),
+           torch.randn((n, 1), generator=gen, device=dev),
+           torch.randn((n, 1), generator=gen, device=dev))
+    return dens, rgb, ts, te, mask, bg, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("background", ["linear", "black", "white", "last_sample", "random"])
+@pytest.mark.parametrize("k", [16, 48])
+def test_composite_matches_plain_on_card(background, k):
+    """K5a/K5b against composite_fwd_plain/composite_bwd_plain with inf
+    densities, culled samples and an early stop, both alpha_thre forms;
+    None cotangents as zeros; the same bits from call to call."""
+    from lsenerf_tpu_torch.ops import composite
+
+    dev = _card()
+    dens, rgb, ts, te, mask, bg, cot = _composite_inputs(3512, k, dev)
+    for at in (0.01, torch.tensor(0.01, device=dev), 0.0):
+        a = (dens, rgb, ts, te, mask, at, 1e-4, bg if background == "random" else None,
+             background)
+        for g, w in zip(composite.composite_fwd(*a), composite.composite_fwd_plain(*a)):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        for c in (cot, (cot[0], None, cot[2])):
+            got = composite.composite_bwd(*a, *c)
+            for g, w in zip(got, composite.composite_bwd_plain(*a, *c)):
+                assert torch.isfinite(g).all()
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+            again = composite.composite_bwd(*a, *c)
+            assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_march_composite_wrappers_refuse_what_the_kernels_do_not_take():
+    from lsenerf_tpu_torch.ops import composite, march
+    from lsenerf_tpu_torch.ops import occupancy as occ_lib
+
+    dev = _card()
+    gcfg = occ_lib.OccGridConfig(resolution=32, levels=2)
+    cfg = march.MarchConfig(render_step_size=0.01, max_candidates=256)
+    state = _grid("ones", gcfg, dev)
+    o = torch.zeros((4, 3), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        march.march_ts(o.double(), o, None, None, state, gcfg, cfg)
+    with pytest.raises(ValueError, match="is on cpu"):
+        march.march_ts(o, o.cpu(), None, None, state, gcfg, cfg)
+    dens, rgb, ts, te, mask, bg, cot = _composite_inputs(8, 16, dev)
+    with pytest.raises(ValueError, match="shape"):
+        composite.composite_fwd(dens[:, :8], rgb, ts, te, mask)
+    with pytest.raises(ValueError, match="is on cpu"):
+        composite.composite_fwd(dens, rgb.cpu(), ts, te, mask)

@@ -55,9 +55,10 @@ def hash_configs(dtype="float32", layout="blocked", **over):
     kw.update(over)
     # dense_grad_rows=64 keeps the JAX blocked backward's default split:
     # exact one-hot sums on the dense levels, the sorted windows on hashed
-    # ones; the Pallas combine runs in interpret mode
+    # ones (the port's grad_overflow count skips the same levels); the
+    # Pallas combine runs in interpret mode
     j = jhe.HashEncodingConfig(combine_impl="pallas", dense_grad_rows=64, **kw)
-    return j, the.HashEncodingConfig(**kw)
+    return j, the.HashEncodingConfig(dense_grad_rows=64, **kw)
 
 
 def model_configs(dtype="float32", rgb_loss_type="linspace", model=None, hash=None,
