@@ -35,10 +35,12 @@ Phases, each fatal on failure (exit code 1):
      (the field on the live chunks of the validity-sorted samples) (3b);
   3d. K3 (march_ts, csrc/march.cu) against march_ts_plain at the flagship
      trainer's real march inputs (flagship.march_composite_calls: step
-     16, right after its occupancy update) in six cases: that step's grid;
-     the fresh all-ones grid, where every ray strides; a 20%-occupied
-     random grid; half the rays missing the aabb; with nears/fars; and the
-     flat march, the unpacked phase 2 and cone_angle 0. In each the
+     16, right after its occupancy update) in nine cases
+     (flagship.march_cases): that step's grid; the fresh all-ones grid,
+     where every ray strides; a 20%-occupied random grid; half the rays
+     missing the aabb; with nears/fars; the flat march, the unpacked phase
+     2 and cone_angle 0; and nears past t_crit, where every candidate reads
+     the cone angle's growth table. In each the
      selection before the proposal must be the plain version's bits, and
      with the proposal (F=16) at most 1e-4 of the samples may differ, each
      a bin flip with its quantile within 1e-6 of a CDF step (the count is
@@ -47,7 +49,8 @@ Phases, each fatal on failure (exit code 1):
      cotangents (3512 x 16), at 3510 x 48 and at an eval chunk's 4096 x 48,
      for every background and both alpha_thre forms (forward rtol 1e-5 /
      atol 1e-6, gradients rtol 1e-4 / atol 1e-6). Each kernel is timed
-     beside its plain version and its bound;
+     beside its plain version and its bound (K3's the larger of its bytes
+     and its f32 operations, march_ops);
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
@@ -549,13 +552,57 @@ def same_bits(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
+def march_ops(o, d, nears, fars, state, gcfg, cfg):
+    """K3's f32 operations on these rays, from what the plain version's
+    march needs of them. A ray's setup 30 (the slab test, t_lo, t_hi,
+    n_lin, t_geo). Hierarchical: phase 1's boundaries up to the first at or
+    past t_hi, each a t (2) and a supergrid cell (35: the point 6, its
+    magnitude 5, the level 7 with logf, division, ceil and clamp, the
+    level's half and 1/cell 5, three cell coordinates 4 each), then cf
+    candidates in each selected segment; flat: the candidates whose t0
+    lies before t_hi. A candidate: two t, its width and midpoint 4 and its
+    cell. A selected slot: 2 for its t_end. With the proposal, a selected
+    slot's EMA cell, width, midpoint, tau and alpha 8 and pdf 6, and 10 an
+    output sample of a ray that has a selected slot."""
+    import dataclasses
+
+    import torch
+
+    from lsenerf_tpu_torch.ops import march
+
+    lookup, t = 35, 2
+    t_lo, t_hi = march.ray_range(o, d, nears, fars, gcfg, cfg)
+    ops = 30 * o.shape[0]
+    if march.use_hierarchical(gcfg, cfg):
+        tc, _, keep_c = march._phase1(o, d, t_lo, t_hi, state, gcfg, cfg)
+        bounds = torch.clamp((tc[:, :-1] < t_hi[:, None]).sum(1) + 1, max=tc.shape[1])
+        k1 = cfg.max_coarse_segments
+        count = keep_c.sum(1)
+        stride = torch.clamp((count + k1 - 1) // k1, min=1)
+        cands = (count + stride - 1) // stride * cfg.coarse_factor
+        ops += int(bounds.sum()) * (t + lookup)
+    else:
+        i = torch.arange(cfg.max_candidates, dtype=torch.float32, device=o.device)[None, :]
+        cands = (march.ts_at_indices(t_lo, i, cfg) < t_hi[:, None]).sum(1)
+    ops += int(cands.sum()) * (2 * t + 4 + lookup)
+    pre = dataclasses.replace(cfg, proposal_samples=0)
+    sel = march.march_ts_plain(o, d, nears, fars, state, gcfg, pre)[2].sum(1)
+    ops += 2 * int(sel.sum())
+    if march.uses_proposal(cfg):
+        ops += int(sel.sum()) * (lookup + 8 + 6) + 10 * cfg.proposal_samples * int((sel > 0).sum())
+    return ops
+
+
 def march_bound(o, d, nears, fars, state, gcfg, cfg):
-    """K3's least time on these rays: the bytes it must move (rays and
-    nears/fars read once; each distinct grid cell its lookups read, a byte
-    a bool and 4 a f32 EMA; the outputs written once), at the card's memory
-    rate (its operations are far below its bytes). The distinct cells come
-    from the plain version's lookups on these inputs (occupancy._take
-    watched). Returns (ms, "bytes", distinct cells by grid)."""
+    """K3's least time on these rays: the larger of the bytes it must move
+    (rays and nears/fars read once; each distinct grid cell its lookups
+    read, a byte a bool and 4 a f32 EMA; the outputs written once) at the
+    card's memory rate, and its f32 operations (march_ops) at the card's
+    rate for them: each is a separate multiply, add or other instruction
+    (no FMA), which issues at half the f32 FMA rate that F32_FLOPS counts in
+    flops, so each counts as 2 of bound()'s flops. The distinct cells come from the plain version's lookups on
+    these inputs (occupancy._take watched). Returns (ms, "bytes" or
+    "operations", distinct cells by grid)."""
     import torch
 
     from lsenerf_tpu_torch.ops import march
@@ -578,7 +625,8 @@ def march_bound(o, d, nears, fars, state, gcfg, cfg):
     n, m = t_starts.shape
     nbytes = n * 24 + (n * 4 if nears is not None else 0) + (n * 4 if fars is not None else 0)
     nbytes += grid_bytes + n * m * 9
-    return bound(nbytes, 0)[0], "bytes", cells
+    ms, by = bound(nbytes, 2 * march_ops(o, d, nears, fars, state, gcfg, cfg))
+    return ms, by, cells
 
 
 def check_march_case(label, o, d, nears, fars, state, gcfg, cfg):
@@ -679,50 +727,26 @@ def check_march_composite(dev):
     """Phase 3d: K3 (march_ts) and K5a/K5b (composite_fwd/_bwd) against
     their plain versions at the flagship's inputs (flagship.
     march_composite_calls: step 16, right after its occupancy update, and
-    an eval chunk). K3 in six cases: that step's rays and grid; the fresh
-    all-ones grid, where every ray strides; a 20%-occupied random grid;
-    the step's rays with half of them turned to miss the aabb; with
-    nears/fars; and the flat march, the unpacked phase 2 and cone_angle 0.
+    an eval chunk). K3 in flagship.march_cases' nine cases: that step's
+    rays and grid; the fresh all-ones grid, where every ray strides; a
+    20%-occupied random grid; the step's rays with half of them turned to
+    miss the aabb; with nears/fars; the flat march, the unpacked phase 2
+    and cone_angle 0; and nears past t_crit (the whole growth table).
     K5a/K5b at the step's densities, colours and cotangents (3512 x 16),
     at 3510 x 48 and at the eval chunk's 4096 x 48, for every background
     and both alpha_thre forms. Each kernel timed beside its plain version
     and its bound. Returns {kernel name: results}."""
-    import dataclasses
-
     import torch
 
-    from lsenerf_tpu_torch.flagship import march_composite_calls
+    from lsenerf_tpu_torch.flagship import march_cases, march_composite_calls
     from lsenerf_tpu_torch.ops import composite, march
-    from lsenerf_tpu_torch.ops import occupancy as occ_lib
     from lsenerf_tpu_torch.timing import cold_ms
 
     t0 = time.time()
     calls = march_composite_calls(dev)
     print(f"the flagship's step 16 and an eval chunk for K3/K5's inputs: {time.time() - t0:.1f} s")
-    o, d, nears, fars, state, gcfg, cfg = calls["march"]
-    gen = torch.Generator(device=dev).manual_seed(3)
-    n = o.shape[0]
-    shape = (gcfg.levels,) + (gcfg.resolution,) * 3
-    rand = occ_lib.OccGridState(occs=torch.rand(shape, generator=gen, device=dev),
-                                binaries=torch.rand(shape, generator=gen, device=dev) < 0.2)
-    half = gcfg.aabb_scale * 2.0 ** (gcfg.levels - 1)
-    miss_o, miss_d = o.clone(), d.clone()
-    out = torch.nn.functional.normalize(torch.randn((n // 2, 3), generator=gen, device=dev), dim=1)
-    miss_o[: n // 2] = out * (3.0 * half)
-    miss_d[: n // 2] = out
-    near = torch.rand((n,), generator=gen, device=dev)
-    far = near + 0.5 + 3.0 * torch.rand((n,), generator=gen, device=dev)
-    cases = [
-        ("step 16, after its occupancy update", o, d, nears, fars, state, cfg),
-        ("the fresh all-ones grid", o, d, nears, fars, occ_lib.init_occ_grid(gcfg, dev), cfg),
-        ("a 20%-occupied random grid", o, d, nears, fars, rand, cfg),
-        ("half the rays missing the aabb", miss_o, miss_d, nears, fars, state, cfg),
-        ("nears/fars", o, d, near, far, state, cfg),
-        ("the flat march", o, d, nears, fars, state, dataclasses.replace(cfg, hierarchical=False)),
-        ("the unpacked phase 2", o, d, nears, fars, state,
-         dataclasses.replace(cfg, packed_phase2=False)),
-        ("cone_angle 0", o, d, nears, fars, state, dataclasses.replace(cfg, cone_angle=0.0)),
-    ]
+    gcfg = calls["march"][5]
+    cases = march_cases(calls)
     flips = {label: check_march_case(label, *rays, st, gcfg, c)
              for label, *rays, st, c in cases}
     res = {}

@@ -12,41 +12,58 @@
 // proposal. Only the selection runs here; march_rays builds the positions
 // from the differentiable origins and directions in torch.
 //
-// What bounds it on the card: latency, not bytes or operations. A ray reads
-// 24 bytes and writes 9 a slot; its lookups are ~129 supergrid cells (16 KB
-// in all, from L1), 192 fine cells (8 MiB bool grid, through L2) and 48
-// EMA cells with the proposal (32 MiB f32 grid), each a dependent load
-// after a chain of f32 arithmetic and a logf. The TPU compacted with
-// one-hot matmuls; here a warp compacts its own ray.
+// What bounds it on the card: latency and issue, not bytes. A ray reads 24
+// bytes and writes 9 a slot; its lookups are ~129 supergrid cells (16 KB in
+// all, from L1), up to 192 fine cells (8 MiB bool grid, through L2) and 48
+// EMA cells with the proposal (32 MiB f32 grid), each a load behind a chain
+// of ~40 f32 operations with a logf, an IEEE division and a reciprocal. A
+// train step's 3512 rays are ~27 warps an SM at a warp a ray: one ray's
+// chain alone takes ~14 us on the H100, and the step's rays ~23 us. The TPU
+// compacted with one-hot matmuls; here a warp compacts its own ray.
 //
 // Design:
-// - One warp a ray, a block 4 rays. A pass takes its candidates 32 at a
-//   time, a candidate a lane; __ballot_sync gives the round's survivors and
-//   a __popc of the lanes below gives each survivor's slot. A stride
-//   compaction needs the ray's total count before it can select, so each
-//   pass is two sweeps: the first keeps the rounds' ballots in shared
-//   memory and counts; the second selects every stride-th survivor and
-//   recomputes the t of the few it keeps (no per-candidate state is kept).
-// - Phase 1 (hierarchical): the 129 segment boundaries against the
-//   supergrid; a segment's far boundary comes from the next lane by
-//   __shfl_down_sync (lane 31 computes its own). Phase 2: the 24 kept
-//   segments x cf fine midpoints, whole segments to a round (32 / cf of
-//   them), so that the packed rule's first and last midpoint of a segment
-//   are lanes of the same round (__shfl_sync). Flat: the max_candidates
+// - One warp a ray, a block 4 rays. A sweep takes its candidates 32 at a
+//   time (a round), a candidate a lane; __ballot_sync gives the round's
+//   survivors and a __popc of the lanes below gives each survivor's slot. A
+//   stride compaction needs the ray's total count before it can select, so
+//   each pass counts first (the rounds' ballots kept in shared memory) and
+//   selects every stride-th survivor after; strides that are powers of two
+//   divide by shifts.
+// - The cone-angle schedule's (1+cone)^g, g = 0..max_candidates, is a table
+//   the wrapper builds with the plain version's own expression (march.py
+//   growth_table) and passes by pointer; a boundary's t is one read of it
+//   through L1 and one product, where the first design took an f64 pow
+//   (~70% of the boundaries at a train step lie in that branch).
+// - A sweep takes one round at a time: its lookups, then its ballot. At
+//   3512-4096 rays the SM's ~27 warps hide the loads; 2, 4 or 8 rounds'
+//   lookups in flight together cost registers and measured slower on the
+//   H100 (PERF.md, K3's redesign).
+//   The selecting pass recomputes a selected candidate's t from the table.
+// - Phase 1 (hierarchical) looks each of the mc + 1 segment boundaries up
+//   once against the supergrid. A segment is kept where either of its
+//   boundaries is occupied: the keep word of a round is its occupancy word
+//   OR'd with itself shifted down a bit and the next word's first bit. t
+//   grows with the index, so rounds past t_hi are not looked up.
+// - Phase 2 sweeps the kept segments x cf fine midpoints, whole segments to
+//   a round (32 / cf of them), so that the packed rule's first and last
+//   midpoint of a segment are lanes of the same round (__shfl_sync); only
+//   the rounds that hold kept segments run. Flat: the max_candidates
 //   midpoints against the fine grid.
-// - Proposal: a lane a slot (k <= 64: two halves), the EMA lookups, the
-//   weight sum and the inverse CDF's cumulative sum in f64 by warp shuffles,
-//   then a lane an output sample. With proposal_uniform_frac > 0 every
-//   nonzero pdf entry is at least frac / k, so the f64 sums are exact and
-//   any order gives the plain version's bits (march_ts_plain sums in f64).
+// - Proposal: a lane a slot (k <= 64: two halves), both halves' EMA loads
+//   together, the weight sum and the inverse CDF's cumulative sum in f64 by
+//   warp shuffles; with proposal_uniform_frac > 0 every nonzero pdf entry is
+//   at least frac / k, so the f64 sums are exact and any order gives the
+//   plain version's bits (march_ts_plain sums in f64). Each output sample's
+//   bin is the count of CDF entries below its quantile: two ballots over the
+//   lanes' entries, the same comparisons as the plain version's.
 // - Bits: the plain version runs as torch runs it on CUDA, and the kernel
 //   repeats each operation's rounding: products and sums with __fmul_rn /
 //   __fadd_rn (no contraction into FMAs), IEEE division (__fdiv_rn) and
 //   reciprocal (__frcp_rn, torch's reciprocal and a scalar's __rtruediv__),
 //   a tensor divided by a Python scalar as torch's CUDA kernel divides it
 //   (a product with the scalar's f32 reciprocal, inv_step and inv_F),
-//   log2 as logf(x) / f32(ln 2), (1+cone)^k as a double pow rounded once.
-//   The selection is then the plain version's bits on the card.
+//   log2 as logf(x) / f32(ln 2); (1+cone)^g is the plain version's own
+//   tensor. The selection is then the plain version's bits on the card.
 // - The C entry launches on the caller's stream, allocates nothing and
 //   returns cudaGetLastError().
 
@@ -57,7 +74,8 @@
 extern "C" {
 
 // The march's inputs, outputs and scalars; lsenerf_tpu_torch/ops/march.py
-// (_MarchArgs) mirrors this layout.
+// (_MarchArgs) mirrors this layout. New fields go at the end, so that an
+// earlier build of this file reads a valid prefix.
 struct MarchArgs {
   const float* o;        // (n, 3)
   const float* d;        // (n, 3)
@@ -75,6 +93,7 @@ struct MarchArgs {
   float aabb, inv_aabb, half, neg_half, near_plane, far_plane;
   float step, inv_step, t_crit, base;
   float lam, one_minus_lam, inv_F, F_f;
+  const float* growth;   // (max_candidates + 1,) f32 (1+cone)^g (geo only)
 };
 
 }  // extern "C"
@@ -94,17 +113,28 @@ struct Ray {
 };
 
 struct WarpSmem {
-  uint32_t ballots[kMaxRounds];
+  uint32_t occ[kMaxRounds + 2];  // phase 1: the boundaries' supergrid bits, a word a round
+  uint32_t lt[kMaxRounds + 2];   // phase 1: boundary t < t_hi
+  uint32_t ballots[kMaxRounds];  // the fine sweep's survivors
   int segidx[kMaxSegs];
   float ts[kMaxK], te[kMaxK], dt[kMaxK], pdf[kMaxK], cdf[kMaxK];
 };
 
-// ts_at_indices: the boundary t of candidate index i.
-__device__ __forceinline__ float ts_at(const MarchArgs& a, const Ray& r, float i) {
-  if (!a.geo) return __fadd_rn(r.t_lo, __fmul_rn(i, a.step));
-  if (i <= r.n_lin) return __fadd_rn(r.t_lo, __fmul_rn(fminf(i, r.n_lin), a.step));
-  const float g = fmaxf(__fsub_rn(i, r.n_lin), 0.f);
-  return __fmul_rn(r.t_geo, (float)pow((double)a.base, (double)g));
+// x / d and x % d for x >= 0: shifts where d is a power of two.
+struct Div {
+  int d, sh;
+  bool pow2;
+  __device__ __forceinline__ int div(int x) const { return pow2 ? x >> sh : x / d; }
+  __device__ __forceinline__ int mod(int x) const { return pow2 ? x & (d - 1) : x % d; }
+};
+
+__device__ __forceinline__ Div make_div(int d) { return Div{d, __popc(d - 1), (d & (d - 1)) == 0}; }
+
+// ts_at_indices: the boundary t of candidate index i (0 <= i <= max_candidates).
+__device__ __forceinline__ float ts_at(const MarchArgs& a, const Ray& r, int idx) {
+  const float i = (float)idx;
+  if (!a.geo || i <= r.n_lin) return __fadd_rn(r.t_lo, __fmul_rn(i, a.step));
+  return __fmul_rn(r.t_geo, __ldg(a.growth + (int)fmaxf(__fsub_rn(i, r.n_lin), 0.f)));
 }
 
 struct Cell {
@@ -158,24 +188,32 @@ __device__ Ray setup_ray(const MarchArgs& a, int i) {
   return r;
 }
 
-// A fine candidate of the final compaction: its t0 and its base width.
+// A fine candidate: its t0, its base width (widened by the coarse stride),
+// its midpoint, and whether it lies in a kept segment (or the flat range).
 struct Cand {
   float t0, dts, mid;
+  bool on;
 };
 
-// Phase-2 candidate `c` (slot c / cf, fine index c % cf of its segment).
-__device__ __forceinline__ Cand hier_cand(const MarchArgs& a, const Ray& r, const WarpSmem& sm,
-                                          int c, int nseg, int stride_c) {
-  const int j = c / a.cf;
-  const float seg = j < nseg ? (float)sm.segidx[j] : 0.f;
-  const float fi = __fadd_rn(__fmul_rn(seg, (float)a.cf), (float)(c % a.cf));
-  const float t0 = ts_at(a, r, fi), t1 = ts_at(a, r, __fadd_rn(fi, 1.f));
-  return Cand{t0, __fmul_rn(__fsub_rn(t1, t0), (float)stride_c), __fmul_rn(0.5f, __fadd_rn(t0, t1))};
-}
-
-__device__ __forceinline__ Cand flat_cand(const MarchArgs& a, const Ray& r, int c) {
-  const float t0 = ts_at(a, r, (float)c), t1 = ts_at(a, r, (float)(c + 1));
-  return Cand{t0, __fsub_rn(t1, t0), __fmul_rn(0.5f, __fadd_rn(t0, t1))};
+// Round rd's candidate of this lane: phase 2's (candidate c of slot c / cf,
+// fine index c % cf of its segment) or the flat march's c.
+__device__ __forceinline__ Cand cand_at(const MarchArgs& a, const Ray& r, const WarpSmem& sm, const Div& cf, int rd, int lane,
+                                        int per_round, int nseg, int stride_c) {
+  int fi;
+  bool on;
+  if (a.hier) {
+    const int c = rd * per_round + lane;
+    const int j = cf.div(c);
+    on = lane < per_round && j < nseg;
+    fi = (on ? sm.segidx[j] : 0) * a.cf + cf.mod(c);
+  } else {
+    fi = rd * 32 + lane;
+    on = fi < a.mc;
+    fi = on ? fi : 0;
+  }
+  const float t0 = ts_at(a, r, fi), t1 = ts_at(a, r, fi + 1);
+  return Cand{t0, __fmul_rn(__fsub_rn(t1, t0), (float)stride_c),
+              __fmul_rn(0.5f, __fadd_rn(t0, t1)), on};
 }
 
 __global__ void __launch_bounds__(kWarps * 32) march_kernel(const MarchArgs a) {
@@ -187,130 +225,144 @@ __global__ void __launch_bounds__(kWarps * 32) march_kernel(const MarchArgs a) {
   WarpSmem& sm = smem[w];
   const Ray r = setup_ray(a, i);
   const uint32_t below = (1u << lane) - 1u;
+  const Div cf = make_div(a.cf);
 
-  // phase 1: segments of cf candidates against the supergrid
+  // phase 1: the mc + 1 segment boundaries against the supergrid. t grows
+  // with the index (step > 0), so a round whose first boundary follows one
+  // at or past t_hi holds no kept segment's boundary: it is not looked up.
   int nseg = 0, stride_c = 1;
   if (a.hier) {
-    const int rounds = (a.mc + 31) / 32;
-    int count = 0;
-    for (int rd = 0; rd < rounds; ++rd) {
+    const int nb = a.mc + 1;
+    const int r1 = (nb + 31) / 32;
+    bool past = false;  // a boundary of an earlier round lies at or past t_hi
+    for (int rd = 0; rd < r1; ++rd) {
       const int s = rd * 32 + lane;
-      bool occ = false;
-      float tc = 0.f;
-      if (s <= a.mc) {
-        tc = ts_at(a, r, (float)(s * a.cf));
-        occ = __ldg(a.sup + flat_index(cell_at(a, r, tc, a.S), a.S)) != 0;
+      const float tc = s < nb ? ts_at(a, r, s * a.cf) : INFINITY;
+      const uint32_t lw = __ballot_sync(kFull, tc < r.t_hi);
+      uint8_t v = 0;
+      if (!past && s < nb) v = __ldg(a.sup + flat_index(cell_at(a, r, tc, a.S), a.S));
+      const uint32_t occ = __ballot_sync(kFull, v != 0);
+      if (lane == 0) {
+        sm.occ[rd] = occ;
+        sm.lt[rd] = lw;
       }
-      bool occ_next = __shfl_down_sync(kFull, (int)occ, 1) != 0;
-      if (lane == 31 && s + 1 <= a.mc) {
-        const float tn = ts_at(a, r, (float)((s + 1) * a.cf));
-        occ_next = __ldg(a.sup + flat_index(cell_at(a, r, tn, a.S), a.S)) != 0;
-      }
-      const bool keep = s < a.mc && (occ || occ_next) && tc < r.t_hi;
-      const uint32_t bal = __ballot_sync(kFull, keep);
-      if (lane == 0) sm.ballots[rd] = bal;
-      count += __popc(bal);
+      past = past || (a.step > 0.f && !(lw >> 31));
     }
+    if (lane == 0) sm.occ[r1] = 0u;
     __syncwarp();
+    // segment s = rd * 32 + b (s < mc) is kept where boundary s or s + 1 is
+    // occupied and boundary s lies before t_hi
+    const int rs = (a.mc + 31) / 32;
+    auto keep_word = [&](int rd) {
+      const int left = a.mc - rd * 32;
+      const uint32_t valid = left >= 32 ? kFull : (1u << left) - 1u;
+      const uint32_t occ = sm.occ[rd];
+      return (occ | (occ >> 1) | (sm.occ[rd + 1] << 31)) & sm.lt[rd] & valid;
+    };
+    int count = 0;
+    for (int rd = 0; rd < rs; ++rd) count += __popc(keep_word(rd));
     stride_c = max(1, (count + a.k1 - 1) / a.k1);
+    const Div sc = make_div(stride_c);
     int base = 0;
-    for (int rd = 0; rd < rounds; ++rd) {
-      const uint32_t bal = sm.ballots[rd];
+    for (int rd = 0; rd < rs; ++rd) {
+      const uint32_t bal = keep_word(rd);
       const int slot = base + __popc(bal & below);
-      if (((bal >> lane) & 1u) && slot % stride_c == 0) sm.segidx[slot / stride_c] = rd * 32 + lane;
+      if (((bal >> lane) & 1u) && sc.mod(slot) == 0) sm.segidx[sc.div(slot)] = rd * 32 + lane;
       base += __popc(bal);
     }
     nseg = (count + stride_c - 1) / stride_c;
     __syncwarp();
   }
 
-  // the fine candidates: phase 2's (whole segments a round) or the flat ones
+  // the fine candidates: phase 2's (whole segments a round, the rounds that
+  // hold kept segments) or the flat ones
   const int per_round = a.hier ? (32 / a.cf) * a.cf : 32;
-  const int total = a.hier ? a.k1 * a.cf : a.mc;
-  const int rounds = (total + per_round - 1) / per_round;
+  const int used = a.hier ? (nseg + 32 / a.cf - 1) / (32 / a.cf) : (a.mc + 31) / 32;
   int count = 0;
-  for (int rd = 0; rd < rounds; ++rd) {
-    const int c = rd * per_round + lane;
-    const bool active = lane < per_round && c < total;
-    bool keep = false;
-    if (a.hier) {
-      const Cand cd = hier_cand(a, r, sm, active ? c : 0, nseg, stride_c);
-      const Cell cl = cell_at(a, r, cd.mid, a.R);
-      bool occ = __ldg(a.bin + flat_index(cl, a.R)) != 0;
-      if (a.packed) {
-        const int sup = ((cl.lvl * a.S + cl.x / a.cf) * a.S + cl.y / a.cf) * a.S + cl.z / a.cf;
-        const int first = lane - lane % a.cf;
-        const int s0 = __shfl_sync(kFull, sup, first);
-        const int s1 = __shfl_sync(kFull, sup, first + a.cf - 1);
-        occ = (sup == s0 || sup == s1) ? occ : true;
-      }
-      keep = active && c / a.cf < nseg && cd.mid < r.t_hi && occ;
-    } else if (active) {
-      const Cand cd = flat_cand(a, r, c);
-      keep = __ldg(a.bin + flat_index(cell_at(a, r, cd.mid, a.R), a.R)) != 0 && cd.mid < r.t_hi;
+  for (int rd = 0; rd < used; ++rd) {
+    const Cand cd = cand_at(a, r, sm, cf, rd, lane, per_round, nseg, stride_c);
+    const Cell cl = cell_at(a, r, cd.mid, a.R);
+    bool ends = true;
+    if (a.packed) {
+      const int sup = ((cl.lvl * a.S + cf.div(cl.x)) * a.S + cf.div(cl.y)) * a.S + cf.div(cl.z);
+      const int first = lane - cf.mod(lane);
+      const int s0 = __shfl_sync(kFull, sup, first);
+      const int s1 = __shfl_sync(kFull, sup, first + a.cf - 1);
+      ends = sup == s0 || sup == s1;
     }
-    const uint32_t bal = __ballot_sync(kFull, keep);
+    // a segment's inner midpoint in a third supercell reads as occupied
+    // under the packed rule
+    bool kept = false;
+    if (cd.on && cd.mid < r.t_hi) kept = !ends || __ldg(a.bin + flat_index(cl, a.R)) != 0;
+    const uint32_t bal = __ballot_sync(kFull, kept);
     if (lane == 0) sm.ballots[rd] = bal;
     count += __popc(bal);
   }
   __syncwarp();
 
-  // stride compaction into k slots; the kept candidates' t recomputed
+  // stride compaction into k slots (shared memory), then the rows
   const bool proposal = a.F > 0;
   const int k = a.k;
   const int stride = max(1, (count + k - 1) / k);
   const int nsel = (count + stride - 1) / stride;
-  const long row = (long)i * k;
+  const Div sd = make_div(stride);
   int base = 0;
-  for (int rd = 0; rd < rounds; ++rd) {
+  for (int rd = 0; rd < used; ++rd) {
     const uint32_t bal = sm.ballots[rd];
     const int slot = base + __popc(bal & below);
-    if (((bal >> lane) & 1u) && slot % stride == 0) {
-      const int c = rd * per_round + lane;
-      const Cand cd = a.hier ? hier_cand(a, r, sm, c, nseg, stride_c) : flat_cand(a, r, c);
-      const float t1 = __fadd_rn(cd.t0, __fmul_rn(cd.dts, (float)stride));
-      const int j = slot / stride;
-      if (proposal) {
-        sm.ts[j] = cd.t0;
-        sm.te[j] = t1;
-      } else {
-        a.t_starts[row + j] = cd.t0;
-        a.t_ends[row + j] = t1;
-      }
+    if (((bal >> lane) & 1u) && sd.mod(slot) == 0) {
+      const Cand cd = cand_at(a, r, sm, cf, rd, lane, per_round, nseg, stride_c);
+      const int j = sd.div(slot);
+      sm.ts[j] = cd.t0;
+      sm.te[j] = __fadd_rn(cd.t0, __fmul_rn(cd.dts, (float)stride));
     }
     base += __popc(bal);
   }
-  for (int j = lane; j < k; j += 32) {
-    if (j >= nsel) {
-      if (proposal) {
-        sm.ts[j] = sm.te[j] = 0.f;
-      } else {
-        a.t_starts[row + j] = a.t_ends[row + j] = 0.f;
+  for (int j = nsel + lane; j < k; j += 32) sm.ts[j] = sm.te[j] = 0.f;
+  __syncwarp();
+  if (!proposal) {
+    const long row = (long)i * k;
+    for (int j = lane; j < k; j += 32) {
+      a.t_starts[row + j] = sm.ts[j];
+      a.t_ends[row + j] = sm.te[j];
+      a.mask[row + j] = j < nsel;
+    }
+    return;
+  }
+
+  // proposal: inverse-CDF relocation of the k slots to F samples; both
+  // halves' EMA cells first, then both loads
+  const float uni = nsel > 0 ? __fdiv_rn(1.f, (float)nsel) : 0.f;
+  float dtv[2], ema[2];
+  long cell[2];
+  bool look[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    dtv[h] = 0.f;
+    look[h] = false;
+    cell[h] = 0;
+    if (j < k) {
+      const float ts = sm.ts[j], te = sm.te[j];
+      dtv[h] = __fsub_rn(te, ts);
+      sm.dt[j] = dtv[h];
+      if (j < nsel) {
+        const float mid = __fmul_rn(0.5f, __fadd_rn(ts, te));
+        cell[h] = flat_index(cell_at(a, r, mid, a.R), a.R);
+        look[h] = true;
       }
     }
-    if (!proposal) a.mask[row + j] = j < nsel;
   }
-  if (!proposal) return;
-  __syncwarp();
-
-  // proposal: inverse-CDF relocation of the k slots to F samples
-  const float uni = nsel > 0 ? __fdiv_rn(1.f, (float)nsel) : 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) ema[h] = look[h] ? __ldg(a.occs + cell[h]) : 0.f;
   float wv[2];
   double wsum = 0.0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int j = lane + 32 * h;
     wv[h] = 0.f;
-    if (j < k) {
-      const float ts = sm.ts[j], te = sm.te[j];
-      const float dt = __fsub_rn(te, ts);
-      sm.dt[j] = dt;
-      if (j < nsel) {
-        const float mid = __fmul_rn(0.5f, __fadd_rn(ts, te));
-        const float ema = __ldg(a.occs + flat_index(cell_at(a, r, mid, a.R), a.R));
-        const float tau = __fmul_rn(__fmul_rn(ema, dt), a.inv_step);
-        wv[h] = __fsub_rn(1.f, expf(-tau));
-      }
+    if (look[h]) {
+      const float tau = __fmul_rn(__fmul_rn(ema[h], dtv[h]), a.inv_step);
+      wv[h] = __fsub_rn(1.f, expf(-tau));
     }
     wsum += (double)wv[h];
   }
@@ -318,6 +370,7 @@ __global__ void __launch_bounds__(kWarps * 32) march_kernel(const MarchArgs a) {
   for (int o = 16; o > 0; o >>= 1) wsum += __shfl_xor_sync(kFull, wsum, o);
   const float ws = (float)wsum;
   double run = 0.0;
+  float cdfr[2];  // this lane's CDF entries; +inf past k (never below a quantile)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int j = lane + 32 * h;
@@ -335,29 +388,43 @@ __global__ void __launch_bounds__(kWarps * 32) march_kernel(const MarchArgs a) {
     }
     c += run;
     run = __shfl_sync(kFull, c, 31);
+    cdfr[h] = INFINITY;
     if (j < k) {
       sm.pdf[j] = p;
-      sm.cdf[j] = (float)c;
+      sm.cdf[j] = cdfr[h] = (float)c;
     }
   }
   __syncwarp();
+  // each output's bin: the CDF entries below its quantile, counted by ballots
+  int idx[2] = {0, 0};
+  for (int f = 0; f < a.F; ++f) {
+    const float u = __fmul_rn(__fadd_rn((float)f, 0.5f), a.inv_F);
+    const int below_u = __popc(__ballot_sync(kFull, u > cdfr[0])) +
+                        __popc(__ballot_sync(kFull, u > cdfr[1]));
+    if (lane == (f & 31)) {
+      if (f < 32) idx[0] = min(below_u, k - 1);
+      else idx[1] = min(below_u, k - 1);
+    }
+  }
   const bool valid = nsel > 0;
   const long orow = (long)i * a.F;
-  for (int f = lane; f < a.F; f += 32) {
-    const float u = __fmul_rn(__fadd_rn((float)f, 0.5f), a.inv_F);
-    int idx = 0;
-    for (int j = 0; j < k; ++j) idx += u > sm.cdf[j];
-    idx = min(idx, k - 1);
-    const float t0 = sm.ts[idx], dt = sm.dt[idx], p = sm.pdf[idx];
-    const float prev = idx > 0 ? sm.cdf[idx - 1] : 0.f;
-    const float frac = fminf(fmaxf(__fdiv_rn(__fsub_rn(u, prev), fmaxf(p, 1e-12f)), 0.f), 1.f);
-    const float tc = __fadd_rn(t0, __fmul_rn(frac, dt));
-    float dtf = __fdiv_rn(dt, fmaxf(__fmul_rn(p, a.F_f), 1e-12f));
-    if (!valid) dtf = 0.f;
-    const float hw = __fmul_rn(0.5f, dtf);
-    a.t_starts[orow + f] = __fsub_rn(tc, hw);
-    a.t_ends[orow + f] = __fadd_rn(tc, hw);
-    a.mask[orow + f] = valid;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = lane + 32 * h;
+    if (f < a.F) {
+      const int id = idx[h];
+      const float u = __fmul_rn(__fadd_rn((float)f, 0.5f), a.inv_F);
+      const float t0 = sm.ts[id], dt = sm.dt[id], p = sm.pdf[id];
+      const float prev = id > 0 ? sm.cdf[id - 1] : 0.f;
+      const float frac = fminf(fmaxf(__fdiv_rn(__fsub_rn(u, prev), fmaxf(p, 1e-12f)), 0.f), 1.f);
+      const float tc = __fadd_rn(t0, __fmul_rn(frac, dt));
+      float dtf = __fdiv_rn(dt, fmaxf(__fmul_rn(p, a.F_f), 1e-12f));
+      if (!valid) dtf = 0.f;
+      const float hw = __fmul_rn(0.5f, dtf);
+      a.t_starts[orow + f] = __fsub_rn(tc, hw);
+      a.t_ends[orow + f] = __fadd_rn(tc, hw);
+      a.mask[orow + f] = valid;
+    }
   }
 }
 

@@ -302,3 +302,42 @@ def march_composite_calls(device=None, chunk: int = 4096, step: int = 16) -> dic
         raise RuntimeError(f"step {step} and an eval chunk called K3/K5 "
                            f"{ {k: len(v) for k, v in seen.items()} } times, not once each")
     return {k: v[0] for k, v in seen.items()}
+
+
+def march_cases(calls: dict) -> list:
+    """K3's check cases at march_composite_calls' step-16 rays: [(label, o,
+    d, nears, fars, occ_state, march config)]: that step's grid; the fresh
+    all-ones grid, where every ray strides; a 20%-occupied random grid;
+    half the rays turned to miss the aabb; with nears/fars; the flat march,
+    the unpacked phase 2 and cone_angle 0; and nears past t_crit, where
+    n_lin is 0 and the candidates read the whole growth table."""
+    from lsenerf_tpu_torch.ops import occupancy as occ_lib
+
+    o, d, nears, fars, state, gcfg, cfg = calls["march"]
+    dev = o.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = o.shape[0]
+    shape = (gcfg.levels,) + (gcfg.resolution,) * 3
+    rand = occ_lib.OccGridState(occs=torch.rand(shape, generator=gen, device=dev),
+                                binaries=torch.rand(shape, generator=gen, device=dev) < 0.2)
+    half = gcfg.aabb_scale * 2.0 ** (gcfg.levels - 1)
+    miss_o, miss_d = o.clone(), d.clone()
+    out = torch.nn.functional.normalize(torch.randn((n // 2, 3), generator=gen, device=dev), dim=1)
+    miss_o[: n // 2] = out * (3.0 * half)
+    miss_d[: n // 2] = out
+    near = torch.rand((n,), generator=gen, device=dev)
+    far = near + 0.5 + 3.0 * torch.rand((n,), generator=gen, device=dev)
+    t_crit = cfg.render_step_size / cfg.cone_angle
+    deep = t_crit * 1.01 + torch.rand((n,), generator=gen, device=dev)
+    return [
+        ("step 16, after its occupancy update", o, d, nears, fars, state, cfg),
+        ("the fresh all-ones grid", o, d, nears, fars, occ_lib.init_occ_grid(gcfg, dev), cfg),
+        ("a 20%-occupied random grid", o, d, nears, fars, rand, cfg),
+        ("half the rays missing the aabb", miss_o, miss_d, nears, fars, state, cfg),
+        ("nears/fars", o, d, near, far, state, cfg),
+        ("the flat march", o, d, nears, fars, state, dataclasses.replace(cfg, hierarchical=False)),
+        ("the unpacked phase 2", o, d, nears, fars, state,
+         dataclasses.replace(cfg, packed_phase2=False)),
+        ("cone_angle 0", o, d, nears, fars, state, dataclasses.replace(cfg, cone_angle=0.0)),
+        ("nears past t_crit (n_lin 0)", o, d, deep, fars, state, cfg),
+    ]

@@ -93,11 +93,17 @@ class ModelConfig:
             evs_mapping_method=_norm_none(self.evs_mapping_method),
         )
 
-    def march_config(self) -> march.MarchConfig:
+    def march_config(self, train: bool = True) -> march.MarchConfig:
+        """The march's configuration; with train False the eval renders',
+        without the proposal. Each is built once a config and kept (the
+        config is frozen; K3's wrapper finds its launch by these objects)."""
+        cached = self.__dict__.get("_march_configs")
+        if cached is not None:
+            return cached[bool(train)]
         step = self.render_step_size
         if step is None:
             step = 2.0 * self.field.aabb_scale * (3.0**0.5) / 1000.0
-        return march.MarchConfig(
+        mcfg = march.MarchConfig(
             render_step_size=step,
             near_plane=self.near_plane,
             far_plane=self.far_plane,
@@ -113,6 +119,11 @@ class ModelConfig:
             proposal_samples=self.proposal_samples,
             proposal_uniform_frac=self.proposal_uniform_frac,
         )
+        cached = {True: mcfg, False: mcfg}
+        if mcfg.proposal_samples:
+            cached[False] = dataclasses.replace(mcfg, proposal_samples=0)
+        object.__setattr__(self, "_march_configs", cached)
+        return cached[bool(train)]
 
 
 def init_model(generator: torch.Generator, config: ModelConfig, num_imgs: int = 1,
@@ -143,10 +154,7 @@ def render_bundle(
     (the JAX package draws them from its step rng, the caller draws them
     here), and without them the render has none, as JAX's has without an
     rng. Eval renders have no background."""
-    mcfg = config.march_config()
-    if not train and mcfg.proposal_samples:
-        mcfg = dataclasses.replace(mcfg, proposal_samples=0)
-    samples = march.march_rays(bundle, occ_state, config.grid, mcfg)
+    samples = march.march_rays(bundle, occ_state, config.grid, config.march_config(train))
     n, k = samples.mask.shape
 
     app_id = bundle.metadata.get("appearance_id")

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from dataclasses import dataclass
 
 import numpy as np
@@ -79,10 +80,24 @@ def ts_at_indices(t_min: torch.Tensor, i: torch.Tensor, config: MarchConfig):
     t_lin = t_min + torch.minimum(i, n_lin) * step
     t_geo_start = t_min + n_lin * step
     geo_steps = torch.clamp(i - n_lin, min=0.0)
-    # (1+cone)^k in f64, rounded once: closer to XLA's f32 pow than torch's
+    return torch.where(i <= n_lin, t_lin, t_geo_start * _growth(geo_steps, cone))
+
+
+def _growth(geo_steps: torch.Tensor, cone: float) -> torch.Tensor:
+    """(1+cone)^geo_steps in f64, rounded once to f32: closer to XLA's f32
+    pow than torch's."""
     base = torch.tensor(1.0 + cone, dtype=torch.float32).double()
-    growth = torch.pow(base.to(geo_steps.device), geo_steps.double()).float()
-    return torch.where(i <= n_lin, t_lin, t_geo_start * growth)
+    return torch.pow(base.to(geo_steps.device), geo_steps.double()).float()
+
+
+def growth_table(cone: float, max_candidates: int, device) -> torch.Tensor:
+    """(1+cone)^g for g = 0..max_candidates, (max_candidates + 1,) f32 on
+    device: ts_at_indices' own expression at every geometric step a
+    candidate index can take (its i - n_lin is an integer in that range),
+    so t_geo_start * table[g] is its t bit for bit. K3 reads it in place
+    of a pow; its wrapper builds it once a (cone, max_candidates, device)."""
+    g = torch.arange(max_candidates + 1, dtype=torch.float32, device=device)
+    return _growth(g, cone)
 
 
 def _lookup(grid, o, d, mids, occ_config):
@@ -179,6 +194,20 @@ def proposal_resample(t_starts, t_ends, mask, occ_state, o, d, config, occ_confi
     return t_c - 0.5 * dt_f, t_c + 0.5 * dt_f, mask_f
 
 
+def _phase1(o, d, t_lo, t_hi, occ_state, occ_config, config: MarchConfig):
+    """Phase 1: the mc + 1 segment boundaries tc (n, mc + 1), their
+    supergrid occupancy occ_b (n, mc + 1), and keep_c (n, mc): a segment
+    is kept where either boundary is occupied and its first lies before
+    t_hi."""
+    cf = config.coarse_factor
+    mc = config.max_candidates // cf
+    jc = torch.arange(mc + 1, dtype=torch.float32, device=o.device)[None, :] * cf
+    tc = ts_at_indices(t_lo, jc, config)
+    occ_b = _lookup(occ_state.super_binaries(cf), o, d, tc, occ_config)
+    keep_c = (occ_b[:, :-1] | occ_b[:, 1:]) & (tc[:, :-1] < t_hi[:, None])
+    return tc, occ_b, keep_c
+
+
 def _hierarchical_candidates(o, d, t_lo, t_hi, occ_state, occ_config, config: MarchConfig):
     """Phase 1 tests segments of coarse_factor candidates at both endpoints
     against the supergrid and stride-compacts the occupied ones into
@@ -189,11 +218,7 @@ def _hierarchical_candidates(o, d, t_lo, t_hi, occ_state, occ_config, config: Ma
     cf = config.coarse_factor
     mc = config.max_candidates // cf
     k1 = config.max_coarse_segments
-    jc = torch.arange(mc + 1, dtype=torch.float32, device=dev)[None, :] * cf
-    tc = ts_at_indices(t_lo, jc, config)
-    super_bin = occ_state.super_binaries(cf)
-    occ_b = _lookup(super_bin, o, d, tc, occ_config)
-    keep_c = (occ_b[:, :-1] | occ_b[:, 1:]) & (tc[:, :-1] < t_hi[:, None])
+    keep_c = _phase1(o, d, t_lo, t_hi, occ_state, occ_config, config)[2]
 
     slot_c = torch.cumsum(keep_c, 1) - 1
     count_c = keep_c.sum(1)
@@ -237,13 +262,9 @@ def uses_proposal(config: MarchConfig) -> bool:
     return 0 < config.proposal_samples < config.max_samples
 
 
-@torch.no_grad()
-def march_ts_plain(o, d, nears, fars, occ_state, occ_config, config: MarchConfig):
-    """The selection pipeline: o, d (n, 3), nears/fars (n,) or None ->
-    (t_starts, t_ends, mask), each (n, k), or (n, F) with the proposal."""
-    k = config.max_samples
-    dev = o.device
-
+def ray_range(o, d, nears, fars, occ_config, config: MarchConfig):
+    """Each ray's (t_lo, t_hi), (n,) each: the outer aabb clipped to the
+    near and far planes and to nears/fars where given."""
     outer_half = occ_config.aabb_scale * (2.0 ** (occ_config.levels - 1))
     t_enter, t_exit = ray_aabb_intersect(o, d, outer_half)
     t_lo = torch.clamp(torch.clamp(t_enter, min=config.near_plane), min=0.0)
@@ -252,7 +273,16 @@ def march_ts_plain(o, d, nears, fars, occ_state, occ_config, config: MarchConfig
         t_lo = torch.maximum(t_lo, nears)
     if fars is not None:
         t_hi = torch.minimum(t_hi, fars)
+    return t_lo, t_hi
 
+
+@torch.no_grad()
+def march_ts_plain(o, d, nears, fars, occ_state, occ_config, config: MarchConfig):
+    """The selection pipeline: o, d (n, 3), nears/fars (n,) or None ->
+    (t_starts, t_ends, mask), each (n, k), or (n, F) with the proposal."""
+    k = config.max_samples
+    dev = o.device
+    t_lo, t_hi = ray_range(o, d, nears, fars, occ_config, config)
     if use_hierarchical(occ_config, config):
         t0s, dts_base, keep = _hierarchical_candidates(
             o, d, t_lo, t_hi, occ_state, occ_config, config
@@ -290,13 +320,20 @@ _PTRS = ("o", "d", "nears", "fars", "bin", "sup", "occs", "t_starts", "t_ends", 
 _INTS = ("n", "levels", "R", "S", "hier", "packed", "cf", "mc", "k1", "k", "F", "geo")
 _FLOATS = ("aabb", "inv_aabb", "half", "neg_half", "near_plane", "far_plane", "step",
            "inv_step", "t_crit", "base", "lam", "one_minus_lam", "inv_F", "F_f")
+# fields added after the first layout, at its end: an earlier build of
+# csrc/march.cu reads the same struct's prefix
+_TAIL = ("growth",)
 
 
 class _MarchArgs(ctypes.Structure):
     """csrc/march.cu's MarchArgs, field for field."""
 
     _fields_ = ([(f, ctypes.c_void_p) for f in _PTRS] + [(f, ctypes.c_int) for f in _INTS]
-                + [(f, ctypes.c_float) for f in _FLOATS])
+                + [(f, ctypes.c_float) for f in _FLOATS] + [(f, ctypes.c_void_p) for f in _TAIL])
+
+
+# a call's own fields, written at once: the ten pointers, then n
+_CALL = struct.Struct("@10Pi")
 
 
 @functools.lru_cache(maxsize=None)
@@ -372,11 +409,34 @@ def _check(o, d, nears, fars, occ_state, sc: dict) -> int:
     return n
 
 
-@functools.lru_cache(maxsize=64)
-def _template(occ_config, config: MarchConfig):
-    """(the kernel's arguments with the scalars filled in, _scalars)."""
-    sc = _scalars(occ_config, config)
-    return _MarchArgs(**sc), sc
+class _Launch:
+    """K3's launch for one (grid config, march config, CUDA device): the
+    kernel's arguments with the scalars and the growth table filled in,
+    and what a call reads of its configs."""
+
+    __slots__ = ("sc", "args", "fn", "grid", "m", "hier", "cf", "F")
+
+    def __init__(self, occ_config, config: MarchConfig, dev: int):
+        sc = self.sc = _scalars(occ_config, config)
+        self.args = _MarchArgs(**sc)
+        if sc["geo"]:
+            key = (config.cone_angle, config.max_candidates, dev)
+            table = _TABLES.get(key)
+            if table is None:
+                if torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError("K3's growth table is built at its first call on a device: "
+                                       "make that call before any CUDA-graph capture")
+                table = _TABLES[key] = growth_table(*key[:2], torch.device("cuda", dev))
+            self.args.growth = table.data_ptr()
+        self.fn = _library().march_ts
+        self.grid = (sc["levels"],) + (sc["R"],) * 3
+        self.m = sc["F"] or sc["k"]
+        self.hier, self.cf, self.F = sc["hier"], config.coarse_factor, sc["F"]
+
+
+_launch = functools.lru_cache(maxsize=64)(_Launch)  # by the configs' values
+_TABLES: dict = {}  # (cone, max_candidates, device) -> growth_table
+_LAUNCHES: dict = {}  # (id(occ_config), id(config), device) -> (_Launch, occ_config, config)
 
 
 def _fits(t, n: int, dev: int) -> bool:
@@ -387,12 +447,24 @@ def _fits(t, n: int, dev: int) -> bool:
 
 def march_ts(o, d, nears, fars, occ_state, occ_config, config: MarchConfig):
     """K3: march_ts_plain's (t_starts, t_ends, mask) in one kernel."""
-    if o.device.type == "cpu":
-        return march_ts_plain(o, d, nears, fars, occ_state, occ_config, config)
-    template, sc = _template(occ_config, config)
-    n, dev = o.shape[0], o.get_device()
+    if not o.is_cuda:
+        if o.device.type == "cpu":
+            return march_ts_plain(o, d, nears, fars, occ_state, occ_config, config)
+        _check(o, d, nears, fars, occ_state, _scalars(occ_config, config))
+    dev = o.get_device()
+    # the launch is found by the configs' identity (ModelConfig.march_config
+    # keeps its objects), by their values where that misses; an entry holds
+    # its configs, so that no other object takes their ids while it is kept
+    key = (id(occ_config), id(config), dev)
+    hit = _LAUNCHES.get(key)
+    if hit is None:
+        if len(_LAUNCHES) >= 64:
+            _LAUNCHES.clear()
+        hit = _LAUNCHES[key] = (_launch(occ_config, config, dev), occ_config, config)
+    ln = hit[0]
+    n = o.shape[0]
     b, occs = occ_state.binaries, occ_state.occs
-    grid = (sc["levels"],) + (sc["R"],) * 3
+    grid = ln.grid
     # the wrapper's host time is a good part of a call's: one expression
     # over cheap tensor properties, and _check's message where it fails
     if not (o.is_cuda and o.dtype == torch.float32 and o.shape == (n, 3) and o.is_contiguous()
@@ -400,28 +472,23 @@ def march_ts(o, d, nears, fars, occ_state, occ_config, config: MarchConfig):
             and d.is_contiguous() and b.dtype == torch.bool and b.shape == grid
             and b.get_device() == dev and b.is_contiguous()
             and (nears is None or _fits(nears, n, dev)) and (fars is None or _fits(fars, n, dev))
-            and (not sc["F"] or (occs.dtype == torch.float32 and occs.shape == grid
-                                 and occs.get_device() == dev and occs.is_contiguous()))):
-        _check(o, d, nears, fars, occ_state, sc)
+            and (not ln.F or (occs.dtype == torch.float32 and occs.shape == grid
+                              and occs.get_device() == dev and occs.is_contiguous()))):
+        _check(o, d, nears, fars, occ_state, ln.sc)
         raise ValueError("the inputs do not fit K3")
-    sup = occ_state.super_binaries(config.coarse_factor) if sc["hier"] else None
-    m = sc["F"] or sc["k"]
-    t_starts = torch.empty((n, m), dtype=torch.float32, device=o.device)
-    t_ends = torch.empty_like(t_starts)
-    mask = torch.empty((n, m), dtype=torch.bool, device=o.device)
+    sup = occ_state.super_binaries(ln.cf) if ln.hier else None
+    # new_empty takes the dtype and device of a tensor at hand: cheaper on
+    # the host than torch.empty's arguments
+    t_starts, t_ends = o.new_empty((n, ln.m)), o.new_empty((n, ln.m))
+    mask = b.new_empty((n, ln.m))
     if n == 0:
         return t_starts, t_ends, mask
-    args = _MarchArgs.from_buffer_copy(template)
-    args.o, args.d, args.bin, args.occs = o.data_ptr(), d.data_ptr(), b.data_ptr(), occs.data_ptr()
-    args.t_starts, args.t_ends, args.mask = t_starts.data_ptr(), t_ends.data_ptr(), mask.data_ptr()
-    args.n = n
-    if nears is not None:
-        args.nears = nears.data_ptr()
-    if fars is not None:
-        args.fars = fars.data_ptr()
-    if sup is not None:
-        args.sup = sup.data_ptr()
-    K3.count(_library().march_ts(ctypes.byref(args), cuda_build.stream(o)))
+    args = _MarchArgs.from_buffer_copy(ln.args)
+    _CALL.pack_into(args, 0, o.data_ptr(), d.data_ptr(),
+                    0 if nears is None else nears.data_ptr(), 0 if fars is None else fars.data_ptr(),
+                    b.data_ptr(), 0 if sup is None else sup.data_ptr(), occs.data_ptr(),
+                    t_starts.data_ptr(), t_ends.data_ptr(), mask.data_ptr(), n)
+    K3.count(ln.fn(args, cuda_build.stream(o)))
     return t_starts, t_ends, mask
 
 
@@ -429,10 +496,12 @@ def march_rays(bundle: RayBundle, occ_state, occ_config, config: MarchConfig) ->
     """Dense masked samples along each ray, skipping empty space."""
 
     def column(t):
-        return None if t is None else t.detach()[:, 0].contiguous()
+        return None if t is None else t[:, 0].contiguous()
 
+    # no detach: K3 reads the tensors in place, and the plain version runs
+    # without autograd
     t_starts, t_ends, mask = march_ts(
-        bundle.origins.detach().contiguous(), bundle.directions.detach().contiguous(),
+        bundle.origins.contiguous(), bundle.directions.contiguous(),
         column(bundle.nears), column(bundle.fars), occ_state, occ_config, config)
     t_mid = 0.5 * (t_starts + t_ends)
     positions = bundle.origins[:, None, :] + t_mid[..., None] * bundle.directions[:, None, :]

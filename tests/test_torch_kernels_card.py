@@ -405,6 +405,7 @@ MARCH_CASES = {
     "cone0_random": dict(cone_angle=0.0),
     "packed_ones": dict(),
     "packed_random_nearfar": dict(),
+    "packed_ball_deep": dict(),  # nears past t_crit: n_lin 0, the whole growth table
 }
 
 
@@ -412,7 +413,8 @@ MARCH_CASES = {
 @pytest.mark.parametrize("case", list(MARCH_CASES))
 def test_march_matches_plain_on_card(case):
     """K3 against march_ts_plain at the flagship's widths (128^3 x 4 grid,
-    1024 candidates, 48 slots, F=16): the selection before the proposal
+    1024 candidates, 48 slots, F=16), also with every ray's candidates in
+    the cone angle's geometric branch: the selection before the proposal
     bit for bit, the proposal's samples equal but for bin flips at most
     1e-4 of them, each within 1e-6 of a CDF step."""
     import dataclasses
@@ -436,6 +438,9 @@ def test_march_matches_plain_on_card(case):
     if case.endswith("nearfar"):
         nears = torch.rand((n,), generator=gen, device=dev)
         fars = nears + 2.0 * torch.rand((n,), generator=gen, device=dev)
+    if case.endswith("deep"):
+        t_crit = cfg.render_step_size / cfg.cone_angle
+        nears = t_crit * 1.01 + torch.rand((n,), generator=gen, device=dev)
     pre = dataclasses.replace(cfg, proposal_samples=0)
     got = march.march_ts(o, d, nears, fars, state, gcfg, pre)
     want = march.march_ts_plain(o, d, nears, fars, state, gcfg, pre)
