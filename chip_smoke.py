@@ -44,13 +44,18 @@ Phases, each fatal on failure (exit code 1):
      selection before the proposal must be the plain version's bits, and
      with the proposal (F=16) at most 1e-4 of the samples may differ, each
      a bin flip with its quantile within 1e-6 of a CDF step (the count is
-     printed). Then K5a/K5b (composite_fwd/_bwd, csrc/composite.cu)
-     against their plain versions at that step's densities, colours and
-     cotangents (3512 x 16), at 3510 x 48 and at an eval chunk's 4096 x 48,
-     for every background and both alpha_thre forms (forward rtol 1e-5 /
-     atol 1e-6, gradients rtol 1e-4 / atol 1e-6). Each kernel is timed
-     beside its plain version and its bound (K3's the larger of its bytes
-     and its f32 operations, march_ops);
+     printed); the same past K3's static layout (96 slots, 96 coarse
+     segments, 4096 candidates, F=80: its wide layout), timed once. Then
+     K5a/K5b (composite_fwd/_bwd, csrc/composite.cu) against their plain
+     versions at that step's densities, colours and cotangents (3512 x
+     16), at 3510 x 48 and at an eval chunk's 4096 x 48, and at that
+     chunk's rays cut or walked on to 1-200 samples (every layout's edges
+     and the tiled walk past 128), for every background and both
+     alpha_thre forms (forward rtol 1e-5 / atol 1e-6, gradients rtol 1e-4
+     / atol 1e-6). Each kernel is timed beside its plain version and its
+     bound (K3's the larger of its bytes and its f32 operations,
+     march_ops), K5a/K5b also beside the launch floor (an empty kernel on
+     their grid), at 96 and 200 samples too;
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
@@ -681,8 +686,11 @@ def check_composite_case(label, args, cot):
     """K5a and K5b against their plain versions on one input, for each
     background and both forms of alpha_thre (a float and the 0-dim device
     tensor): forward to rtol 1e-5 / atol 1e-6, gradients to rtol 1e-4 /
-    atol 1e-6 (sums over a ray's samples in another order). Returns the
-    largest absolute errors (forward, backward)."""
+    atol 1e-6 (sums over a ray's samples in another order), a ray whose
+    transmittance ties early_stop_eps held to the plain version at eps
+    nudged by composite.TIE either way (composite.rays_off_plain; the ties
+    are counted), and the same bits on a second call. Returns the largest
+    absolute errors (forward, backward) outside the ties."""
     import torch
 
     from lsenerf_tpu_torch.ops import composite
@@ -692,22 +700,29 @@ def check_composite_case(label, args, cot):
     gen = torch.Generator(device=density.device).manual_seed(5)
     bg = bg if bg is not None else torch.rand((n, 3), generator=gen, device=density.device)
     thre = float(alpha_thre) if isinstance(alpha_thre, torch.Tensor) else alpha_thre
-    errs = [0.0, 0.0]
+    errs, ties = [0.0, 0.0], 0
     for back in BACKGROUNDS:
         for at in (thre, torch.tensor(thre, device=density.device)):
             a = (density, rgb, ts, te, mask, at, eps, bg if back == "random" else None, back)
             for i, (fn, plain, extra, rtol) in enumerate((
                     (composite.composite_fwd, composite.composite_fwd_plain, (), 1e-5),
                     (composite.composite_bwd, composite.composite_bwd_plain, cot, 1e-4))):
-                got, want = fn(*a, *extra), plain(*a, *extra)
+                got, again = fn(*a, *extra), fn(*a, *extra)
+                off, tie = composite.rays_off_plain(got, plain, a, extra, rtol=rtol)
                 torch.cuda.synchronize()
-                for g, w in zip(got, want):
-                    if not torch.allclose(g, w, rtol=rtol, atol=1e-6):
-                        fail(f"K5{'ab'[i]} at {label}, {back}, alpha_thre "
-                             f"{type(at).__name__}: max abs err {float((g - w).abs().max()):.3e}")
-                    errs[i] = max(errs[i], float((g - w).abs().max()))
+                what = f"K5{'ab'[i]} at {label}, {back}, alpha_thre {type(at).__name__}"
+                if off.any():
+                    fail(f"{what}: {int(off.sum())} rays off the plain version, e.g. "
+                         f"{off.nonzero().flatten()[:4].tolist()}")
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    fail(f"{what}: other bits on a second call")
+                ties += int(tie.sum())
+                keep = ~tie
+                for g, w in zip(got, plain(*a, *extra)):
+                    errs[i] = max(errs[i], float((g - w)[keep].abs().max()) if keep.any() else 0.0)
     print(f"K5a/K5b at {label} ({n} rays x {mask.shape[1]} samples): every background x both "
-          f"alpha_thre forms within tolerance; max abs err {errs[0]:.3e} / {errs[1]:.3e}")
+          f"alpha_thre forms within tolerance, the same bits twice; max abs err {errs[0]:.3e} / "
+          f"{errs[1]:.3e}; {ties} ray x case ties of early_stop_eps decided by a nudge")
     return errs
 
 
@@ -723,6 +738,28 @@ def composite_bounds(args, cot):
     return bound(fwd, 0), bound(bwd, 0)
 
 
+# K5a/K5b's samples a ray beyond the main path's 16 and 48: each layout's
+# edges (8, 16, 32, 48, 64 a warp's lanes; 128 a tile) and the tiled walk
+COMPOSITE_EDGES = (1, 2, 7, 15, 17, 31, 32, 33, 47, 63, 64, 65, 96, 200)
+
+
+def composite_at_k(args, k):
+    """The eval chunk's composite arguments (its first 4095 rays, so that
+    the last warp is part full) cut to k samples a ray, or walked on past
+    its last sample: its samples again, shifted in t by the ray's span."""
+    import torch
+
+    density, rgb, ts, te, mask, *rest = (x[:4095] if isinstance(x, torch.Tensor) and x.dim()
+                                         else x for x in args)
+    reps = -(-k // mask.shape[1])
+    span = te[:, -1:] - ts[:, :1]
+    ts = torch.cat([ts + r * span for r in range(reps)], 1)[:, :k].contiguous()
+    te = torch.cat([te + r * span for r in range(reps)], 1)[:, :k].contiguous()
+    density, rgb, mask = (x.repeat(1, reps, *(1,) * (x.dim() - 2))[:, :k].contiguous()
+                          for x in (density, rgb, mask))
+    return (density, rgb, ts, te, mask, *rest)
+
+
 def check_march_composite(dev):
     """Phase 3d: K3 (march_ts) and K5a/K5b (composite_fwd/_bwd) against
     their plain versions at the flagship's inputs (flagship.
@@ -731,22 +768,29 @@ def check_march_composite(dev):
     rays and grid; the fresh all-ones grid, where every ray strides; a
     20%-occupied random grid; the step's rays with half of them turned to
     miss the aabb; with nears/fars; the flat march, the unpacked phase 2
-    and cone_angle 0; and nears past t_crit (the whole growth table).
-    K5a/K5b at the step's densities, colours and cotangents (3512 x 16),
-    at 3510 x 48 and at the eval chunk's 4096 x 48, for every background
-    and both alpha_thre forms. Each kernel timed beside its plain version
-    and its bound. Returns {kernel name: results}."""
+    and cone_angle 0; and nears past t_crit (the whole growth table); then
+    past its static layout (flagship.march_wide_cases: 96 slots, 96 coarse
+    segments, 4096 flat candidates, each alone, then all three with F=80,
+    timed). K5a/K5b at the
+    step's densities, colours and cotangents (3512 x 16), at 3510 x 48 and
+    at the eval chunk's 4096 x 48 (flagship.composite_shapes), and at the
+    eval chunk's rays cut or walked on to each of COMPOSITE_EDGES, for
+    every background and both alpha_thre forms. Each kernel timed beside
+    its plain version and its bound, K5a/K5b also beside the launch floor
+    (an empty kernel on K5a's grid), at 96 and 200 samples too. Returns
+    {kernel name: results}."""
     import torch
 
-    from lsenerf_tpu_torch.flagship import march_cases, march_composite_calls
+    from lsenerf_tpu_torch.flagship import (composite_shapes, march_cases,
+                                            march_composite_calls, march_wide_cases)
     from lsenerf_tpu_torch.ops import composite, march
-    from lsenerf_tpu_torch.timing import cold_ms
+    from lsenerf_tpu_torch.timing import cold_ms, device_ms
 
     t0 = time.time()
     calls = march_composite_calls(dev)
     print(f"the flagship's step 16 and an eval chunk for K3/K5's inputs: {time.time() - t0:.1f} s")
     gcfg = calls["march"][5]
-    cases = march_cases(calls)
+    cases = march_cases(calls) + march_wide_cases(calls)
     flips = {label: check_march_case(label, *rays, st, gcfg, c)
              for label, *rays, st, c in cases}
     res = {}
@@ -764,31 +808,45 @@ def check_march_composite(dev):
         print(f"{march.K3.name} at {label}: {fmt(r)}; cold L2 {r['cold_ms']:.5f} ms; distinct "
               f"cells read {cells}")
         res.setdefault(march.K3.name, {}).setdefault("shapes", {})[key] = r
+    label, *rays, st, wide = cases[-1]
+    a = (*rays, st, gcfg, wide)
+    r = dict(device_ms=device_ms(lambda: march.march_ts(*a)),
+             cold_ms=cold_ms(lambda: march.march_ts(*a)))
+    print(f"{march.K3.name} at step 16 past its static layout ({label}): "
+          f"{r['device_ms']:.5f} ms on the device, cold L2 {r['cold_ms']:.5f} ms")
+    res[march.K3.name]["shapes"]["wide"] = r
     k3 = res[march.K3.name]
     k3.update(k3["shapes"].pop("march"), proposal_flips=flips)
 
-    comp, ecomp = calls["composite"], calls["eval_composite"]
-    cot = comp[9:]
-    rng = torch.Generator(device=dev).manual_seed(9)
-    shapes = {"step": (comp[:9], cot)}
-    for key, m in (("n3510_k48", 3510), ("eval_chunk", ecomp[0].shape[0])):
-        a = tuple(x[:m] if isinstance(x, torch.Tensor) and x.dim() else x for x in ecomp)
+    shapes = composite_shapes(calls)
+    rng = torch.Generator(device=dev).manual_seed(11)
+    for k in COMPOSITE_EDGES:
+        a = composite_at_k(calls["eval_composite"], k)
+        m = a[4].shape[0]
         c = (torch.randn((m, 3), generator=rng, device=dev),
              torch.randn((m, 1), generator=rng, device=dev),
              torch.randn((m, 1), generator=rng, device=dev))
-        shapes[key] = (a, c)
+        shapes[f"k{k}"] = (a, c)
     for key, (a, c) in shapes.items():
         errs = check_composite_case(key, a, c)
+        if key.startswith("k") and key not in ("k96", "k200"):
+            continue  # checked, not timed
         (fb, bb) = composite_bounds(a, c)
         rf = timed(lambda: composite.composite_fwd(*a), lambda: composite.composite_fwd_plain(*a),
                    fb)
         rb = timed(lambda: composite.composite_bwd(*a, *c),
                    lambda: composite.composite_bwd_plain(*a, *c), bb)
+        n, k = a[4].shape
+        blocks = composite.launch_blocks(n, k)
+        empty = lambda: composite.launch_empty(blocks, a[0])  # noqa: E731
+        floor = dict(floor_device_ms=device_ms(empty), floor_cold_ms=cold_ms(empty))
         rf["max_abs_err"], rb["max_abs_err"] = errs
-        for k, r in ((composite.K5A, rf), (composite.K5B, rb)):
-            print(f"{k.name} at {key} ({a[4].shape[0]} x {a[4].shape[1]}): {fmt(r)}; cold L2 "
-                  f"{r['cold_ms']:.5f} ms")
-            res.setdefault(k.name, {}).setdefault("shapes", {})[key] = r
+        for kern, r in ((composite.K5A, rf), (composite.K5B, rb)):
+            r.update(floor)
+            print(f"{kern.name} at {key} ({n} x {k}): {fmt(r)}; cold L2 {r['cold_ms']:.5f} ms; "
+                  f"the launch floor (an empty kernel on its {blocks} blocks) "
+                  f"{r['floor_device_ms']:.5f} ms, cold {r['floor_cold_ms']:.5f} ms")
+            res.setdefault(kern.name, {}).setdefault("shapes", {})[key] = r
     for k in (composite.K5A, composite.K5B):
         res[k.name].update(res[k.name]["shapes"].pop("step"))
     print(f"phase 3d in {time.time() - t0:.1f} s")

@@ -56,6 +56,14 @@
 //   plain version's bits (march_ts_plain sums in f64). Each output sample's
 //   bin is the count of CDF entries below its quantile: two ballots over the
 //   lanes' entries, the same comparisons as the plain version's.
+// - Scratch: a warp's arrays (phase 1's words, the ballots, the kept
+//   segments, the k slots, the proposal's pdf and CDF) are static shared
+//   memory sized for 64 slots, 64 coarse segments and 64 rounds, which
+//   every preset fits. A config past them (MarchArgs.wide, set by the
+//   wrapper) runs the same code on the arrays at its own sizes in dynamic
+//   shared memory (wide_words), its proposal a lane a slot in rounds of 32,
+//   so any max_samples, max_coarse_segments and max_candidates run, as in
+//   the JAX package, up to a block's 227 KB.
 // - Bits: the plain version runs as torch runs it on CUDA, and the kernel
 //   repeats each operation's rounding: products and sums with __fmul_rn /
 //   __fadd_rn (no contraction into FMAs), IEEE division (__fdiv_rn) and
@@ -94,6 +102,7 @@ struct MarchArgs {
   float step, inv_step, t_crit, base;
   float lam, one_minus_lam, inv_F, F_f;
   const float* growth;   // (max_candidates + 1,) f32 (1+cone)^g (geo only)
+  int wide;              // 0: the static per-warp layout; 1: wide_words' layout
 };
 
 }  // extern "C"
@@ -102,6 +111,7 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;        // rays a block, a warp each
+// the static layout's capacities (every preset; ops/march.py STATIC_*)
 constexpr int kMaxRounds = 64;   // 32-candidate rounds a sweep
 constexpr int kMaxSegs = 64;     // max_coarse_segments
 constexpr int kMaxK = 64;        // max_samples
@@ -112,6 +122,8 @@ struct Ray {
   float t_lo, t_hi, n_lin, t_geo;
 };
 
+// A warp's scratch, static: sized at compile time for every config within
+// kMaxRounds, kMaxSegs and kMaxK.
 struct WarpSmem {
   uint32_t occ[kMaxRounds + 2];  // phase 1: the boundaries' supergrid bits, a word a round
   uint32_t lt[kMaxRounds + 2];   // phase 1: boundary t < t_hi
@@ -119,6 +131,35 @@ struct WarpSmem {
   int segidx[kMaxSegs];
   float ts[kMaxK], te[kMaxK], dt[kMaxK], pdf[kMaxK], cdf[kMaxK];
 };
+
+// A warp's scratch, wide: the same arrays at the launch's sizes, in dynamic
+// shared memory (configs past the static capacities), and the proposal's
+// bin of each output sample.
+struct WarpPtrs {
+  uint32_t *occ, *lt, *ballots;
+  int *segidx, *idx;
+  float *ts, *te, *dt, *pdf, *cdf;
+};
+
+// The wide layout's 32-bit words a warp (ops/march.py wide_words computes
+// the same), its arrays carved from base where given.
+__host__ __device__ inline int wide_words(const MarchArgs& a, uint32_t* base, WarpPtrs* p) {
+  const int r1 = a.hier ? (a.mc + 32) / 32 : 0;  // phase 1's rounds of mc + 1 boundaries
+  const int per = a.hier ? 32 / a.cf : 32;       // phase 2's kept segments a round, or flat
+  const int rounds = a.hier ? (a.k1 + per - 1) / per : (a.mc + 31) / 32;
+  const int sizes[10] = {r1 + 1, r1, rounds, a.hier ? a.k1 : 0, a.F, a.k, a.k, a.k, a.k, a.k};
+  int words = 0;
+  uint32_t* at[10];
+  for (int u = 0; u < 10; ++u) {
+    at[u] = base ? base + words : nullptr;
+    words += sizes[u];
+  }
+  if (p) {
+    *p = WarpPtrs{at[0], at[1], at[2], (int*)at[3], (int*)at[4], (float*)at[5], (float*)at[6],
+                  (float*)at[7], (float*)at[8], (float*)at[9]};
+  }
+  return words;
+}
 
 // x / d and x % d for x >= 0: shifts where d is a power of two.
 struct Div {
@@ -197,7 +238,8 @@ struct Cand {
 
 // Round rd's candidate of this lane: phase 2's (candidate c of slot c / cf,
 // fine index c % cf of its segment) or the flat march's c.
-__device__ __forceinline__ Cand cand_at(const MarchArgs& a, const Ray& r, const WarpSmem& sm, const Div& cf, int rd, int lane,
+template <typename Sm>
+__device__ __forceinline__ Cand cand_at(const MarchArgs& a, const Ray& r, const Sm& sm, const Div& cf, int rd, int lane,
                                         int per_round, int nseg, int stride_c) {
   int fi;
   bool on;
@@ -216,13 +258,191 @@ __device__ __forceinline__ Cand cand_at(const MarchArgs& a, const Ray& r, const 
               __fmul_rn(0.5f, __fadd_rn(t0, t1)), on};
 }
 
-__global__ void __launch_bounds__(kWarps * 32) march_kernel(const MarchArgs a) {
-  __shared__ WarpSmem smem[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int i = blockIdx.x * kWarps + w;
-  if (i >= a.n) return;  // warp-uniform
-  WarpSmem& sm = smem[w];
+// The proposal within the static layout (k <= 64): a lane a slot, two
+// halves; both halves' EMA cells first, then both loads.
+__device__ __forceinline__ void static_proposal(const MarchArgs& a, const Ray& r, WarpSmem& sm,
+                                                int i, int lane, int nsel, float uni) {
+  const int k = a.k;
+  float dtv[2], ema[2];
+  long cell[2];
+  bool look[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    dtv[h] = 0.f;
+    look[h] = false;
+    cell[h] = 0;
+    if (j < k) {
+      const float ts = sm.ts[j], te = sm.te[j];
+      dtv[h] = __fsub_rn(te, ts);
+      sm.dt[j] = dtv[h];
+      if (j < nsel) {
+        const float mid = __fmul_rn(0.5f, __fadd_rn(ts, te));
+        cell[h] = flat_index(cell_at(a, r, mid, a.R), a.R);
+        look[h] = true;
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) ema[h] = look[h] ? __ldg(a.occs + cell[h]) : 0.f;
+  float wv[2];
+  double wsum = 0.0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    wv[h] = 0.f;
+    if (look[h]) {
+      const float tau = __fmul_rn(__fmul_rn(ema[h], dtv[h]), a.inv_step);
+      wv[h] = __fsub_rn(1.f, expf(-tau));
+    }
+    wsum += (double)wv[h];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) wsum += __shfl_xor_sync(kFull, wsum, o);
+  const float ws = (float)wsum;
+  double run = 0.0;
+  float cdfr[2];  // this lane's CDF entries; +inf past k (never below a quantile)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    const float u = j < nsel ? uni : 0.f;
+    float p = u;
+    if (ws > 1e-12f)
+      p = __fadd_rn(__fdiv_rn(__fmul_rn(a.one_minus_lam, wv[h]), fmaxf(ws, 1e-12f)),
+                    __fmul_rn(a.lam, u));
+    if (j >= k) p = 0.f;
+    double c = (double)p;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double y = __shfl_up_sync(kFull, c, o);
+      if (lane >= o) c += y;
+    }
+    c += run;
+    run = __shfl_sync(kFull, c, 31);
+    cdfr[h] = INFINITY;
+    if (j < k) {
+      sm.pdf[j] = p;
+      sm.cdf[j] = cdfr[h] = (float)c;
+    }
+  }
+  __syncwarp();
+  // each output's bin: the CDF entries below its quantile, counted by ballots
+  int idx[2] = {0, 0};
+  for (int f = 0; f < a.F; ++f) {
+    const float u = __fmul_rn(__fadd_rn((float)f, 0.5f), a.inv_F);
+    const int below_u = __popc(__ballot_sync(kFull, u > cdfr[0])) +
+                        __popc(__ballot_sync(kFull, u > cdfr[1]));
+    if (lane == (f & 31)) {
+      if (f < 32) idx[0] = min(below_u, k - 1);
+      else idx[1] = min(below_u, k - 1);
+    }
+  }
+  const bool valid = nsel > 0;
+  const long orow = (long)i * a.F;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = lane + 32 * h;
+    if (f < a.F) {
+      const int id = idx[h];
+      const float u = __fmul_rn(__fadd_rn((float)f, 0.5f), a.inv_F);
+      const float t0 = sm.ts[id], dt = sm.dt[id], p = sm.pdf[id];
+      const float prev = id > 0 ? sm.cdf[id - 1] : 0.f;
+      const float frac = fminf(fmaxf(__fdiv_rn(__fsub_rn(u, prev), fmaxf(p, 1e-12f)), 0.f), 1.f);
+      const float tc = __fadd_rn(t0, __fmul_rn(frac, dt));
+      float dtf = __fdiv_rn(dt, fmaxf(__fmul_rn(p, a.F_f), 1e-12f));
+      if (!valid) dtf = 0.f;
+      const float hw = __fmul_rn(0.5f, dtf);
+      a.t_starts[orow + f] = __fsub_rn(tc, hw);
+      a.t_ends[orow + f] = __fadd_rn(tc, hw);
+      a.mask[orow + f] = valid;
+    }
+  }
+}
+
+// The proposal at any k and F (the wide layout): the static one's
+// arithmetic, a lane a slot in rounds of 32, with the slots' widths,
+// weights, pdf and CDF and each output sample's bin in shared memory.
+__device__ void wide_proposal(const MarchArgs& a, const Ray& r, const WarpPtrs& sm, int i,
+                              int lane, int nsel, float uni) {
+  const int k = a.k;
+  const int rounds = (k + 31) / 32;
+  double wsum = 0.0;
+  for (int h = 0; h < rounds; ++h) {
+    const int j = lane + 32 * h;
+    float wv = 0.f;
+    if (j < k) {
+      const float ts = sm.ts[j], te = sm.te[j];
+      const float dtv = __fsub_rn(te, ts);
+      sm.dt[j] = dtv;
+      if (j < nsel) {
+        const float mid = __fmul_rn(0.5f, __fadd_rn(ts, te));
+        const float ema = __ldg(a.occs + flat_index(cell_at(a, r, mid, a.R), a.R));
+        const float tau = __fmul_rn(__fmul_rn(ema, dtv), a.inv_step);
+        wv = __fsub_rn(1.f, expf(-tau));
+      }
+      sm.pdf[j] = wv;  // the weight, until the pdf takes its place
+    }
+    wsum += (double)wv;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) wsum += __shfl_xor_sync(kFull, wsum, o);
+  const float ws = (float)wsum;
+  double run = 0.0;
+  for (int h = 0; h < rounds; ++h) {
+    const int j = lane + 32 * h;
+    const float u = j < nsel ? uni : 0.f;
+    float p = u;
+    if (ws > 1e-12f)
+      p = __fadd_rn(__fdiv_rn(__fmul_rn(a.one_minus_lam, j < k ? sm.pdf[j] : 0.f),
+                              fmaxf(ws, 1e-12f)),
+                    __fmul_rn(a.lam, u));
+    if (j >= k) p = 0.f;
+    double c = (double)p;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double y = __shfl_up_sync(kFull, c, o);
+      if (lane >= o) c += y;
+    }
+    c += run;
+    run = __shfl_sync(kFull, c, 31);
+    if (j < k) {
+      sm.pdf[j] = p;
+      sm.cdf[j] = (float)c;
+    }
+  }
+  __syncwarp();
+  // each output's bin: the CDF entries below its quantile, counted by ballots
+  for (int f = 0; f < a.F; ++f) {
+    const float u = __fmul_rn(__fadd_rn((float)f, 0.5f), a.inv_F);
+    int below_u = 0;
+    for (int h = 0; h < rounds; ++h) {
+      const int j = lane + 32 * h;
+      below_u += __popc(__ballot_sync(kFull, j < k && u > sm.cdf[j]));
+    }
+    if (lane == 0) sm.idx[f] = min(below_u, k - 1);
+  }
+  __syncwarp();
+  const bool valid = nsel > 0;
+  const long orow = (long)i * a.F;
+  for (int f = lane; f < a.F; f += 32) {
+    const int id = sm.idx[f];
+    const float u = __fmul_rn(__fadd_rn((float)f, 0.5f), a.inv_F);
+    const float t0 = sm.ts[id], dt = sm.dt[id], p = sm.pdf[id];
+    const float prev = id > 0 ? sm.cdf[id - 1] : 0.f;
+    const float frac = fminf(fmaxf(__fdiv_rn(__fsub_rn(u, prev), fmaxf(p, 1e-12f)), 0.f), 1.f);
+    const float tc = __fadd_rn(t0, __fmul_rn(frac, dt));
+    float dtf = __fdiv_rn(dt, fmaxf(__fmul_rn(p, a.F_f), 1e-12f));
+    if (!valid) dtf = 0.f;
+    const float hw = __fmul_rn(0.5f, dtf);
+    a.t_starts[orow + f] = __fsub_rn(tc, hw);
+    a.t_ends[orow + f] = __fadd_rn(tc, hw);
+    a.mask[orow + f] = valid;
+  }
+}
+
+// Ray i's march by one warp, with its scratch sm (a WarpSmem, or WarpPtrs
+// where Wide).
+template <bool Wide, typename Sm>
+__device__ __forceinline__ void march_ray(const MarchArgs& a, Sm& sm, int i, int lane) {
   const Ray r = setup_ray(a, i);
   const uint32_t below = (1u << lane) - 1u;
   const Div cf = make_div(a.cf);
@@ -330,102 +550,30 @@ __global__ void __launch_bounds__(kWarps * 32) march_kernel(const MarchArgs a) {
     return;
   }
 
-  // proposal: inverse-CDF relocation of the k slots to F samples; both
-  // halves' EMA cells first, then both loads
+  // proposal: inverse-CDF relocation of the k slots to F samples
   const float uni = nsel > 0 ? __fdiv_rn(1.f, (float)nsel) : 0.f;
-  float dtv[2], ema[2];
-  long cell[2];
-  bool look[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j = lane + 32 * h;
-    dtv[h] = 0.f;
-    look[h] = false;
-    cell[h] = 0;
-    if (j < k) {
-      const float ts = sm.ts[j], te = sm.te[j];
-      dtv[h] = __fsub_rn(te, ts);
-      sm.dt[j] = dtv[h];
-      if (j < nsel) {
-        const float mid = __fmul_rn(0.5f, __fadd_rn(ts, te));
-        cell[h] = flat_index(cell_at(a, r, mid, a.R), a.R);
-        look[h] = true;
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) ema[h] = look[h] ? __ldg(a.occs + cell[h]) : 0.f;
-  float wv[2];
-  double wsum = 0.0;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    wv[h] = 0.f;
-    if (look[h]) {
-      const float tau = __fmul_rn(__fmul_rn(ema[h], dtv[h]), a.inv_step);
-      wv[h] = __fsub_rn(1.f, expf(-tau));
-    }
-    wsum += (double)wv[h];
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) wsum += __shfl_xor_sync(kFull, wsum, o);
-  const float ws = (float)wsum;
-  double run = 0.0;
-  float cdfr[2];  // this lane's CDF entries; +inf past k (never below a quantile)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j = lane + 32 * h;
-    const float u = j < nsel ? uni : 0.f;
-    float p = u;
-    if (ws > 1e-12f)
-      p = __fadd_rn(__fdiv_rn(__fmul_rn(a.one_minus_lam, wv[h]), fmaxf(ws, 1e-12f)),
-                    __fmul_rn(a.lam, u));
-    if (j >= k) p = 0.f;
-    double c = (double)p;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const double y = __shfl_up_sync(kFull, c, o);
-      if (lane >= o) c += y;
-    }
-    c += run;
-    run = __shfl_sync(kFull, c, 31);
-    cdfr[h] = INFINITY;
-    if (j < k) {
-      sm.pdf[j] = p;
-      sm.cdf[j] = cdfr[h] = (float)c;
-    }
-  }
-  __syncwarp();
-  // each output's bin: the CDF entries below its quantile, counted by ballots
-  int idx[2] = {0, 0};
-  for (int f = 0; f < a.F; ++f) {
-    const float u = __fmul_rn(__fadd_rn((float)f, 0.5f), a.inv_F);
-    const int below_u = __popc(__ballot_sync(kFull, u > cdfr[0])) +
-                        __popc(__ballot_sync(kFull, u > cdfr[1]));
-    if (lane == (f & 31)) {
-      if (f < 32) idx[0] = min(below_u, k - 1);
-      else idx[1] = min(below_u, k - 1);
-    }
-  }
-  const bool valid = nsel > 0;
-  const long orow = (long)i * a.F;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int f = lane + 32 * h;
-    if (f < a.F) {
-      const int id = idx[h];
-      const float u = __fmul_rn(__fadd_rn((float)f, 0.5f), a.inv_F);
-      const float t0 = sm.ts[id], dt = sm.dt[id], p = sm.pdf[id];
-      const float prev = id > 0 ? sm.cdf[id - 1] : 0.f;
-      const float frac = fminf(fmaxf(__fdiv_rn(__fsub_rn(u, prev), fmaxf(p, 1e-12f)), 0.f), 1.f);
-      const float tc = __fadd_rn(t0, __fmul_rn(frac, dt));
-      float dtf = __fdiv_rn(dt, fmaxf(__fmul_rn(p, a.F_f), 1e-12f));
-      if (!valid) dtf = 0.f;
-      const float hw = __fmul_rn(0.5f, dtf);
-      a.t_starts[orow + f] = __fsub_rn(tc, hw);
-      a.t_ends[orow + f] = __fadd_rn(tc, hw);
-      a.mask[orow + f] = valid;
-    }
-  }
+  if constexpr (Wide) wide_proposal(a, r, sm, i, lane, nsel, uni);
+  else static_proposal(a, r, sm, i, lane, nsel, uni);
+}
+
+__global__ void __launch_bounds__(kWarps * 32) march_kernel(const MarchArgs a) {
+  __shared__ WarpSmem smem[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int i = blockIdx.x * kWarps + w;
+  if (i >= a.n) return;  // warp-uniform
+  march_ray<false>(a, smem[w], i, lane);
+}
+
+__global__ void __launch_bounds__(kWarps * 32) march_wide_kernel(const MarchArgs a) {
+  extern __shared__ uint32_t dyn[];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int i = blockIdx.x * kWarps + w;
+  if (i >= a.n) return;  // warp-uniform
+  WarpPtrs sm;
+  wide_words(a, dyn + w * wide_words(a, nullptr, nullptr), &sm);
+  march_ray<true>(a, sm, i, lane);
 }
 
 }  // namespace
@@ -433,6 +581,16 @@ __global__ void __launch_bounds__(kWarps * 32) march_kernel(const MarchArgs a) {
 extern "C" int march_ts(const MarchArgs* args, cudaStream_t stream) {
   const MarchArgs a = *args;
   const int blocks = (a.n + kWarps - 1) / kWarps;
-  march_kernel<<<blocks, kWarps * 32, 0, stream>>>(a);
+  if (!a.wide) {
+    march_kernel<<<blocks, kWarps * 32, 0, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  const int bytes = kWarps * 4 * wide_words(a, nullptr, nullptr);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        march_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  march_wide_kernel<<<blocks, kWarps * 32, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }

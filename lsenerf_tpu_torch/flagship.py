@@ -341,3 +341,42 @@ def march_cases(calls: dict) -> list:
         ("cone_angle 0", o, d, nears, fars, state, dataclasses.replace(cfg, cone_angle=0.0)),
         ("nears past t_crit (n_lin 0)", o, d, deep, fars, state, cfg),
     ]
+
+
+# K3 past its static per-warp layout (64 slots, 64 coarse segments, 64
+# rounds of 32 candidates), as the JAX package's march takes any value
+WIDE_MARCHES = {
+    "96 slots (F=16)": dict(max_samples=96),
+    "96 coarse segments": dict(max_coarse_segments=96),
+    "the flat march over 4096 candidates": dict(hierarchical=False, max_candidates=4096),
+    "96 slots, 96 coarse segments, 4096 candidates, F=80": dict(
+        max_samples=96, max_coarse_segments=96, max_candidates=4096, proposal_samples=80),
+}
+
+
+def march_wide_cases(calls: dict) -> list:
+    """K3's check cases past its static layout at march_composite_calls'
+    step-16 rays and grid: [(label, o, d, nears, fars, occ_state, march
+    config)], one for each of WIDE_MARCHES."""
+    o, d, nears, fars, state, gcfg, cfg = calls["march"]
+    return [(label, o, d, nears, fars, state, dataclasses.replace(cfg, **kw))
+            for label, kw in WIDE_MARCHES.items()]
+
+
+def composite_shapes(calls: dict, seed: int = 9) -> dict:
+    """K5a/K5b's timed shapes from march_composite_calls' calls: {name:
+    (composite_fwd's 9 arguments, the 3 cotangents)}: "step" (that step's
+    3512 x 16 with its cotangents), "n3510_k48" (the eval chunk's first
+    3510 rays) and "eval_chunk" (4096 x 48), the last two with standard
+    normal cotangents drawn from `seed` on the chunk's device."""
+    comp, ecomp = calls["composite"], calls["eval_composite"]
+    dev = ecomp[0].device
+    rng = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {"step": (comp[:9], comp[9:])}
+    for key, m in (("n3510_k48", 3510), ("eval_chunk", ecomp[0].shape[0])):
+        a = tuple(x[:m] if isinstance(x, torch.Tensor) and x.dim() else x for x in ecomp)
+        cot = (torch.randn((m, 3), generator=rng, device=dev),
+               torch.randn((m, 1), generator=rng, device=dev),
+               torch.randn((m, 1), generator=rng, device=dev))
+        shapes[key] = (a, cot)
+    return shapes

@@ -40,18 +40,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
-import importlib.util
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-from lsenerf_tpu_torch import flagship
-from lsenerf_tpu_torch.ops import cuda_build, march
-from lsenerf_tpu_torch.timing import cold_ms, device_ms, host_us
+from lsenerf_tpu_torch import flagship, kernel_compare
+from lsenerf_tpu_torch.ops import march
 
 _POW = "(float)pow((double)a.base, (double)g)"
 _STRUCT_END = "  float lam, one_minus_lam, inv_F, F_f;\n"
@@ -85,12 +81,7 @@ def builds(srcs: dict, dev: int) -> dict:
     calls that build's entry (march_ts finds a launch by the configs'
     identity)."""
     out = {"this": march.march_ts}
-    built = cuda_build.build_all(list(srcs.values()))
-    for label, path in srcs.items():
-        for line in built[path][1].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {label}: {line.strip()}")
-        lib = ctypes.CDLL(str(built[path][0]))
+    for label, lib in kernel_compare.build(srcs).items():
         lib.march_ts.argtypes = [ctypes.POINTER(march._MarchArgs), ctypes.c_void_p]
         lib.march_ts.restype = ctypes.c_int
         own = {}
@@ -157,27 +148,14 @@ def geometric_share(args) -> float:
 
 def compare(fns: dict, shapes: dict, card: str) -> dict:
     """{shape: {build: {"warm": [ms, ms], "cold": [ms, ms]}}}."""
-    res = {}
-    order = list(fns) + list(fns)[::-1]
-    for name, a in shapes.items():
-        r = res[name] = {label: {"warm": [], "cold": []} for label in fns}
-        for label in order:
-            call = lambda fn=fns[label]: fn(*a)  # noqa: E731
-            r[label]["warm"].append(device_ms(call))
-            r[label]["cold"].append(cold_ms(call))
-        for label, t in r.items():
-            print(f"K3 {label} at {name} ({a[0].shape[0]} rays, F={a[6].proposal_samples}): "
-                  f"device ms warm {t['warm']}, cold L2 {t['cold']}; {card}")
-    return res
+    return kernel_compare.abba(fns, shapes, card, lambda label, name, a: (
+        f"K3 {label} at {name} ({a[0].shape[0]} rays, F={a[6].proposal_samples})"))
 
 
 def old_wrapper(path, src, args):
     """An earlier ops/march.py's march_ts, with its K3 built from src,
     checked against march_ts_plain's bits before the proposal on args."""
-    spec = importlib.util.spec_from_file_location("k3_compare_old_march", path)
-    # registered first: its dataclasses look their module up
-    mod = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = kernel_compare.load_module(path, "k3_compare_old_march")
     mod.SOURCE = Path(src).resolve()
     *rays, gcfg, cfg = args
     pre = dataclasses.replace(cfg, proposal_samples=0)
@@ -190,19 +168,9 @@ def old_wrapper(path, src, args):
 
 def compare_host(old, shapes: dict, card: str, rounds: int = 3) -> dict:
     """{shape: {"this" or "old": [us, ...]}}: the host's microseconds a
-    call of the package's wrapper and of old, one timing.host_us run a
-    reading, in turns (this, old, old, this) `rounds` times."""
-    fns = {"this": march.march_ts, "old": old}
-    res = {}
-    for name, a in shapes.items():
-        r = res[name] = {"this": [], "old": []}
-        for _ in range(rounds):
-            for label in ("this", "old", "old", "this"):
-                r[label].append(host_us(lambda fn=fns[label]: fn(*a)))  # noqa: E731
-        print(f"K3 host us a call at {name}: this wrapper {r['this']} (median "
-              f"{statistics.median(r['this'])}), the old one {r['old']} (median "
-              f"{statistics.median(r['old'])}); {card}")
-    return res
+    call of the package's wrapper and of old, in turns
+    (kernel_compare.host_turns)."""
+    return kernel_compare.host_turns(march.march_ts, old, shapes, card, "K3", rounds)
 
 
 def main(argv=None) -> int:
@@ -221,8 +189,7 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = kernel_compare.card_line()
     print(f"card: {card}")
     out = Path(args.out)
     dev = torch.device("cuda")

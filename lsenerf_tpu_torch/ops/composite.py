@@ -4,16 +4,20 @@ shifted exclusive cumsum (composite.py:45-75).
 
 render_bundle composites through `composite`: K5a `composite_fwd` and K5b
 `composite_bwd` (csrc/composite.cu, built and loaded by cuda_build) inside
-one autograd Function. Their plain versions are `composite_fwd_plain`, the
-chain render_weights -> render_rgb / render_depth / render_accumulation,
-and `composite_bwd_plain`, its backward written out. A wrapper runs the
-plain version for CPU tensors only; for CUDA tensors it launches its kernel
-or raises."""
+one autograd Function, at any number of samples a ray. Their plain
+versions are `composite_fwd_plain`, the chain render_weights -> render_rgb
+/ render_depth / render_accumulation, and `composite_bwd_plain`, its
+backward written out. A wrapper runs the plain version for CPU tensors
+only; for CUDA tensors it launches its kernel or raises. A wrapper finds
+its launch (the kernels' scalar arguments) by one dict lookup and writes a
+call's pointers with one struct.pack_into: its host time is a good part of
+a call's."""
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 
 import torch
 
@@ -193,6 +197,36 @@ def composite_bwd_plain(density, rgb, t_starts, t_ends, mask, alpha_thre, early_
     return d_density, d_rgb
 
 
+# early stop keeps a sample where its transmittance T > early_stop_eps: a
+# discontinuity. Two f32 sums of the same terms in other orders differ by an
+# ulp or two, so where T lies within that of eps (a tie) the kernels and the
+# plain versions may decide the sample apart. A tie is decided by the plain
+# version at early_stop_eps nudged by this relative amount either way.
+TIE = 1e-6
+
+
+def rays_off_plain(got, plain, args, extra=(), rtol: float = 1e-5, atol: float = 1e-6):
+    """(rays whose outputs in `got` differ from plain(*args, *extra) beyond
+    rtol / atol, also with early_stop_eps (args[6]) nudged by TIE either
+    way; rays that match only with it nudged: the ties), bool (n,) each.
+    args are composite_fwd's nine arguments, extra composite_bwd's
+    cotangents; got is the kernel's outputs on them."""
+    n = args[4].shape[0]
+
+    def off(want):
+        bad = torch.zeros(n, dtype=torch.bool, device=got[0].device)
+        for g, w in zip(got, want):
+            bad |= ~torch.isclose(g, w, rtol=rtol, atol=atol).reshape(n, -1).all(1)
+        return bad
+
+    bad = off(plain(*args, *extra))
+    eps = args[6]
+    if not bad.any() or eps <= 0.0:
+        return bad, torch.zeros_like(bad)
+    up, down = (off(plain(*args[:6], eps * (1.0 + d * TIE), *args[7:], *extra)) for d in (1, -1))
+    return bad & up & down, bad & ~(up & down)
+
+
 class _CompositeArgs(ctypes.Structure):
     """csrc/composite.cu's CompositeArgs, field for field."""
 
@@ -203,6 +237,10 @@ class _CompositeArgs(ctypes.Structure):
         + [(f, ctypes.c_float) for f in ("thr", "eps")])
 
 
+# a call's own fields, written at once: the fifteen pointers, then n
+_CALL = struct.Struct("@15Pi")
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load(SOURCE)
@@ -210,10 +248,29 @@ def _library():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(_CompositeArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.composite_blocks.argtypes = [ctypes.POINTER(_CompositeArgs)]
+    lib.composite_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.composite_blocks.restype = lib.composite_empty.restype = ctypes.c_int
     return lib
 
 
-MAX_SAMPLES = 64  # k: a lane a sample, two halves of a warp
+def launch_blocks(n: int, k: int) -> int:
+    """The blocks of 128 threads that K5a and K5b launch for n rays of k
+    samples (csrc/composite.cu picks its layout from k). For timing."""
+    return _library().composite_blocks(_CompositeArgs(n=n, k=k))
+
+
+def launch_empty(blocks: int, like: torch.Tensor) -> None:
+    """An empty kernel on `blocks` blocks of 128 threads, on the current
+    stream of like's CUDA device: the launch floor that K5a's and K5b's
+    device times are read against. For timing; on no path, counted by no
+    launch counter."""
+    err = _library().composite_empty(blocks, 128, cuda_build.stream(like))
+    if err:
+        raise RuntimeError(f"the empty kernel's launch failed: cudaError {err}")
+
+
+_COT_SHAPES = {"g_rgb": lambda n: (n, 3), "g_depth": lambda n: (n, 1), "g_acc": lambda n: (n, 1)}
 
 
 def _refuse(density, rgb, t_starts, t_ends, mask, alpha_thre, bg_color, mode, outs):
@@ -222,8 +279,6 @@ def _refuse(density, rgb, t_starts, t_ends, mask, alpha_thre, bg_color, mode, ou
     is checked last."""
     dev = density.device
     n, k = mask.shape[0], mask.shape[-1]
-    if k > MAX_SAMPLES:
-        raise ValueError(f"K5a/K5b take at most {MAX_SAMPLES} samples a ray, got {k}")
     f32 = (torch.float32,)
     cuda_build.check("density", density, f32, (n, k, 1), dev)
     cuda_build.check("rgb", rgb, f32, (n, k, 3), dev)
@@ -242,79 +297,120 @@ def _refuse(density, rgb, t_starts, t_ends, mask, alpha_thre, bg_color, mode, ou
     raise ValueError("the inputs do not fit K5a/K5b")
 
 
-_COT_SHAPES = {"g_rgb": lambda n: (n, 3), "g_depth": lambda n: (n, 1), "g_acc": lambda n: (n, 1)}
+class _Launch:
+    """K5a/K5b's arguments for one (k, background, culling threshold,
+    early_stop_eps, device): the scalars filled in; a call writes the
+    pointers and n."""
+
+    __slots__ = ("args", "mode", "tensor_thr")
+
+    def __init__(self, k: int, bg_color, background: str, alpha_thre, early_stop_eps: float):
+        self.mode = _background_mode(bg_color, background)
+        self.tensor_thr = isinstance(alpha_thre, torch.Tensor)
+        cull = _culls(alpha_thre)
+        self.args = _CompositeArgs(
+            k=k, cull=int(cull), bg_mode=self.mode,
+            thr=float(alpha_thre) if cull and not self.tensor_thr else 0.0,
+            eps=float(early_stop_eps))
 
 
-def _f32_on(t, shape, dev: int) -> bool:
-    return (t.dtype == torch.float32 and t.shape == shape and t.get_device() == dev
-            and t.is_contiguous())
+# (k, background or None where bg_color is given, the float threshold or
+# "tensor", early_stop_eps, device) -> _Launch
+_LAUNCHES: dict = {}
 
 
-def _args(density, rgb, t_starts, t_ends, mask, alpha_thre, early_stop_eps, bg_color,
-          background, **outs) -> _CompositeArgs:
-    """The kernels' arguments, where they take these inputs; else raise
-    through _refuse. The wrapper's host time is a good part of a call's,
-    so the check is one expression over cheap tensor properties."""
-    mode = _background_mode(bg_color, background)
-    thr_t = alpha_thre if isinstance(alpha_thre, torch.Tensor) else None
-    n, k = mask.shape[0], mask.shape[-1]
+def _launch_for(k: int, bg_color, background: str, alpha_thre, early_stop_eps: float,
+                dev: int) -> _Launch:
+    """The launch of a call, found by one dict lookup: a float threshold's
+    value and a tensor threshold are keys apart, as are the backgrounds."""
+    key = (k, background if bg_color is None else None,
+           "tensor" if isinstance(alpha_thre, torch.Tensor) else alpha_thre, early_stop_eps, dev)
+    ln = _LAUNCHES.get(key)
+    if ln is None:
+        if len(_LAUNCHES) >= 64:
+            _LAUNCHES.clear()
+        ln = _LAUNCHES[key] = _Launch(k, bg_color, background, alpha_thre, early_stop_eps)
+    return ln
+
+
+def _checked(density, rgb, t_starts, t_ends, mask, alpha_thre, early_stop_eps, bg_color,
+             background, g_rgb=None, g_depth=None, g_acc=None):
+    """(the call's _Launch, n, its CUDA device) where K5a/K5b take these
+    inputs; else raise through _refuse. The wrapper's host time is a good
+    part of a call's, so the check is one expression over cheap tensor
+    properties, written out."""
+    shape = mask.shape
+    n, k = shape[0], shape[-1]
     dev = density.get_device()
-    if not (density.is_cuda and k <= MAX_SAMPLES and mask.dim() == 2
-            and _f32_on(density, (n, k, 1), dev) and _f32_on(rgb, (n, k, 3), dev)
-            and _f32_on(t_starts, (n, k), dev) and _f32_on(t_ends, (n, k), dev)
+    ln = _launch_for(k, bg_color, background, alpha_thre, early_stop_eps, dev)
+    f32 = torch.float32
+    if not (density.is_cuda and len(shape) == 2
+            and density.dtype == f32 and density.shape == (n, k, 1) and density.is_contiguous()
+            and rgb.dtype == f32 and rgb.shape == (n, k, 3) and rgb.get_device() == dev
+            and rgb.is_contiguous()
+            and t_starts.dtype == f32 and t_starts.shape == shape
+            and t_starts.get_device() == dev and t_starts.is_contiguous()
+            and t_ends.dtype == f32 and t_ends.shape == shape and t_ends.get_device() == dev
+            and t_ends.is_contiguous()
             and mask.dtype == torch.bool and mask.get_device() == dev and mask.is_contiguous()
-            and (mode != 1 or _f32_on(bg_color, (n, 3), dev))
-            and (thr_t is None or _f32_on(thr_t, (), dev))
-            and all(t is None or _f32_on(t, _COT_SHAPES[name](n), dev)
-                    for name, t in outs.items())):
-        _refuse(density, rgb, t_starts, t_ends, mask, alpha_thre, bg_color, mode, outs)
-    cull = _culls(alpha_thre)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    return _CompositeArgs(
-        density=density.data_ptr(), rgb=rgb.data_ptr(), t_starts=t_starts.data_ptr(),
-        t_ends=t_ends.data_ptr(), mask=mask.data_ptr(), bg=ptr(bg_color) if mode == 1 else None,
-        thr_ptr=ptr(thr_t), n=n, k=k, cull=int(cull), bg_mode=mode,
-        thr=0.0 if thr_t is not None or not cull else float(alpha_thre),
-        eps=float(early_stop_eps), **{name: ptr(t) for name, t in outs.items()},
-    )
+            and (ln.mode != 1 or (bg_color.dtype == f32 and bg_color.shape == (n, 3)
+                                  and bg_color.get_device() == dev and bg_color.is_contiguous()))
+            and (not ln.tensor_thr or (alpha_thre.dtype == f32 and alpha_thre.dim() == 0
+                                    and alpha_thre.get_device() == dev))
+            and (g_rgb is None or (g_rgb.dtype == f32 and g_rgb.shape == (n, 3)
+                                   and g_rgb.get_device() == dev and g_rgb.is_contiguous()))
+            and (g_depth is None or (g_depth.dtype == f32 and g_depth.shape == (n, 1)
+                                     and g_depth.get_device() == dev and g_depth.is_contiguous()))
+            and (g_acc is None or (g_acc.dtype == f32 and g_acc.shape == (n, 1)
+                                   and g_acc.get_device() == dev and g_acc.is_contiguous()))):
+        _refuse(density, rgb, t_starts, t_ends, mask, alpha_thre, bg_color, ln.mode,
+                dict(g_rgb=g_rgb, g_depth=g_depth, g_acc=g_acc))
+    return ln, n, dev
 
 
 def composite_fwd(density, rgb, t_starts, t_ends, mask, alpha_thre=0.0,
                   early_stop_eps: float = 1e-4, bg_color=None, background: str = "linear"):
     """K5a: composite_fwd_plain's (rgb (n, 3), depth (n, 1), acc (n, 1))."""
-    if density.device.type == "cpu":
+    if not density.is_cuda and density.device.type == "cpu":
         return composite_fwd_plain(density, rgb, t_starts, t_ends, mask, alpha_thre,
                                    early_stop_eps, bg_color, background)
-    args = _args(density, rgb, t_starts, t_ends, mask, alpha_thre, early_stop_eps, bg_color,
-                 background)
-    n = mask.shape[0]
-    out_rgb = torch.empty((n, 3), dtype=torch.float32, device=density.device)
-    depth = torch.empty((n, 1), dtype=torch.float32, device=density.device)
-    acc = torch.empty((n, 1), dtype=torch.float32, device=density.device)
+    ln, n, dev = _checked(density, rgb, t_starts, t_ends, mask, alpha_thre, early_stop_eps,
+                          bg_color, background)
+    # sizes as ints, not a tuple: the cheapest allocation on the host
+    out_rgb, depth, acc = density.new_empty(n, 3), density.new_empty(n, 1), \
+        density.new_empty(n, 1)
     if n == 0:
         return out_rgb, depth, acc
-    args.out_rgb, args.out_depth, args.out_acc = out_rgb.data_ptr(), depth.data_ptr(), acc.data_ptr()
-    K5A.count(_library().composite_fwd(ctypes.byref(args), cuda_build.stream(density)))
+    args = _CompositeArgs.from_buffer_copy(ln.args)
+    _CALL.pack_into(args, 0, density.data_ptr(), rgb.data_ptr(), t_starts.data_ptr(),
+                    t_ends.data_ptr(), mask.data_ptr(), bg_color.data_ptr() if ln.mode == 1 else 0,
+                    alpha_thre.data_ptr() if ln.tensor_thr else 0, 0, 0, 0, out_rgb.data_ptr(),
+                    depth.data_ptr(), acc.data_ptr(), 0, 0, n)
+    # the current stream, read on every call (cuda_build.stream)
+    K5A.count(_library().composite_fwd(args, torch._C._cuda_getCurrentRawStream(dev)))
     return out_rgb, depth, acc
 
 
 def composite_bwd(density, rgb, t_starts, t_ends, mask, alpha_thre, early_stop_eps, bg_color,
                   background, g_rgb, g_depth, g_acc):
     """K5b: composite_bwd_plain's (d density (n, k, 1), d rgb (n, k, 3))."""
-    if density.device.type == "cpu":
+    if not density.is_cuda and density.device.type == "cpu":
         return composite_bwd_plain(density, rgb, t_starts, t_ends, mask, alpha_thre,
                                    early_stop_eps, bg_color, background, g_rgb, g_depth, g_acc)
-    args = _args(density, rgb, t_starts, t_ends, mask, alpha_thre, early_stop_eps, bg_color,
-                 background, g_rgb=g_rgb, g_depth=g_depth, g_acc=g_acc)
-    d_density = torch.empty_like(density)
-    d_rgb = torch.empty_like(rgb)
-    if mask.shape[0] == 0:
+    ln, n, dev = _checked(density, rgb, t_starts, t_ends, mask, alpha_thre, early_stop_eps,
+                          bg_color, background, g_rgb, g_depth, g_acc)
+    d_density, d_rgb = torch.empty_like(density), torch.empty_like(rgb)
+    if n == 0:
         return d_density, d_rgb
-    args.d_density, args.d_rgb = d_density.data_ptr(), d_rgb.data_ptr()
-    K5B.count(_library().composite_bwd(ctypes.byref(args), cuda_build.stream(density)))
+    args = _CompositeArgs.from_buffer_copy(ln.args)
+    _CALL.pack_into(args, 0, density.data_ptr(), rgb.data_ptr(), t_starts.data_ptr(),
+                    t_ends.data_ptr(), mask.data_ptr(), bg_color.data_ptr() if ln.mode == 1 else 0,
+                    alpha_thre.data_ptr() if ln.tensor_thr else 0,
+                    0 if g_rgb is None else g_rgb.data_ptr(),
+                    0 if g_depth is None else g_depth.data_ptr(),
+                    0 if g_acc is None else g_acc.data_ptr(), 0, 0, 0, d_density.data_ptr(),
+                    d_rgb.data_ptr(), n)
+    K5B.count(_library().composite_bwd(args, torch._C._cuda_getCurrentRawStream(dev)))
     return d_density, d_rgb
 
 

@@ -6,7 +6,9 @@ march over every candidate where the hierarchical conditions fail or
 `max_samples` slots, and proposal resampling.
 
 K3 `march_ts` (csrc/march.cu, built and loaded by cuda_build) is the whole
-selection in one kernel: a warp a ray, its compactions by ballots. Its
+selection in one kernel: a warp a ray, its compactions by ballots, its
+scratch static for every config within 64 slots, 64 coarse segments and 64
+rounds of 32 candidates and sized at launch past them. Its
 plain version `march_ts_plain` is the same pipeline in torch ops; the TPU
 compacts with one-hot matmuls, the plain version scatters into the slots,
 which gives the same values. The wrapper runs the plain version for CPU
@@ -322,14 +324,14 @@ _FLOATS = ("aabb", "inv_aabb", "half", "neg_half", "near_plane", "far_plane", "s
            "inv_step", "t_crit", "base", "lam", "one_minus_lam", "inv_F", "F_f")
 # fields added after the first layout, at its end: an earlier build of
 # csrc/march.cu reads the same struct's prefix
-_TAIL = ("growth",)
+_TAIL = (("growth", ctypes.c_void_p), ("wide", ctypes.c_int))
 
 
 class _MarchArgs(ctypes.Structure):
     """csrc/march.cu's MarchArgs, field for field."""
 
     _fields_ = ([(f, ctypes.c_void_p) for f in _PTRS] + [(f, ctypes.c_int) for f in _INTS]
-                + [(f, ctypes.c_float) for f in _FLOATS] + [(f, ctypes.c_void_p) for f in _TAIL])
+                + [(f, ctypes.c_float) for f in _FLOATS] + list(_TAIL))
 
 
 # a call's own fields, written at once: the ten pointers, then n
@@ -344,8 +346,12 @@ def _library():
     return lib
 
 
-MAX_SLOTS = 64  # k, max_coarse_segments
-MAX_ROUNDS = 64  # 32-candidate rounds of one sweep
+# csrc/march.cu's static per-warp layout (kMaxK, kMaxSegs, kMaxRounds):
+# configs within it (every preset) take it, the rest the wide layout
+STATIC_SLOTS = 64  # k, max_coarse_segments
+STATIC_ROUNDS = 64  # 32-candidate rounds of one sweep
+WARPS = 4  # a block's warps, a ray each
+SMEM_BYTES = 232_448  # the shared memory a block can have on the H100 (227 KB)
 
 
 def _f32(x) -> float:
@@ -367,12 +373,17 @@ def _scalars(occ_config, config: MarchConfig) -> dict:
     R = occ_config.resolution
     mc = config.max_candidates // cf if hier else config.max_candidates
     k1 = config.max_coarse_segments
-    if k > MAX_SLOTS or (hier and (k1 > MAX_SLOTS or cf > 32)):
-        raise ValueError(f"K3 takes at most {MAX_SLOTS} samples and coarse segments and a "
-                         f"coarse_factor of at most 32, got {k}, {k1} and {cf}")
-    rounds = max(-(-mc // 32), -(-k1 // (32 // cf))) if hier else -(-mc // 32)
-    if rounds > MAX_ROUNDS:
-        raise ValueError(f"K3 takes at most {MAX_ROUNDS} rounds of 32 candidates, got {rounds}")
+    if hier and cf > 32:
+        raise ValueError(f"K3's hierarchical march takes a coarse_factor of at most 32 (phase 2 "
+                         f"packs whole segments into a round of 32 candidates), got {cf}")
+    r1, rounds, words = wide_words(hier, mc, cf, k1, k, F)
+    wide = k > STATIC_SLOTS or rounds > STATIC_ROUNDS or (
+        hier and (k1 > STATIC_SLOTS or r1 + 1 > STATIC_ROUNDS + 2))
+    if wide and WARPS * 4 * words > SMEM_BYTES:
+        raise ValueError(
+            f"K3 needs {WARPS * 4 * words} bytes of shared memory a block for max_samples {k}, "
+            f"proposal_samples {F}, max_candidates {config.max_candidates}, coarse_factor {cf} "
+            f"and max_coarse_segments {k1}: more than the card's {SMEM_BYTES}")
     half = occ_config.aabb_scale * (2.0 ** (occ_config.levels - 1))
     step, cone = config.render_step_size, config.cone_angle
     return dict(
@@ -385,8 +396,17 @@ def _scalars(occ_config, config: MarchConfig) -> dict:
         t_crit=_f32(step / cone) if cone > 0.0 else 0.0, base=_f32(1.0 + cone),
         lam=_f32(config.proposal_uniform_frac),
         one_minus_lam=_f32(1.0 - config.proposal_uniform_frac),
-        inv_F=_inv_f32(F) if F else 0.0, F_f=float(F),
+        inv_F=_inv_f32(F) if F else 0.0, F_f=float(F), wide=int(wide),
     )
+
+
+def wide_words(hier: bool, mc: int, cf: int, k1: int, k: int, F: int):
+    """(phase 1's rounds r1, the fine sweep's rounds, the 32-bit words a
+    warp's scratch takes in csrc/march.cu's wide layout: wide_words there).
+    mc is the segments (hierarchical) or the candidates (flat)."""
+    r1 = (mc + 32) // 32 if hier else 0  # rounds of the mc + 1 boundaries
+    rounds = -(-k1 // (32 // cf)) if hier else -(-mc // 32)
+    return r1, rounds, (r1 + 1) + r1 + rounds + (k1 if hier else 0) + F + 5 * k
 
 
 def _check(o, d, nears, fars, occ_state, sc: dict) -> int:

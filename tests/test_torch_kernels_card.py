@@ -6,8 +6,9 @@ flagship's 16 levels (16 and 48 samples a ray) and at 2 and 3 levels, and
 the gathers G1-G3 (lsenerf_tpu_torch/ops/gather.py), held to exact
 equality, G2 at the shapes that pick each of its paths and G3 at several
 table and index shapes; K3 (lsenerf_tpu_torch/ops/march.py) at the
-flagship's widths on three grids, its selection bit for bit, and K5a/K5b
-(lsenerf_tpu_torch/ops/composite.py) at 16 and 48 samples a ray for every
+flagship's widths on three grids and past its static layout (96 slots and
+coarse segments, 4096 candidates), its selection bit for bit, and K5a/K5b
+(lsenerf_tpu_torch/ops/composite.py) at 1 to 200 samples a ray for every
 background.
 
 This file imports neither JAX nor the JAX package, so a machine with the
@@ -406,6 +407,12 @@ MARCH_CASES = {
     "packed_ones": dict(),
     "packed_random_nearfar": dict(),
     "packed_ball_deep": dict(),  # nears past t_crit: n_lin 0, the whole growth table
+    # past the static layout's 64 slots and rounds: the wide layout
+    "packed_ball_k96": dict(max_samples=96),
+    "packed_ball_segs96": dict(max_coarse_segments=96),
+    "flat_ball_cands4096": dict(hierarchical=False, max_candidates=4096),
+    "packed_ball_all_wide": dict(max_samples=96, max_coarse_segments=96, max_candidates=4096,
+                                 proposal_samples=80),
 }
 
 
@@ -414,9 +421,10 @@ MARCH_CASES = {
 def test_march_matches_plain_on_card(case):
     """K3 against march_ts_plain at the flagship's widths (128^3 x 4 grid,
     1024 candidates, 48 slots, F=16), also with every ray's candidates in
-    the cone angle's geometric branch: the selection before the proposal
-    bit for bit, the proposal's samples equal but for bin flips at most
-    1e-4 of them, each within 1e-6 of a CDF step."""
+    the cone angle's geometric branch, and past the static layout (96
+    slots, 96 coarse segments, 4096 candidates, F=80): the selection
+    before the proposal bit for bit, the proposal's samples equal but for
+    bin flips at most 1e-4 of them, each within 1e-6 of a CDF step."""
     import dataclasses
 
     from lsenerf_tpu_torch.ops import march
@@ -461,17 +469,28 @@ def test_march_matches_plain_on_card(case):
 
 
 def _composite_inputs(n, k, dev, seed=0):
+    """n rays of k samples; among the first rays (where n has them) an inf
+    density, a masked-out inf, a ray culled whole at alpha_thre 0.01, an
+    opaque one (early stop), an all-masked one and one whose second half
+    is inf."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = 0.01 + 0.2 * torch.rand((n, k), generator=gen, device=dev)
     te = torch.cumsum(dt, 1)
     ts = te - dt
     mask = torch.rand((n, k), generator=gen, device=dev) < 0.8
     dens = -3.0 * torch.log(torch.rand((n, k, 1), generator=gen, device=dev))
-    dens[0, 3, 0] = float("inf")
-    dens[1, 2, 0] = float("inf")
-    mask[1, 2] = False
-    dens[2] = 0.04
-    dens[3] = 500.0
+    inf = float("inf")
+    if n > 0:
+        dens[0, min(3, k - 1), 0] = inf
+    if n > 1:
+        dens[1, min(2, k - 1), 0] = inf
+        mask[1, min(2, k - 1)] = False
+    if n > 3:
+        dens[2] = 0.04
+        dens[3] = 500.0
+    if n > 5:
+        mask[4] = False
+        dens[5, k // 2:, 0] = inf
     rgb = torch.rand((n, k, 3), generator=gen, device=dev)
     bg = torch.rand((n, 3), generator=gen, device=dev)
     cot = (torch.randn((n, 3), generator=gen, device=dev),
@@ -480,29 +499,44 @@ def _composite_inputs(n, k, dev, seed=0):
     return dens, rgb, ts, te, mask, bg, cot
 
 
+# K5a/K5b's samples a ray: each layout's edges (8, 16, 32, 48, 64 a warp's
+# lanes; 128 a tile), the tiled walk past 128, and the flagship's 16 and 48
+COMPOSITE_KS = [1, 2, 7, 15, 16, 17, 31, 32, 33, 47, 48, 63, 64, 65, 96, 200]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("background", ["linear", "black", "white", "last_sample", "random"])
-@pytest.mark.parametrize("k", [16, 48])
+@pytest.mark.parametrize("k", COMPOSITE_KS)
 def test_composite_matches_plain_on_card(background, k):
-    """K5a/K5b against composite_fwd_plain/composite_bwd_plain with inf
-    densities, culled samples and an early stop, both alpha_thre forms;
-    None cotangents as zeros; the same bits from call to call."""
+    """K5a/K5b against composite_fwd_plain/composite_bwd_plain at 1, 3511
+    and 4097 rays (the last warp and block part full), with inf densities,
+    culled samples, an early stop and an all-masked ray, both alpha_thre
+    forms; None cotangents as zeros; the same bits from call to call. A
+    ray whose transmittance ties early_stop_eps (within an ulp or two: the
+    sums' orders decide it) is held to the plain version at early_stop_eps
+    nudged by composite.TIE (1e-6) either way, at the same tolerances."""
     from lsenerf_tpu_torch.ops import composite
 
     dev = _card()
-    dens, rgb, ts, te, mask, bg, cot = _composite_inputs(3512, k, dev)
-    for at in (0.01, torch.tensor(0.01, device=dev), 0.0):
-        a = (dens, rgb, ts, te, mask, at, 1e-4, bg if background == "random" else None,
-             background)
-        for g, w in zip(composite.composite_fwd(*a), composite.composite_fwd_plain(*a)):
-            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
-        for c in (cot, (cot[0], None, cot[2])):
-            got = composite.composite_bwd(*a, *c)
-            for g, w in zip(got, composite.composite_bwd_plain(*a, *c)):
-                assert torch.isfinite(g).all()
-                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
-            again = composite.composite_bwd(*a, *c)
+    for n in (1, 3511, 4097):
+        dens, rgb, ts, te, mask, bg, cot = _composite_inputs(n, k, dev)
+        for at in (0.01, torch.tensor(0.01, device=dev), 0.0):
+            a = (dens, rgb, ts, te, mask, at, 1e-4, bg if background == "random" else None,
+                 background)
+            got = composite.composite_fwd(*a)
+            assert all(torch.isfinite(g).all() for g in got)
+            off, ties = composite.rays_off_plain(got, composite.composite_fwd_plain, a)
+            assert not off.any() and int(ties.sum()) <= 2, (off.nonzero(), ties.nonzero())
+            again = composite.composite_fwd(*a)
             assert all(torch.equal(x, y) for x, y in zip(got, again))
+            for c in (cot, (cot[0], None, cot[2])):
+                got = composite.composite_bwd(*a, *c)
+                assert all(torch.isfinite(g).all() for g in got)
+                off, ties = composite.rays_off_plain(got, composite.composite_bwd_plain, a, c,
+                                                     rtol=1e-4)
+                assert not off.any() and int(ties.sum()) <= 2, (off.nonzero(), ties.nonzero())
+                again = composite.composite_bwd(*a, *c)
+                assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda

@@ -94,10 +94,17 @@ def test_march_refuses_what_its_kernel_does_not_take():
         tmarch._check(o, d, torch.zeros(4, 1), None, st, sc)
     with pytest.raises(ValueError, match="binaries"):
         tmarch._check(o, d, None, None, tocc.OccGridState(st.occs, st.binaries.float()), sc)
-    with pytest.raises(ValueError, match="at most"):
-        tmarch._scalars(TG, dataclasses.replace(BASE, max_samples=96))
-    with pytest.raises(ValueError, match="rounds"):
-        tmarch._scalars(TG, dataclasses.replace(BASE, hierarchical=False, max_candidates=4096))
+    # past the static layout's 64 slots and 64 rounds a config takes the
+    # wide one; the coarse_factor past 32 and a block's shared memory refuse
+    assert not tmarch._scalars(TG, BASE)["wide"]
+    assert tmarch._scalars(TG, dataclasses.replace(BASE, max_samples=96))["wide"]
+    assert tmarch._scalars(TG, dataclasses.replace(BASE, hierarchical=False,
+                                                   max_candidates=4096))["wide"]
+    with pytest.raises(ValueError, match="shared memory"):
+        tmarch._scalars(TG, dataclasses.replace(BASE, max_samples=20_000))
+    one = tocc.OccGridConfig(resolution=128, levels=1)
+    with pytest.raises(ValueError, match="coarse_factor of at most 32"):
+        tmarch._scalars(one, dataclasses.replace(BASE, coarse_factor=64, max_candidates=4096))
 
 
 def test_supergrid_is_built_once_a_state():
@@ -177,13 +184,15 @@ def test_composite_bwd_plain_equals_autograd_in_f64(background, thre):
     assert torch.equal(gd0, gd1)
 
 
+@pytest.mark.parametrize("k", [16, 96])
 @pytest.mark.parametrize("alpha_thre", [0.0, 0.01])
-def test_composite_function_matches_jax_grad(alpha_thre):
+def test_composite_function_matches_jax_grad(alpha_thre, k):
     """`composite` (the autograd Function: composite_fwd_plain forward,
     composite_bwd_plain backward on the CPU) against jax.grad of the JAX
     chain, values and gradients, on the inf-density inputs of
-    test_torch_field_composite.py with the random background."""
-    ts, te, mask, dens, rgb, bg, g_rgb, g_d, g_a = _samples(3)
+    test_torch_field_composite.py with the random background, at 16 and
+    96 samples a ray (K5a/K5b take any k, as JAX does)."""
+    ts, te, mask, dens, rgb, bg, g_rgb, g_d, g_a = _samples(3, k=k)
     n, k = mask.shape
     z3 = np.zeros((n, k, 3), np.float32)
 
@@ -231,7 +240,7 @@ def test_composite_refuses_what_its_kernels_do_not_take():
 
     def check(match, **bad):
         with pytest.raises(ValueError, match=match):
-            tcomp._args(**dict(ok, **bad))
+            tcomp._checked(**dict(ok, **bad))
 
     check("CUDA")
     check("density", density=dens.double())
@@ -240,9 +249,12 @@ def test_composite_refuses_what_its_kernels_do_not_take():
     check("bg_color", bg_color=bg[:3])
     check("alpha_thre", alpha_thre=torch.tensor([0.01]))
     check("g_depth", g_depth=g_d[:, 0])
+    check("g_rgb", g_rgb=g_rgb[:, :2])
     check("random background needs", bg_color=None)
+    check("must be contiguous", t_ends=te.t().contiguous().t())
+    # no limit on the samples a ray: 96 of them fail only for the device
     big = torch.zeros(2, 96)
-    check("at most", density=big[..., None], rgb=torch.zeros(2, 96, 3), t_starts=big, t_ends=big,
+    check("CUDA", density=big[..., None], rgb=torch.zeros(2, 96, 3), t_starts=big, t_ends=big,
           mask=big.bool(), bg_color=torch.zeros(2, 3))
 
 

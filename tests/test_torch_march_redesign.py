@@ -9,9 +9,10 @@ the plain version (march_ts_plain's pieces) and the JAX package's march.
   word's first bit, masked by t < t_hi and s < mc, rounds past t_hi left
   unread) equals the plain version's keep_c, and the JAX package's, on
   random grids and on the fresh all-ones grid.
-- The table spans every candidate index of the largest max_candidates the
-  kernel's rounds limit takes, and the wrapper refuses one past it; its
-  argument struct begins with the first design's fields in their order.
+- The table spans every candidate index at a max_candidates past the
+  kernel's static layout (a wide launch), and the wrapper refuses only a
+  config whose scratch exceeds a block's shared memory; its argument
+  struct begins with the first design's fields in their order.
 - ModelConfig keeps its train and eval march configs, the objects the
   wrapper finds its launch by.
 
@@ -163,12 +164,13 @@ def test_phase1_keep_words_are_keep_c(case):
 
 def test_growth_table_spans_every_candidate_the_rounds_limit_takes():
     gcfg = tocc.OccGridConfig()
-    # coarse_factor 32: 64 rounds of 32 segments, each 32 candidates
+    # coarse_factor 32: twice the static layout's 64 rounds of 32 segments,
+    # each 32 candidates, so the launch takes the wide layout
     big = dataclasses.replace(FLAGSHIP, coarse_factor=32,
-                              max_candidates=tmarch.MAX_ROUNDS * 32 * 32)
+                              max_candidates=2 * tmarch.STATIC_ROUNDS * 32 * 32)
     assert tmarch.use_hierarchical(gcfg, big)
     sc = tmarch._scalars(gcfg, big)
-    assert sc["geo"] and sc["mc"] * big.coarse_factor == big.max_candidates
+    assert sc["geo"] and sc["wide"] and sc["mc"] * big.coarse_factor == big.max_candidates
     table = tmarch.growth_table(big.cone_angle, big.max_candidates, "cpu")
     # the last boundary of a ray from t = 0 reads the table's last entry
     step, cone = big.render_step_size, big.cone_angle
@@ -179,8 +181,85 @@ def test_growth_table_spans_every_candidate_the_rounds_limit_takes():
     g = torch.clamp(i - n_lin, min=0.0).long()
     got = torch.where(i <= n_lin, t_lo[:, None] + i * step, (t_lo[:, None] + n_lin * step) * table[g])
     assert g.max() < table.shape[0] and torch.equal(got.view(torch.int32), want.view(torch.int32))
-    with pytest.raises(ValueError, match="rounds"):
-        tmarch._scalars(gcfg, dataclasses.replace(big, max_candidates=big.max_candidates + 32))
+    # refused only where a block's scratch exceeds the card's shared memory
+    huge = dataclasses.replace(big, max_samples=12_000)
+    words = tmarch.wide_words(True, sc["mc"], 32, big.max_coarse_segments, 12_000, 16)[2]
+    assert tmarch.WARPS * 4 * words > tmarch.SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory a block for max_samples 12000"):
+        tmarch._scalars(gcfg, huge)
+
+
+# past K3's static layout (64 slots, 64 coarse segments, 64 rounds of 32
+# candidates): configs the JAX package's march takes as any other
+WIDE = {
+    "k96": dict(max_samples=96, max_candidates=1024, proposal_samples=16),
+    "segs96": dict(max_coarse_segments=96, max_candidates=1024),
+    "flat4096": dict(hierarchical_march=False, max_candidates=4096),
+    "all": dict(max_samples=96, max_coarse_segments=96, max_candidates=4096,
+                proposal_samples=80),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE))
+def test_march_past_the_static_layout_matches_jax(case):
+    """march_ts_plain (K3's plain version, through march_rays) against
+    the JAX package's march_rays at 96 samples, 96 coarse segments and
+    4096 candidates, where K3 takes its wide layout: masks equal, the
+    intervals within the parity march's tolerance."""
+    import torch_parity
+    from lsenerf_tpu.cameras.rays import RayBundle as JBundle
+    from lsenerf_tpu_torch.cameras.rays import RayBundle as TBundle
+
+    jm, tm = torch_parity.model_configs(model=WIDE[case])
+    jmc, tmc = jm.march_config(), tm.march_config()
+    gcfg = tocc.OccGridConfig(**torch_parity.GRID)
+    sc = tmarch._scalars(gcfg, tmc)
+    assert sc["wide"] and sc["hier"] == (case != "flat4096")
+    assert tmarch.uses_proposal(tmc)
+    rng = np.random.default_rng(7)
+    n = 128
+    d = rng.standard_normal((n, 3))
+    o = (d / np.linalg.norm(d, axis=1, keepdims=True) * rng.uniform(1.2, 3.0, (n, 1)))
+    dirs = rng.uniform(-0.6, 0.6, (n, 3)) - o
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    o, dirs = o.astype(np.float32), dirs.astype(np.float32)
+    occs, binaries = torch_parity.sparse_grid(seed=2, radius=0.7)
+    z1 = np.zeros((n, 1), np.float32)
+    jb = JBundle(origins=jnp.asarray(o), directions=jnp.asarray(dirs),
+                 pixel_area=jnp.asarray(z1), camera_indices=jnp.zeros((n, 1), jnp.int32))
+    tb = TBundle(origins=torch.from_numpy(o), directions=torch.from_numpy(dirs),
+                 pixel_area=torch.from_numpy(z1),
+                 camera_indices=torch.zeros((n, 1), dtype=torch.int32))
+    js = jmarch.march_rays(jb, jocc.OccGridState(occs=jnp.asarray(occs),
+                                                 binaries=jnp.asarray(binaries)),
+                           jocc.OccGridConfig(**torch_parity.GRID), jmc)
+    state = tocc.OccGridState(occs=torch.from_numpy(occs), binaries=torch.from_numpy(binaries))
+    ts = tmarch.march_rays(tb, state, gcfg, tmc)
+    np.testing.assert_array_equal(ts.mask.numpy(), np.asarray(js.mask))
+    np.testing.assert_allclose(ts.t_starts.numpy(), np.asarray(js.t_starts), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ts.t_ends.numpy(), np.asarray(js.t_ends), rtol=1e-5, atol=1e-6)
+    counts = np.asarray(js.mask).sum(1)
+    assert (counts == 0).any() and (counts > 0).any()
+    if tmc.max_samples > 64:  # the selection fills slots past the static layout's 64
+        pre = tmarch.march_ts_plain(tb.origins, tb.directions, None, None, state, gcfg,
+                                    dataclasses.replace(tmc, proposal_samples=0))
+        assert int(pre[2].sum(1).max()) > 64
+
+
+def test_presets_take_the_static_layout():
+    """Every preset's march (the flagship's, the CLI defaults', the tiny
+    golden's) fits K3's static layout, whose kernel is the first redesign's."""
+    from lsenerf_tpu_torch import flagship
+
+    gcfg = tocc.OccGridConfig()
+    for preset in flagship.PRESETS:
+        cfg = flagship.preset_model_config(preset)
+        for train in (True, False):
+            assert not tmarch._scalars(cfg.grid, cfg.march_config(train))["wide"]
+    assert not tmarch._scalars(gcfg, ModelConfig().march_config())["wide"]
+    tiny = ModelConfig(max_samples=16, max_candidates=64)
+    assert not tmarch._scalars(tocc.OccGridConfig(resolution=16, levels=1),
+                               tiny.march_config())["wide"]
 
 
 # the first design's MarchArgs (csrc/march.cu before the growth table)
@@ -201,7 +280,7 @@ def test_march_args_begin_with_the_first_designs_fields():
     kinds = {ctypes.c_void_p: "P", ctypes.c_int: "i", ctypes.c_float: "f"}
     fields = [(name, kinds[t]) for name, t in tmarch._MarchArgs._fields_]
     assert fields[: len(FIRST_FIELDS)] == FIRST_FIELDS
-    assert fields[len(FIRST_FIELDS):] == [("growth", "P")]
+    assert fields[len(FIRST_FIELDS):] == [("growth", "P"), ("wide", "i")]
     # a call writes the ten pointers and n at once, where the struct has them
     assert tmarch._CALL.size == tmarch._MarchArgs.n.offset + ctypes.sizeof(ctypes.c_int)
     assert tmarch._MarchArgs.mask.offset == 9 * ctypes.sizeof(ctypes.c_void_p)
