@@ -44,8 +44,12 @@ Phases, each fatal on failure (exit code 1):
      selection before the proposal must be the plain version's bits, and
      with the proposal (F=16) at most 1e-4 of the samples may differ, each
      a bin flip with its quantile within 1e-6 of a CDF step (the count is
-     printed); the same past K3's static layout (96 slots, 96 coarse
-     segments, 4096 candidates, F=80: its wide layout), timed once. Then
+     printed); the same past K3's static layout (flagship.WIDE_MARCHES:
+     96 slots, 96 coarse segments, 4096 candidates, each alone and all
+     three with F=80, in dynamic shared memory), with segments wider than
+     a warp (coarse_factor 64 on the step's grid doubled to 256^3) and
+     with its scratch in the global workspace (3000 slots over 4096 flat
+     candidates); the last three timed once, beside their bounds. Then
      K5a/K5b (composite_fwd/_bwd, csrc/composite.cu) against their plain
      versions at that step's densities, colours and cotangents (3512 x
      16), at 3510 x 48 and at an eval chunk's 4096 x 48, and at that
@@ -97,10 +101,13 @@ Phases, each fatal on failure (exit code 1):
      127.0.0.1:0 in a thread over the same model: GET /, GET /info and POST
      /render at each resolution for rgb, depth and accumulation, a PNG
      reply decoding to exactly session.render's array (ms a request);
-  4j. two short CLI runs on that scene: with use_native, whose first two
-     batches must equal the native prefetcher's built directly at the
-     same seed; and with proposal_warmup_steps, whose steps must run
-     without the proposal up to the switch and at F=16 after it;
+  4j. three short CLI runs on that scene: with use_native, whose first
+     two batches must equal the native prefetcher's built directly at the
+     same seed; with proposal_warmup_steps, whose steps must run without
+     the proposal up to the switch and at F=16 after it; and with
+     --pipeline.model.grid-resolution 256 --pipeline.model.coarse-factor
+     64 --pipeline.model.max-candidates 4096, whose march must be the
+     hierarchical one at segments wider than a warp, through K3;
   4f. scripts/parity.py --tiny through the same CLI (lsenerf_tpu_torch/
      parity.py): 1500 steps on the 64x64 golden scene at each of four
      seeds; the mean PSNR and SSIM must lie within parity.tiny_gate's
@@ -770,8 +777,10 @@ def check_march_composite(dev):
     miss the aabb; with nears/fars; the flat march, the unpacked phase 2
     and cone_angle 0; and nears past t_crit (the whole growth table); then
     past its static layout (flagship.march_wide_cases: 96 slots, 96 coarse
-    segments, 4096 flat candidates, each alone, then all three with F=80,
-    timed). K5a/K5b at the
+    segments, 4096 flat candidates, coarse_factor 64 on the grid doubled to
+    256^3, 3000 slots in the global workspace, then 96 slots, 96 segments
+    and 4096 candidates with F=80; the last three timed, beside their
+    bounds). K5a/K5b at the
     step's densities, colours and cotangents (3512 x 16), at 3510 x 48 and
     at the eval chunk's 4096 x 48 (flagship.composite_shapes), and at the
     eval chunk's rays cut or walked on to each of COMPOSITE_EDGES, for
@@ -790,9 +799,9 @@ def check_march_composite(dev):
     calls = march_composite_calls(dev)
     print(f"the flagship's step 16 and an eval chunk for K3/K5's inputs: {time.time() - t0:.1f} s")
     gcfg = calls["march"][5]
-    cases = march_cases(calls) + march_wide_cases(calls)
-    flips = {label: check_march_case(label, *rays, st, gcfg, c)
-             for label, *rays, st, c in cases}
+    cases = [(label, *rays, st, gcfg, c) for label, *rays, st, c in march_cases(calls)]
+    wide = march_wide_cases(calls)
+    flips = {label: check_march_case(label, *a) for label, *a in cases + wide}
     res = {}
 
     def timed(fn, plain, nbound):
@@ -808,13 +817,16 @@ def check_march_composite(dev):
         print(f"{march.K3.name} at {label}: {fmt(r)}; cold L2 {r['cold_ms']:.5f} ms; distinct "
               f"cells read {cells}")
         res.setdefault(march.K3.name, {}).setdefault("shapes", {})[key] = r
-    label, *rays, st, wide = cases[-1]
-    a = (*rays, st, gcfg, wide)
-    r = dict(device_ms=device_ms(lambda: march.march_ts(*a)),
-             cold_ms=cold_ms(lambda: march.march_ts(*a)))
-    print(f"{march.K3.name} at step 16 past its static layout ({label}): "
-          f"{r['device_ms']:.5f} ms on the device, cold L2 {r['cold_ms']:.5f} ms")
-    res[march.K3.name]["shapes"]["wide"] = r
+    for key, (label, *a) in zip(("cf64", "global", "wide"), wide[-3:]):
+        b_ms, b_by, _ = march_bound(*a)
+        ln = march._launch(a[5], a[6], dev.index or 0)
+        r = dict(device_ms=device_ms(lambda: march.march_ts(*a)),
+                 cold_ms=cold_ms(lambda: march.march_ts(*a)), bound_ms=b_ms, bound_by=b_by,
+                 layout=ln.sc["wide"], workspace_bytes=a[0].shape[0] * ln.words * 4)
+        print(f"{march.K3.name} at step 16 past its static layout ({label}; layout {r['layout']}, "
+              f"a global workspace of {r['workspace_bytes']} bytes): {r['device_ms']:.5f} ms on "
+              f"the device, cold L2 {r['cold_ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by})")
+        res[march.K3.name]["shapes"][key] = r
     k3 = res[march.K3.name]
     k3.update(k3["shapes"].pop("march"), proposal_flips=flips)
 
@@ -1352,8 +1364,9 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60, 20), scene=No
     protocol, and an lsenerf_emb run through emb_eval.sh's two stages
     (4e); then a run with the real_scale_badnerf_ngpf32 golden's flags and
     its eval.sh (4h); then on a short scene of the same profile the render
-    and viewer entry points with the 4h run's checkpoint (4i), and two
-    short runs with the native prefetcher and the proposal warmup (4j).
+    and viewer entry points with the 4h run's checkpoint (4i), and three
+    short runs with the native prefetcher, the proposal warmup and the
+    hierarchical march at coarse_factor 64 on a 256^3 grid (4j).
     `steps`: train, resume, eval.sh, emb train, emb stage 1, emb stage 2,
     ngpf32 train, its eval.sh, each 4j run. Returns the path kernels'
     launches summed over the stages."""
@@ -1368,7 +1381,7 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60, 20), scene=No
     from lsenerf_tpu_torch.data.datamanager import DataManagerConfig
     from lsenerf_tpu_torch.data.synthetic import write_reference_scene
     from lsenerf_tpu_torch.engine.config import load_config
-    from lsenerf_tpu_torch.ops import metrics
+    from lsenerf_tpu_torch.ops import march, metrics
 
     n_train, n_resume, n_eval, n_emb, n_pre, n_post, n_ngp, n_ngp_eval, n_knob = steps
     scene = scene or dict(n_cams=200, h=480, w=640, focal=0.9 * 640, n_val=4, texture_freq=24.0)
@@ -1591,7 +1604,26 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60, 20), scene=No
         if probe.proposals != want or steps != list(range(n_knob)):
             fail(f"4j proposal warmup: steps {steps} ran at F {probe.proposals}, not {want}")
         print(f"4j proposal warmup: steps 0-{warm - 1} without the proposal, {warm}-{n_knob - 1} "
-              f"at F=16, one trainer throughout; 4j {time.time() - t0:.1f} s wall; {card}")
+              f"at F=16, one trainer throughout; {card}")
+        # segments wider than a warp: the hierarchical march at coarse_factor 64
+        seen = {}
+
+        def march_kind(t):
+            mcfg = t.model_config.march_config()
+            seen.update(hier=march.use_hierarchical(t.model_config.grid, mcfg),
+                        cf=mcfg.coarse_factor, wide=march._scalars(t.model_config.grid, mcfg)["wide"])
+
+        stage("4j coarse_factor 64", ["lsenerf", "--output-dir", os.path.join(work, "cf64"),
+                                      "--max-num-iterations", str(n_knob),
+                                      "--pipeline.model.grid-resolution", "256",
+                                      "--pipeline.model.coarse-factor", "64",
+                                      "--pipeline.model.max-candidates", "4096"] + knob,
+              CliProbe(after=march_kind))
+        if seen != dict(hier=True, cf=64, wide=march.STATIC):
+            fail(f"4j coarse_factor 64: the run's march is {seen}, not hierarchical at 64")
+        print(f"4j coarse_factor 64: {n_knob} steps on a 256^3 grid through K3's hierarchical march "
+              f"(segments of 64 candidates, wider than a warp); 4j {time.time() - t0:.1f} s wall; "
+              f"{card}")
     print(f"4e-4j peak memory {peak / 2**30:.2f} GiB; launches {total}; {card}")
     return total
 

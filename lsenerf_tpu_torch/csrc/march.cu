@@ -47,8 +47,12 @@
 // - Phase 2 sweeps the kept segments x cf fine midpoints, whole segments to
 //   a round (32 / cf of them), so that the packed rule's first and last
 //   midpoint of a segment are lanes of the same round (__shfl_sync); only
-//   the rounds that hold kept segments run. Flat: the max_candidates
-//   midpoints against the fine grid.
+//   the rounds that hold kept segments run. A segment wider than a warp (cf
+//   > 32, the kernels' Long instances, chosen once a launch) spans rounds:
+//   the kept segments' candidates lie end to end, 32 a round, and lanes 0-3
+//   look up the first and last midpoint of the round's (at most two)
+//   segments with cand_at's arithmetic, shuffled to the lanes for the
+//   packed rule. Flat: the max_candidates midpoints against the fine grid.
 // - Proposal: a lane a slot (k <= 64: two halves), both halves' EMA loads
 //   together, the weight sum and the inverse CDF's cumulative sum in f64 by
 //   warp shuffles; with proposal_uniform_frac > 0 every nonzero pdf entry is
@@ -60,10 +64,12 @@
 //   segments, the k slots, the proposal's pdf and CDF) are static shared
 //   memory sized for 64 slots, 64 coarse segments and 64 rounds, which
 //   every preset fits. A config past them (MarchArgs.wide, set by the
-//   wrapper) runs the same code on the arrays at its own sizes in dynamic
-//   shared memory (wide_words), its proposal a lane a slot in rounds of 32,
-//   so any max_samples, max_coarse_segments and max_candidates run, as in
-//   the JAX package, up to a block's 227 KB.
+//   wrapper) runs the same code on the arrays at its own sizes (wide_words),
+//   its proposal a lane a slot in rounds of 32, in dynamic shared memory up
+//   to a block's 227 KB, and past it (MarchArgs.wide 2) in a global-memory
+//   workspace of the wrapper's, wide_words a ray; so any max_samples,
+//   max_coarse_segments, max_candidates and coarse_factor run, as in the
+//   JAX package.
 // - Bits: the plain version runs as torch runs it on CUDA, and the kernel
 //   repeats each operation's rounding: products and sums with __fmul_rn /
 //   __fadd_rn (no contraction into FMAs), IEEE division (__fdiv_rn) and
@@ -102,7 +108,9 @@ struct MarchArgs {
   float step, inv_step, t_crit, base;
   float lam, one_minus_lam, inv_F, F_f;
   const float* growth;   // (max_candidates + 1,) f32 (1+cone)^g (geo only)
-  int wide;              // 0: the static per-warp layout; 1: wide_words' layout
+  int wide;              // 0: the static per-warp layout; wide_words' layout in dynamic
+                         // shared memory (1) or in the global workspace (2)
+  uint32_t* scratch;     // wide 2: the global workspace, n x wide_words words
 };
 
 }  // extern "C"
@@ -133,8 +141,8 @@ struct WarpSmem {
 };
 
 // A warp's scratch, wide: the same arrays at the launch's sizes, in dynamic
-// shared memory (configs past the static capacities), and the proposal's
-// bin of each output sample.
+// shared memory or the global workspace (configs past the static
+// capacities), and the proposal's bin of each output sample.
 struct WarpPtrs {
   uint32_t *occ, *lt, *ballots;
   int *segidx, *idx;
@@ -145,8 +153,11 @@ struct WarpPtrs {
 // the same), its arrays carved from base where given.
 __host__ __device__ inline int wide_words(const MarchArgs& a, uint32_t* base, WarpPtrs* p) {
   const int r1 = a.hier ? (a.mc + 32) / 32 : 0;  // phase 1's rounds of mc + 1 boundaries
-  const int per = a.hier ? 32 / a.cf : 32;       // phase 2's kept segments a round, or flat
-  const int rounds = a.hier ? (a.k1 + per - 1) / per : (a.mc + 31) / 32;
+  // the fine sweep's rounds: whole segments a round (32 / cf of them), end
+  // to end where a segment is wider than a warp, or flat
+  const int rounds = !a.hier ? (a.mc + 31) / 32
+                     : a.cf > 32 ? (a.k1 * a.cf + 31) / 32
+                                 : (a.k1 + 32 / a.cf - 1) / (32 / a.cf);
   const int sizes[10] = {r1 + 1, r1, rounds, a.hier ? a.k1 : 0, a.F, a.k, a.k, a.k, a.k, a.k};
   int words = 0;
   uint32_t* at[10];
@@ -203,6 +214,11 @@ __device__ __forceinline__ long flat_index(const Cell& c, int R) {
   return (((long)c.lvl * R + c.x) * R + c.y) * R + c.z;
 }
 
+// The packed rule's key of a fine cell: its supercell's index.
+__device__ __forceinline__ int super_index(const MarchArgs& a, const Cell& c, const Div& cf) {
+  return ((c.lvl * a.S + cf.div(c.x)) * a.S + cf.div(c.y)) * a.S + cf.div(c.z);
+}
+
 __device__ Ray setup_ray(const MarchArgs& a, int i) {
   Ray r;
   float tn = -INFINITY, tf = INFINITY;
@@ -237,7 +253,8 @@ struct Cand {
 };
 
 // Round rd's candidate of this lane: phase 2's (candidate c of slot c / cf,
-// fine index c % cf of its segment) or the flat march's c.
+// fine index c % cf of its segment; per_round is 32 where segments are wider
+// than a warp) or the flat march's c.
 template <typename Sm>
 __device__ __forceinline__ Cand cand_at(const MarchArgs& a, const Ray& r, const Sm& sm, const Div& cf, int rd, int lane,
                                         int per_round, int nseg, int stride_c) {
@@ -410,13 +427,23 @@ __device__ void wide_proposal(const MarchArgs& a, const Ray& r, const WarpPtrs& 
     }
   }
   __syncwarp();
-  // each output's bin: the CDF entries below its quantile, counted by ballots
+  // each output's bin: the CDF entries below its quantile, counted by
+  // ballots. The CDF does not fall (its f64 sums are exact) and the
+  // quantiles rise, so the count stops at the first round not wholly below
+  // u, and the next quantile's resumes there (the rounds before it lie
+  // below u too).
+  int h0 = 0;
   for (int f = 0; f < a.F; ++f) {
     const float u = __fmul_rn(__fadd_rn((float)f, 0.5f), a.inv_F);
-    int below_u = 0;
-    for (int h = 0; h < rounds; ++h) {
+    int below_u = 32 * h0;
+    for (int h = h0; h < rounds; ++h) {
       const int j = lane + 32 * h;
-      below_u += __popc(__ballot_sync(kFull, j < k && u > sm.cdf[j]));
+      const uint32_t bal = __ballot_sync(kFull, j < k && u > sm.cdf[j]);
+      below_u += __popc(bal);
+      if (bal != kFull) {
+        h0 = h;
+        break;
+      }
     }
     if (lane == 0) sm.idx[f] = min(below_u, k - 1);
   }
@@ -440,8 +467,8 @@ __device__ void wide_proposal(const MarchArgs& a, const Ray& r, const WarpPtrs& 
 }
 
 // Ray i's march by one warp, with its scratch sm (a WarpSmem, or WarpPtrs
-// where Wide).
-template <bool Wide, typename Sm>
+// where Wide); Long: hierarchical with segments wider than a warp.
+template <bool Wide, bool Long, typename Sm>
 __device__ __forceinline__ void march_ray(const MarchArgs& a, Sm& sm, int i, int lane) {
   const Ray r = setup_ray(a, i);
   const uint32_t below = (1u << lane) - 1u;
@@ -494,20 +521,40 @@ __device__ __forceinline__ void march_ray(const MarchArgs& a, Sm& sm, int i, int
     __syncwarp();
   }
 
-  // the fine candidates: phase 2's (whole segments a round, the rounds that
-  // hold kept segments) or the flat ones
-  const int per_round = a.hier ? (32 / a.cf) * a.cf : 32;
-  const int used = a.hier ? (nseg + 32 / a.cf - 1) / (32 / a.cf) : (a.mc + 31) / 32;
+  // the fine candidates: phase 2's (whole segments a round, or end to end
+  // where a segment is wider than a warp; the rounds that hold kept
+  // segments) or the flat ones
+  const int per_round = a.hier && !Long ? (32 / a.cf) * a.cf : 32;
+  const int used = !a.hier ? (a.mc + 31) / 32
+                   : Long ? (nseg * a.cf + 31) / 32 : (nseg + 32 / a.cf - 1) / (32 / a.cf);
   int count = 0;
   for (int rd = 0; rd < used; ++rd) {
     const Cand cd = cand_at(a, r, sm, cf, rd, lane, per_round, nseg, stride_c);
     const Cell cl = cell_at(a, r, cd.mid, a.R);
     bool ends = true;
     if (a.packed) {
-      const int sup = ((cl.lvl * a.S + cf.div(cl.x)) * a.S + cf.div(cl.y)) * a.S + cf.div(cl.z);
-      const int first = lane - cf.mod(lane);
-      const int s0 = __shfl_sync(kFull, sup, first);
-      const int s1 = __shfl_sync(kFull, sup, first + a.cf - 1);
+      const int sup = super_index(a, cl, cf);
+      int s0, s1;
+      if constexpr (Long) {
+        // the round's 32 candidates lie in at most two segments (cf > 32):
+        // lanes 0-3 take the first and last midpoint of each, as cand_at
+        // computes them
+        const int jlo = cf.div(rd * 32);
+        const int q = jlo + (lane >> 1);
+        int v = 0;
+        if (lane < 4 && q < nseg) {
+          const int fi = sm.segidx[q] * a.cf + ((lane & 1) ? a.cf - 1 : 0);
+          const float t0 = ts_at(a, r, fi), t1 = ts_at(a, r, fi + 1);
+          v = super_index(a, cell_at(a, r, __fmul_rn(0.5f, __fadd_rn(t0, t1)), a.R), cf);
+        }
+        const int src = 2 * (cf.div(rd * 32 + lane) - jlo);
+        s0 = __shfl_sync(kFull, v, src);
+        s1 = __shfl_sync(kFull, v, src + 1);
+      } else {
+        const int first = lane - cf.mod(lane);
+        s0 = __shfl_sync(kFull, sup, first);
+        s1 = __shfl_sync(kFull, sup, first + a.cf - 1);
+      }
       ends = sup == s0 || sup == s1;
     }
     // a segment's inner midpoint in a third supercell reads as occupied
@@ -556,41 +603,53 @@ __device__ __forceinline__ void march_ray(const MarchArgs& a, Sm& sm, int i, int
   else static_proposal(a, r, sm, i, lane, nsel, uni);
 }
 
+template <bool Long>
 __global__ void __launch_bounds__(kWarps * 32) march_kernel(const MarchArgs a) {
   __shared__ WarpSmem smem[kWarps];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int i = blockIdx.x * kWarps + w;
   if (i >= a.n) return;  // warp-uniform
-  march_ray<false>(a, smem[w], i, lane);
+  march_ray<false, Long>(a, smem[w], i, lane);
 }
 
+// The wide layout: a warp's arrays in dynamic shared memory, or (Global) in
+// ray i's wide_words of the global workspace.
+template <bool Long, bool Global>
 __global__ void __launch_bounds__(kWarps * 32) march_wide_kernel(const MarchArgs a) {
   extern __shared__ uint32_t dyn[];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int i = blockIdx.x * kWarps + w;
   if (i >= a.n) return;  // warp-uniform
+  const int words = wide_words(a, nullptr, nullptr);
   WarpPtrs sm;
-  wide_words(a, dyn + w * wide_words(a, nullptr, nullptr), &sm);
-  march_ray<true>(a, sm, i, lane);
+  wide_words(a, Global ? a.scratch + (long)i * words : dyn + w * words, &sm);
+  march_ray<true, Long>(a, sm, i, lane);
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, const MarchArgs& a, int bytes, cudaStream_t stream) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(a.n + kWarps - 1) / kWarps, kWarps * 32, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The layout (MarchArgs.wide) and whether segments are wider than a warp
+// pick the kernel, once a launch.
 extern "C" int march_ts(const MarchArgs* args, cudaStream_t stream) {
   const MarchArgs a = *args;
-  const int blocks = (a.n + kWarps - 1) / kWarps;
-  if (!a.wide) {
-    march_kernel<<<blocks, kWarps * 32, 0, stream>>>(a);
-    return (int)cudaGetLastError();
-  }
-  const int bytes = kWarps * 4 * wide_words(a, nullptr, nullptr);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        march_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  march_wide_kernel<<<blocks, kWarps * 32, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
+  const bool lng = a.hier && a.cf > 32;
+  if (!a.wide) return launch(lng ? march_kernel<true> : march_kernel<false>, a, 0, stream);
+  if (a.wide == 2)
+    return launch(lng ? march_wide_kernel<true, true> : march_wide_kernel<false, true>, a, 0,
+                  stream);
+  return launch(lng ? march_wide_kernel<true, false> : march_wide_kernel<false, false>, a,
+                kWarps * 4 * wide_words(a, nullptr, nullptr), stream);
 }

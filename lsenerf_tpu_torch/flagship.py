@@ -344,11 +344,18 @@ def march_cases(calls: dict) -> list:
 
 
 # K3 past its static per-warp layout (64 slots, 64 coarse segments, 64
-# rounds of 32 candidates), as the JAX package's march takes any value
+# rounds of 32 candidates), with segments wider than a warp and with its
+# scratch past a block's shared memory, as the JAX package's march takes
+# any value; "grid" doubles the step's grid to that resolution (each cell
+# 2^3 of its own: the same occupancy)
 WIDE_MARCHES = {
     "96 slots (F=16)": dict(max_samples=96),
     "96 coarse segments": dict(max_coarse_segments=96),
     "the flat march over 4096 candidates": dict(hierarchical=False, max_candidates=4096),
+    "coarse_factor 64 on the grid at 256^3 (4096 candidates, 24 segments)": dict(
+        coarse_factor=64, max_candidates=4096, grid=256),
+    "3000 slots over 4096 flat candidates (the global workspace)": dict(
+        hierarchical=False, max_candidates=4096, max_samples=3000),
     "96 slots, 96 coarse segments, 4096 candidates, F=80": dict(
         max_samples=96, max_coarse_segments=96, max_candidates=4096, proposal_samples=80),
 }
@@ -356,11 +363,25 @@ WIDE_MARCHES = {
 
 def march_wide_cases(calls: dict) -> list:
     """K3's check cases past its static layout at march_composite_calls'
-    step-16 rays and grid: [(label, o, d, nears, fars, occ_state, march
-    config)], one for each of WIDE_MARCHES."""
+    step-16 rays and grid: [(label, o, d, nears, fars, occ_state, grid
+    config, march config)], one for each of WIDE_MARCHES."""
+    from lsenerf_tpu_torch.ops import occupancy as occ_lib
+
     o, d, nears, fars, state, gcfg, cfg = calls["march"]
-    return [(label, o, d, nears, fars, state, dataclasses.replace(cfg, **kw))
-            for label, kw in WIDE_MARCHES.items()]
+    out = []
+    for label, kw in WIDE_MARCHES.items():
+        kw = dict(kw)
+        st, g = state, gcfg
+        res = kw.pop("grid", None)
+        if res is not None:
+            e, b = state.occs, state.binaries
+            for dim in (1, 2, 3):
+                e = e.repeat_interleave(res // gcfg.resolution, dim)
+                b = b.repeat_interleave(res // gcfg.resolution, dim)
+            st = occ_lib.OccGridState(occs=e, binaries=b)
+            g = dataclasses.replace(gcfg, resolution=res)
+        out.append((label, o, d, nears, fars, st, g, dataclasses.replace(cfg, **kw)))
+    return out
 
 
 def composite_shapes(calls: dict, seed: int = 9) -> dict:

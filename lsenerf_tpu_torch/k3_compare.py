@@ -1,7 +1,7 @@
 """K3 against other builds of its C entry on the card, in one process.
 
     python -m lsenerf_tpu_torch.k3_compare OTHER.cu [OTHER.cu ...] [--with-table]
-        [--wrapper OLD.py] [--rays N ...] [--out DIR]
+        [--wrapper OLD.py] [--rays N ...] [--wide] [--out DIR]
 
 Each OTHER.cu defines `march_ts` with K3's C entry (csrc/march.cu:
 `march_ts(const MarchArgs* args, cudaStream_t stream)`) and reads a prefix
@@ -21,7 +21,10 @@ bits; then each build is timed at step 16 and at the eval chunk warm
 L2 (`timing.cold_ms`), in turns: the builds in order, then in reverse
 order, so that a drift of the card's clocks touches each alike; `--rays
 N` also times step 16's rays repeated or cut to N (N = 527 is about one
-warp a scheduler: one ray's latency; 10x the step's rays, the rate).
+warp a scheduler: one ray's latency; 10x the step's rays, the rate);
+`--wide` also holds every build to the plain version's bits before the
+proposal at flagship.march_wide_cases (past the static layout: wider
+segments, the global workspace) and times them in the same turns.
 `--wrapper OLD.py` loads an earlier ops/march.py (`git show
 <commit>:lsenerf_tpu_torch/ops/march.py`), whose K3 it builds from the
 first OTHER.cu, checks its selection before the proposal at step 16, and
@@ -107,10 +110,11 @@ def same_bits(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def check(fns: dict, cases: list, gcfg) -> None:
+def check(fns: dict, cases: list) -> None:
     """Every build's selection before the proposal is the plain version's
-    bits in every case."""
-    for label, o, d, nears, fars, st, cfg in cases:
+    bits in every case: [(label, o, d, nears, fars, occ_state, grid config,
+    march config)]."""
+    for label, o, d, nears, fars, st, gcfg, cfg in cases:
         pre = dataclasses.replace(cfg, proposal_samples=0)
         want = march.march_ts_plain(o, d, nears, fars, st, gcfg, pre)
         for name, fn in fns.items():
@@ -182,6 +186,8 @@ def main(argv=None) -> int:
                     "against the package's, its K3 built from the first OTHER.cu")
     ap.add_argument("--rays", type=int, action="append", default=[],
                     help="also time step 16's rays repeated or cut to this many")
+    ap.add_argument("--wide", action="store_true",
+                    help="also check and time the cases past K3's static layout")
     ap.add_argument("--out", default="outputs/k3_compare")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -197,9 +203,13 @@ def main(argv=None) -> int:
     fns = builds(sources(args.others, args.with_table, out / "sources"), dev.index or 0)
     share = geometric_share(calls["march"])
     print(f"step 16: {share:.4f} of the plain version's boundary t lie in the geometric branch")
-    check(fns, flagship.march_cases(calls), calls["march"][5])
+    gcfg = calls["march"][5]
+    cases = [(label, *a, st, gcfg, c) for label, *a, st, c in flagship.march_cases(calls)]
+    wide = flagship.march_wide_cases(calls) if args.wide else []
+    check(fns, cases + wide)
     main_shapes = {"step16": calls["march"], "eval_chunk": calls["eval_march"]}
     shapes = dict(main_shapes)
+    shapes.update((label, tuple(a)) for label, *a in wide)
     rays, grid = calls["march"][:4], calls["march"][4:]
     for n in args.rays:
         reps = -(-n // rays[0].shape[0])

@@ -8,7 +8,9 @@ march over every candidate where the hierarchical conditions fail or
 K3 `march_ts` (csrc/march.cu, built and loaded by cuda_build) is the whole
 selection in one kernel: a warp a ray, its compactions by ballots, its
 scratch static for every config within 64 slots, 64 coarse segments and 64
-rounds of 32 candidates and sized at launch past them. Its
+rounds of 32 candidates and sized at launch past them, in shared memory or,
+past a block's, in a global workspace; it takes every config the JAX
+package's march takes. Its
 plain version `march_ts_plain` is the same pipeline in torch ops; the TPU
 compacts with one-hot matmuls, the plain version scatters into the slots,
 which gives the same values. The wrapper runs the plain version for CPU
@@ -324,7 +326,7 @@ _FLOATS = ("aabb", "inv_aabb", "half", "neg_half", "near_plane", "far_plane", "s
            "inv_step", "t_crit", "base", "lam", "one_minus_lam", "inv_F", "F_f")
 # fields added after the first layout, at its end: an earlier build of
 # csrc/march.cu reads the same struct's prefix
-_TAIL = (("growth", ctypes.c_void_p), ("wide", ctypes.c_int))
+_TAIL = (("growth", ctypes.c_void_p), ("wide", ctypes.c_int), ("scratch", ctypes.c_void_p))
 
 
 class _MarchArgs(ctypes.Structure):
@@ -347,7 +349,9 @@ def _library():
 
 
 # csrc/march.cu's static per-warp layout (kMaxK, kMaxSegs, kMaxRounds):
-# configs within it (every preset) take it, the rest the wide layout
+# configs within it (every preset) take it, the rest the wide layout, in
+# dynamic shared memory where a block's fits and in a global workspace past it
+STATIC, SHARED, GLOBAL = 0, 1, 2  # MarchArgs.wide
 STATIC_SLOTS = 64  # k, max_coarse_segments
 STATIC_ROUNDS = 64  # 32-candidate rounds of one sweep
 WARPS = 4  # a block's warps, a ray each
@@ -373,17 +377,11 @@ def _scalars(occ_config, config: MarchConfig) -> dict:
     R = occ_config.resolution
     mc = config.max_candidates // cf if hier else config.max_candidates
     k1 = config.max_coarse_segments
-    if hier and cf > 32:
-        raise ValueError(f"K3's hierarchical march takes a coarse_factor of at most 32 (phase 2 "
-                         f"packs whole segments into a round of 32 candidates), got {cf}")
     r1, rounds, words = wide_words(hier, mc, cf, k1, k, F)
-    wide = k > STATIC_SLOTS or rounds > STATIC_ROUNDS or (
-        hier and (k1 > STATIC_SLOTS or r1 + 1 > STATIC_ROUNDS + 2))
-    if wide and WARPS * 4 * words > SMEM_BYTES:
-        raise ValueError(
-            f"K3 needs {WARPS * 4 * words} bytes of shared memory a block for max_samples {k}, "
-            f"proposal_samples {F}, max_candidates {config.max_candidates}, coarse_factor {cf} "
-            f"and max_coarse_segments {k1}: more than the card's {SMEM_BYTES}")
+    wide = STATIC
+    if k > STATIC_SLOTS or rounds > STATIC_ROUNDS or (
+            hier and (k1 > STATIC_SLOTS or r1 + 1 > STATIC_ROUNDS + 2)):
+        wide = GLOBAL if WARPS * 4 * words > SMEM_BYTES else SHARED
     half = occ_config.aabb_scale * (2.0 ** (occ_config.levels - 1))
     step, cone = config.render_step_size, config.cone_angle
     return dict(
@@ -396,16 +394,23 @@ def _scalars(occ_config, config: MarchConfig) -> dict:
         t_crit=_f32(step / cone) if cone > 0.0 else 0.0, base=_f32(1.0 + cone),
         lam=_f32(config.proposal_uniform_frac),
         one_minus_lam=_f32(1.0 - config.proposal_uniform_frac),
-        inv_F=_inv_f32(F) if F else 0.0, F_f=float(F), wide=int(wide),
+        inv_F=_inv_f32(F) if F else 0.0, F_f=float(F), wide=wide,
     )
 
 
 def wide_words(hier: bool, mc: int, cf: int, k1: int, k: int, F: int):
     """(phase 1's rounds r1, the fine sweep's rounds, the 32-bit words a
     warp's scratch takes in csrc/march.cu's wide layout: wide_words there).
-    mc is the segments (hierarchical) or the candidates (flat)."""
+    mc is the segments (hierarchical) or the candidates (flat). The sweep
+    takes whole segments a round (32 // cf of them), or the k1 segments'
+    candidates end to end, 32 a round, where a segment is wider than a warp."""
     r1 = (mc + 32) // 32 if hier else 0  # rounds of the mc + 1 boundaries
-    rounds = -(-k1 // (32 // cf)) if hier else -(-mc // 32)
+    if not hier:
+        rounds = -(-mc // 32)
+    elif cf > 32:
+        rounds = -(-k1 * cf // 32)
+    else:
+        rounds = -(-k1 // (32 // cf))
     return r1, rounds, (r1 + 1) + r1 + rounds + (k1 if hier else 0) + F + 5 * k
 
 
@@ -432,9 +437,10 @@ def _check(o, d, nears, fars, occ_state, sc: dict) -> int:
 class _Launch:
     """K3's launch for one (grid config, march config, CUDA device): the
     kernel's arguments with the scalars and the growth table filled in,
-    and what a call reads of its configs."""
+    and what a call reads of its configs: `words`, the 32-bit words a ray
+    of the global workspace (layout GLOBAL), else 0."""
 
-    __slots__ = ("sc", "args", "fn", "grid", "m", "hier", "cf", "F")
+    __slots__ = ("sc", "args", "fn", "grid", "m", "hier", "cf", "F", "words")
 
     def __init__(self, occ_config, config: MarchConfig, dev: int):
         sc = self.sc = _scalars(occ_config, config)
@@ -452,6 +458,9 @@ class _Launch:
         self.grid = (sc["levels"],) + (sc["R"],) * 3
         self.m = sc["F"] or sc["k"]
         self.hier, self.cf, self.F = sc["hier"], config.coarse_factor, sc["F"]
+        self.words = 0
+        if sc["wide"] == GLOBAL:
+            self.words = wide_words(sc["hier"], sc["mc"], sc["cf"], sc["k1"], sc["k"], sc["F"])[2]
 
 
 _launch = functools.lru_cache(maxsize=64)(_Launch)  # by the configs' values
@@ -508,6 +517,11 @@ def march_ts(o, d, nears, fars, occ_state, occ_config, config: MarchConfig):
                     0 if nears is None else nears.data_ptr(), 0 if fars is None else fars.data_ptr(),
                     b.data_ptr(), 0 if sup is None else sup.data_ptr(), occs.data_ptr(),
                     t_starts.data_ptr(), t_ends.data_ptr(), mask.data_ptr(), n)
+    if ln.words:
+        # freed after the launch is enqueued: the allocator hands it out
+        # again only to work behind the kernel on this stream
+        scratch = o.new_empty((n * ln.words,), dtype=torch.int32)
+        args.scratch = scratch.data_ptr()
     K3.count(ln.fn(args, cuda_build.stream(o)))
     return t_starts, t_ends, mask
 

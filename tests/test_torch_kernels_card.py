@@ -413,6 +413,19 @@ MARCH_CASES = {
     "flat_ball_cands4096": dict(hierarchical=False, max_candidates=4096),
     "packed_ball_all_wide": dict(max_samples=96, max_coarse_segments=96, max_candidates=4096,
                                  proposal_samples=80),
+    # segments wider than a warp ("grid": the grid config's fields), in the
+    # static layout, in dynamic shared memory and in the global workspace;
+    # 3000 slots in the global workspace; "global" cases march 300 rays
+    "packed_ball_cf64_r256": dict(coarse_factor=64, max_candidates=4096, grid=dict(resolution=256)),
+    "packed_ball_cf48_r96_l1": dict(coarse_factor=48, max_candidates=3072,
+                                    grid=dict(resolution=96, levels=1)),
+    "unpacked_ball_cf33_r132_l1": dict(coarse_factor=33, max_candidates=2112,
+                                       grid=dict(resolution=132, levels=1)),
+    "packed_ball_cf64_r256_segs40": dict(coarse_factor=64, max_candidates=4096,
+                                         max_coarse_segments=40, grid=dict(resolution=256)),
+    "packed_ball_cf64_r256_k3000_global": dict(coarse_factor=64, max_candidates=4096,
+                                               max_samples=3000, grid=dict(resolution=256)),
+    "flat_ball_k3000_global": dict(hierarchical=False, max_samples=3000, max_candidates=4096),
 }
 
 
@@ -421,23 +434,31 @@ MARCH_CASES = {
 def test_march_matches_plain_on_card(case):
     """K3 against march_ts_plain at the flagship's widths (128^3 x 4 grid,
     1024 candidates, 48 slots, F=16), also with every ray's candidates in
-    the cone angle's geometric branch, and past the static layout (96
-    slots, 96 coarse segments, 4096 candidates, F=80): the selection
-    before the proposal bit for bit, the proposal's samples equal but for
-    bin flips at most 1e-4 of them, each within 1e-6 of a CDF step."""
+    the cone angle's geometric branch, past the static layout (96 slots,
+    96 coarse segments, 4096 candidates, F=80), with segments wider than a
+    warp (coarse_factor 33, 48, 64) and with 3000 slots in the global
+    workspace: the selection before the proposal bit for bit, the
+    proposal's samples equal but for bin flips at most 1e-4 of them, each
+    within 1e-6 of a CDF step."""
     import dataclasses
 
     from lsenerf_tpu_torch.ops import march
     from lsenerf_tpu_torch.ops import occupancy as occ_lib
 
     dev = _card()
-    gcfg = occ_lib.OccGridConfig()
+    kw = dict(MARCH_CASES[case])
+    gcfg = occ_lib.OccGridConfig(**kw.pop("grid", {}))
     cfg = dataclasses.replace(
         march.MarchConfig(render_step_size=2 * 3**0.5 / 1000, max_candidates=1024,
-                          proposal_samples=16), **MARCH_CASES[case])
+                          proposal_samples=16), **kw)
+    if "_cf" in case:
+        assert march.use_hierarchical(gcfg, cfg) and cfg.coarse_factor > 32
+    if case.endswith(("global", "segs40")):
+        assert march._scalars(gcfg, cfg)["wide"] == (march.GLOBAL if "global" in case
+                                                     else march.SHARED)
     state = _grid(case.split("_")[1], gcfg, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
-    n = 3000
+    n = 300 if case.endswith("global") else 3000
     o = torch.randn((n, 3), generator=gen, device=dev) * 1.5
     d = torch.nn.functional.normalize(-o + 0.3 * torch.randn((n, 3), generator=gen, device=dev),
                                       dim=1)

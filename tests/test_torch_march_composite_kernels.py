@@ -95,16 +95,17 @@ def test_march_refuses_what_its_kernel_does_not_take():
     with pytest.raises(ValueError, match="binaries"):
         tmarch._check(o, d, None, None, tocc.OccGridState(st.occs, st.binaries.float()), sc)
     # past the static layout's 64 slots and 64 rounds a config takes the
-    # wide one; the coarse_factor past 32 and a block's shared memory refuse
-    assert not tmarch._scalars(TG, BASE)["wide"]
-    assert tmarch._scalars(TG, dataclasses.replace(BASE, max_samples=96))["wide"]
+    # wide one, in shared memory, and past a block's shared memory in the
+    # global workspace; a coarse_factor past 32 runs in the layout its
+    # rounds fit (tests/test_torch_march_wide_segments.py compares results)
+    assert tmarch._scalars(TG, BASE)["wide"] == tmarch.STATIC
+    assert tmarch._scalars(TG, dataclasses.replace(BASE, max_samples=96))["wide"] == tmarch.SHARED
     assert tmarch._scalars(TG, dataclasses.replace(BASE, hierarchical=False,
-                                                   max_candidates=4096))["wide"]
-    with pytest.raises(ValueError, match="shared memory"):
-        tmarch._scalars(TG, dataclasses.replace(BASE, max_samples=20_000))
+                                                   max_candidates=4096))["wide"] == tmarch.SHARED
+    assert tmarch._scalars(TG, dataclasses.replace(BASE, max_samples=20_000))["wide"] == tmarch.GLOBAL
     one = tocc.OccGridConfig(resolution=128, levels=1)
-    with pytest.raises(ValueError, match="coarse_factor of at most 32"):
-        tmarch._scalars(one, dataclasses.replace(BASE, coarse_factor=64, max_candidates=4096))
+    sc = tmarch._scalars(one, dataclasses.replace(BASE, coarse_factor=64, max_candidates=4096))
+    assert sc["hier"] and sc["cf"] == 64 and sc["wide"] == tmarch.STATIC
 
 
 def test_supergrid_is_built_once_a_state():

@@ -10,9 +10,9 @@ the plain version (march_ts_plain's pieces) and the JAX package's march.
   unread) equals the plain version's keep_c, and the JAX package's, on
   random grids and on the fresh all-ones grid.
 - The table spans every candidate index at a max_candidates past the
-  kernel's static layout (a wide launch), and the wrapper refuses only a
-  config whose scratch exceeds a block's shared memory; its argument
-  struct begins with the first design's fields in their order.
+  kernel's static layout (a wide launch), and a config whose scratch
+  exceeds a block's shared memory takes the global workspace; the
+  argument struct begins with the first design's fields in their order.
 - ModelConfig keeps its train and eval march configs, the objects the
   wrapper finds its launch by.
 
@@ -181,12 +181,13 @@ def test_growth_table_spans_every_candidate_the_rounds_limit_takes():
     g = torch.clamp(i - n_lin, min=0.0).long()
     got = torch.where(i <= n_lin, t_lo[:, None] + i * step, (t_lo[:, None] + n_lin * step) * table[g])
     assert g.max() < table.shape[0] and torch.equal(got.view(torch.int32), want.view(torch.int32))
-    # refused only where a block's scratch exceeds the card's shared memory
+    # where a block's scratch exceeds the card's shared memory, the scratch
+    # is the global workspace
+    assert sc["wide"] == tmarch.SHARED
     huge = dataclasses.replace(big, max_samples=12_000)
     words = tmarch.wide_words(True, sc["mc"], 32, big.max_coarse_segments, 12_000, 16)[2]
     assert tmarch.WARPS * 4 * words > tmarch.SMEM_BYTES
-    with pytest.raises(ValueError, match="shared memory a block for max_samples 12000"):
-        tmarch._scalars(gcfg, huge)
+    assert tmarch._scalars(gcfg, huge)["wide"] == tmarch.GLOBAL
 
 
 # past K3's static layout (64 slots, 64 coarse segments, 64 rounds of 32
@@ -280,7 +281,7 @@ def test_march_args_begin_with_the_first_designs_fields():
     kinds = {ctypes.c_void_p: "P", ctypes.c_int: "i", ctypes.c_float: "f"}
     fields = [(name, kinds[t]) for name, t in tmarch._MarchArgs._fields_]
     assert fields[: len(FIRST_FIELDS)] == FIRST_FIELDS
-    assert fields[len(FIRST_FIELDS):] == [("growth", "P"), ("wide", "i")]
+    assert fields[len(FIRST_FIELDS):] == [("growth", "P"), ("wide", "i"), ("scratch", "P")]
     # a call writes the ten pointers and n at once, where the struct has them
     assert tmarch._CALL.size == tmarch._MarchArgs.n.offset + ctypes.sizeof(ctypes.c_int)
     assert tmarch._MarchArgs.mask.offset == 9 * ctypes.sizeof(ctypes.c_void_p)

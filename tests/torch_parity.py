@@ -87,10 +87,11 @@ def sparse_grid(seed=0, radius=0.8, resolution=GRID["resolution"], levels=GRID["
     R, L = resolution, levels
     rng = np.random.default_rng(seed)
     c = (np.arange(R) + 0.5) / R * 2.0 - 1.0
-    halves = 2.0 ** np.arange(L)
-    x, y, z = np.meshgrid(c, c, c, indexing="ij")
-    dist = np.sqrt(x**2 + y**2 + z**2)[None] * halves[:, None, None, None]
-    occs = (rng.random((L, R, R, R)) * 0.5 * (dist < radius)).astype(np.float32)
+    dist = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2)
+    # a level at a time (the draws of one (L, R, R, R) call): large grids
+    # keep one level's f64 arrays at once
+    occs = np.stack([(rng.random((R, R, R)) * 0.5 * (dist * 2.0**lvl < radius)).astype(np.float32)
+                     for lvl in range(L)])
     return occs, occs > min(float(occs.mean()), 0.01)
 
 
