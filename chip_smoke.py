@@ -81,6 +81,14 @@ Phases, each fatal on failure (exit code 1):
   4g. the same for the badnerf preset with the ngp layout in f32 (the
      real_scale_badnerf_ngpf32 golden's model), through K7a/K7b, with its
      peak memory;
+  4s. a scan phase for each of those five paths (scan_path): the steps in
+     chunks of SCAN (16, the CLI's scan_steps) through
+     Trainer.make_train_step_multi, steps 0-15 as the chunk graph's eager
+     warm-up; from that state chunk 16-31 as one captured and replayed
+     CUDA graph against 16 eager steps (each step's loss, the last step's
+     metrics, the background generator's state bit for bit; the layout's
+     encode pair, K3, K5a and K5b counted in the capture), then steps
+     16-47 timed at scan_steps 1 and 16 (ms/step, rays/s, peak memory);
   4e. the CLI path (lsenerf_tpu_torch.train.main, in process) on the
      reference scene at the real-scale profile (200 frames of 640x480 with
      prev/next event cameras, masks and the full trajectory): 200 steps of
@@ -90,7 +98,9 @@ Phases, each fatal on failure (exit code 1):
      unchanged, view 0's SSIM on the card within 1e-4 of the CPU's), and an
      lsenerf_emb run through scripts/emb_eval.sh's two stages (stage 1 moves
      only the test embedding; stage 2 finds stage 1's run by the script's
-     rule); then (4h) the real_scale_badnerf_ngpf32 golden's flags
+     rule), every stage at the CLI's default scan_steps (16: chunks as
+     replayed CUDA graphs; the resume loads the save at the end of the
+     chunk holding step 99); then (4h) the real_scale_badnerf_ngpf32 golden's flags
      (lsenerf_tpu_torch/parity.py NGPF32) on the same scene: 200 training
      steps through K7a/K7b and eval.sh's 60; the path kernels' counters
      are set to 0 before each stage;
@@ -107,7 +117,11 @@ Phases, each fatal on failure (exit code 1):
      the proposal up to the switch and at F=16 after it; and with
      --pipeline.model.grid-resolution 256 --pipeline.model.coarse-factor
      64 --pipeline.model.max-candidates 4096, whose march must be the
-     hierarchical one at segments wider than a warp, through K3;
+     hierarchical one at segments wider than a warp, through K3; then a
+     40-step run at --machine.scan-steps 12, whose chunks and occupancy
+     interval do not align: three chunks (the second captured, the third
+     replayed) and four single steps, the occupancy updates on JAX's
+     steps (0, 12, 24);
   4f. scripts/parity.py --tiny through the same CLI (lsenerf_tpu_torch/
      parity.py): 1500 steps on the 64x64 golden scene at each of four
      seeds; the mean PSNR and SSIM must lie within parity.tiny_gate's
@@ -147,6 +161,14 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 26  # the occupancy update runs at steps 0 and 16
+SCAN = 16  # the CLI's default scan_steps: train steps a chunk, one CUDA graph
+SCAN_ODD = 12  # 4j's scan_steps, where chunks and the occupancy interval do not align
+# a scan phase's graph-vs-eager tolerance on the losses past the chunk's
+# first step, in training: two runs from one state drift apart chaotically
+# (scan_path), so this is a gate against gross faults (a stale batch or a
+# missing update moves the losses by far more); the eval mode holds the
+# graph to the eager steps bit for bit
+SCAN_RTOL = 0.2
 TIMED_FROM = 17  # ms/step over steps 17..STEPS-1 (no occupancy update)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -1089,9 +1111,9 @@ RENDER_KERNELS = ("march_ts", "composite_fwd", "composite_bwd")
 
 def path_kernels():
     """K1, K2, K7a, K7b, K3, K5a and K5b (their launch counters)."""
-    from lsenerf_tpu_torch.ops import combine, composite, march, ngp
+    from lsenerf_tpu_torch.engine import chunk_graph
 
-    return combine.KERNELS + ngp.KERNELS + march.KERNELS + composite.KERNELS
+    return chunk_graph.path_kernels()
 
 
 def check_render_kernels(label: str, launches: dict, backward: bool = True) -> None:
@@ -1154,6 +1176,175 @@ def run_path(dev, card: str, label: str, make):
     print(f"{label} step: {ms:.3f} ms/step, {rays / ms * 1e3:.0f} rays/s over steps "
           f"{TIMED_FROM}..{STEPS - 1}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches {launches} ({STEPS} steps, {n_occ} occupancy updates); {card}")
+    return launches
+
+
+def rewind(trainer, snap: dict) -> None:
+    """The trainer back at a trainer_state() snapshot in place: the same
+    parameter and Adam tensors and generators, so that a captured chunk
+    graph stays valid (restore_into_state replaces Adam's state, so it
+    drops the graphs)."""
+    import torch
+
+    from lsenerf_tpu_torch.engine.trainer import tree_leaves
+    from lsenerf_tpu_torch.ops.occupancy import OccGridState
+
+    with torch.no_grad():
+        for p, t in tree_leaves(trainer.params):
+            t.copy_(snap["params"][p])
+        for group, paths in zip(trainer.optimizer.param_groups, trainer.opt_paths):
+            for p, t in zip(paths, group["params"]):
+                for k, v in snap["adam"].get(p, {}).items():
+                    trainer.optimizer.state[t][k].copy_(v)
+    trainer.opt_count, trainer.step_count = snap["opt_count"], snap["step_count"]
+    dev = trainer.device
+    trainer.occ = OccGridState(occs=snap["occs"].to(dev), binaries=snap["binaries"].to(dev))
+    n = trainer._gen.get_state().numel()
+    trainer._gen.set_state(snap["rng"][:n].clone())
+    trainer._bg_gen.set_state(snap["rng"][n:].clone())
+
+
+def scan_path(dev, card: str, label: str, make) -> dict:
+    """A scan phase: the trainer `make(device)` builds, in chunks of SCAN
+    steps as the CLI runs them (Trainer.make_train_step_multi, the
+    occupancy update before each chunk that covers one). Steps 0-15 run
+    as the chunk graph's eager warm-up. From that state, chunk 16-31 is
+    captured and replayed, then run as 16 eager Trainer.step calls twice
+    (to print their own spread):
+    the chunk's first loss must be the eager one bit for bit (the same
+    state and inputs, a forward with no atomics), each later step's loss
+    within SCAN_RTOL (K2's atomics add in no fixed order and Adam's eps
+    turns the noise into steps of up to lr, so two eager runs drift apart
+    chaotically; the last step's metrics, the camera norms among them,
+    drift further, so they are printed beside the eager runs' own spread
+    and held bit for bit in the eval mode below), the background
+    generator's state bit for bit, and
+    the capture must hold the layout's encode pair, K3, K5a and K5b once a
+    step. Then steps 16-47 are timed at scan_steps 1 and SCAN from that
+    state, with their peak memory. Last, in the eval mode (the field
+    frozen, so that no atomics reach the parameters) a new graph's
+    captured chunk must equal the eager steps from one state bit for bit:
+    every loss, the last step's metrics and the whole state after it. Returns the path kernels' launches
+    in the phase (the warm-up's, the eager steps' and the capture's; a
+    replay runs no wrapper)."""
+    import math
+
+    import torch
+
+    from lsenerf_tpu_torch.engine.loop import _covered
+
+    t0 = time.time()
+    for kn in path_kernels():
+        kn.launches = 0
+    trainer = make(dev)
+    k = SCAN
+    every = trainer.model_config.grid.update_interval
+    stacks = [trainer.dm.next_train_stack(c * k, k) for c in range(3)]
+    rays = trainer.num_rays({key: v[0] for key, v in stacks[0].items()})
+    fn = trainer.make_train_step_multi(k)
+
+    def chunk(c):
+        if _covered(c * k, every, k):
+            trainer.occ_update()
+        return fn(stacks[c])
+
+    def eager(c):
+        if _covered(c * k, every, k):
+            trainer.occ_update()
+        out = [trainer.step({key: v[j] for key, v in stacks[c].items()}, update_occ=False)
+               for j in range(k)]
+        return out[-1], torch.stack([m["loss"] for m in out])
+
+    chunk(0)  # the eager warm-up
+    snap = trainer_state(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = chunk(1)  # captured, then replayed
+    graph_losses, graph_bg = trainer.chunk_losses.cpu(), trainer._bg_gen.get_state()
+    cg = trainer._chunks[k]
+    torch.cuda.synchronize()
+    peak_capture = torch.cuda.max_memory_allocated()
+    rewind(trainer, snap)
+    want, eager_losses = eager(1)
+    eager_losses, eager_bg = eager_losses.cpu(), trainer._bg_gen.get_state()
+    rewind(trainer, snap)
+    want_again, again = eager(1)
+    again = again.cpu()
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+    fwd, bwd = LAYOUT_KERNELS[trainer.model_config.field.hash.layout]
+    need = (fwd, bwd) + RENDER_KERNELS
+    # K2's (and K7b's) atomics add in no fixed order, and Adam's eps of 1e-15
+    # makes steps of up to lr of the rounding noise, so two runs from one
+    # state part a few steps in and drift apart chaotically, whichever is
+    # the graph: on the H100 the losses up to ~4e-2 (the production path,
+    # whose 12 spline knots move every RGB ray) and the camera norms up to
+    # ~2e-1 relative by step 31. Past the first step the losses are held to
+    # SCAN_RTOL
+    if not torch.isfinite(graph_losses).all() or graph_losses[0] != eager_losses[0] or (
+            (graph_losses - eager_losses).abs() > SCAN_RTOL * eager_losses.abs()).any():
+        fail(f"scan {label}: the graph's losses {graph_losses.tolist()} vs eager "
+             f"{eager_losses.tolist()} (eager again {again.tolist()})")
+    if set(got) != set(want):
+        fail(f"scan {label}: the graph's metrics {sorted(got)} vs eager {sorted(want)}")
+
+    def metric_rel(a, b):
+        return max(abs(float(a[n]) - float(b[n])) / max(abs(float(b[n])), 1e-12) for n in b)
+    if not torch.equal(graph_bg, eager_bg):
+        fail(f"scan {label}: the background generator's state after the graph differs from eager")
+    if min(cg.launches[n] for n in need) < k:
+        fail(f"scan {label}: the captured graph holds {cg.launches}, not {need} once a step")
+    print(f"scan {label}: chunk 16-31 as one CUDA graph vs {k} eager steps from the same state: "
+          f"the first loss bit for bit, losses rel {rel(graph_losses, eager_losses):.2e} (eager vs "
+          f"eager {rel(again, eager_losses):.2e}), last-step metrics rel "
+          f"{metric_rel(got, want):.2e} (eager vs eager {metric_rel(want_again, want):.2e}), "
+          f"background generator bit for bit; captured launches {cg.launches}")
+
+    times, peaks = {}, {}
+    for scan in (1, k):
+        rewind(trainer, snap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for c in (1, 2):
+            m = eager(c)[0] if scan == 1 else chunk(c)
+        b.record()
+        torch.cuda.synchronize()
+        if not math.isfinite(float(m["loss"])):
+            fail(f"scan {label}: non-finite loss at scan_steps {scan}")
+        times[scan] = a.elapsed_time(b) / (2 * k)
+        peaks[scan] = torch.cuda.max_memory_allocated()
+    # the eval.sh refinement's mode (the field frozen: no atomics reach the
+    # parameters), a new graph (warm-up, capture): the graph's chunk is the
+    # eager steps' bit for bit, every loss, the last step's metrics and the
+    # whole state after it
+    from lsenerf_tpu_torch.engine.trainer import RunMode
+
+    trainer.config.mode = RunMode.EVAL
+    trainer.rebuild_optimizer()
+    chunk(0)  # the new graph's warm-up
+    snap_eval = trainer_state(trainer)
+    got = chunk(1)
+    eval_graph, after_graph = trainer.chunk_losses.cpu(), trainer_state(trainer)
+    rewind(trainer, snap_eval)
+    want, eval_eager = eager(1)
+    bad = same_state(after_graph, trainer_state(trainer))
+    bad += [n for n in want if not torch.equal(got[n], want[n].reshape(()))]
+    if not torch.equal(eval_graph, eval_eager.cpu()) or bad or set(got) != set(want):
+        fail(f"scan {label}: eval mode, the graph's chunk differs from the eager steps: losses "
+             f"{eval_graph.tolist()} vs {eval_eager.tolist()}; {bad[:8]}")
+    print(f"scan {label}: eval mode (the field frozen), a chunk of {k} as one graph vs eager from "
+          f"one state: every loss, the last step's metrics, params, Adam's state, counts, grid and "
+          f"generators bit for bit")
+    launches = {kn.name: kn.launches for kn in path_kernels()}
+    print(f"scan {label} step over steps 16-47 (2 occupancy updates): scan_steps 1 "
+          f"{times[1]:.3f} ms/step, {rays / times[1] * 1e3:.0f} rays/s, peak {peaks[1] / 2**30:.2f} GiB; "
+          f"scan_steps {k} {times[k]:.3f} ms/step, {rays / times[k] * 1e3:.0f} rays/s, peak "
+          f"{peaks[k] / 2**30:.2f} GiB (capture {peak_capture / 2**30:.2f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB); phase {time.time() - t0:.1f} s; {card}")
     return launches
 
 
@@ -1237,41 +1428,68 @@ def same_state(a: dict, b: dict) -> list:
 
 class CliProbe:
     """Hooks around the port's own functions for one `train.main` call,
-    restored when it ends. It records a CUDA event as each train step
-    starts, the step's loss and the proposal's sample count it ran at, and
-    the first `keep_batches` batches; hands the loop's trainer to `before`
-    and `after` (called around the training loop); snapshots the trainer's
-    state and a fixed batch's loss when the loop saves step `snapshot_step`;
-    and keeps the first SSIM call's inputs and result."""
+    restored when it ends. It records a CUDA event as each train step or
+    chunk of steps (Trainer.train_chunk) starts, each step's number, loss
+    and the proposal's sample count it ran at, the first `keep_batches`
+    batches and the step at each occupancy update; hands the loop's
+    trainer to `before` and `after` (called around the training loop);
+    snapshots the trainer's state and a fixed batch's loss when the loop
+    saves step `snapshot_step`; and keeps the first SSIM call's inputs and
+    result."""
 
     def __init__(self, before=None, after=None, snapshot_step=None, keep_batches=0):
         self.before, self.after, self.snapshot_step = before, after, snapshot_step
-        self.events, self.losses, self.snapshot, self.ssim = [], [], None, None
-        self.keep_batches, self.batches, self.proposals = keep_batches, [], []
+        self.calls, self.steps, self.losses, self.snapshot, self.ssim = [], [], [], None, None
+        self.keep_batches, self.batches, self.proposals, self.occ_steps = keep_batches, [], [], []
 
-    def __enter__(self):
+    def _record(self, trainer, batches: list) -> None:
+        import numpy as np
         import torch
 
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.calls.append((trainer.step_count, len(batches), ev))
+        self.steps += range(trainer.step_count, trainer.step_count + len(batches))
+        self.proposals += [trainer.model_config.proposal_samples] * len(batches)
+        for b in batches[:max(0, self.keep_batches - len(self.batches))]:
+            self.batches.append({k: np.array(v) for k, v in b.items()})
+
+    def __enter__(self):
         from lsenerf_tpu_torch.engine import checkpoints, loop
         from lsenerf_tpu_torch.engine.trainer import Trainer
         from lsenerf_tpu_torch.ops import metrics
 
         probe = self
-        step0, loop0, save0, ssim0 = (Trainer.step, loop.run_training_loop,
-                                      checkpoints.save_checkpoint, metrics.ssim)
-        self._restore = [(Trainer, "step", step0), (loop, "run_training_loop", loop0),
+        step0, chunk0, occ0, loop0, save0, ssim0 = (
+            Trainer.step, Trainer.train_chunk, Trainer.occ_update, loop.run_training_loop,
+            checkpoints.save_checkpoint, metrics.ssim)
+        self._restore = [(Trainer, "step", step0), (Trainer, "train_chunk", chunk0),
+                         (Trainer, "occ_update", occ0), (loop, "run_training_loop", loop0),
                          (checkpoints, "save_checkpoint", save0), (metrics, "ssim", ssim0)]
+        in_chunk = []
 
         def step(trainer, batch, bg_color=None, **kw):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            probe.events.append((trainer.step_count, ev))
-            probe.proposals.append(trainer.model_config.proposal_samples)
-            if len(probe.batches) < probe.keep_batches:
-                probe.batches.append({k: v.copy() for k, v in batch.items()})
+            if not in_chunk:
+                probe._record(trainer, [batch])
             out = step0(trainer, batch, bg_color, **kw)
-            probe.losses.append(out["loss"])
+            if not in_chunk:
+                probe.losses.append(out["loss"])
             return out
+
+        def train_chunk(trainer, stacked):
+            k = len(next(iter(stacked.values())))
+            probe._record(trainer, [{key: v[j] for key, v in stacked.items()} for j in range(k)])
+            in_chunk.append(1)
+            try:
+                out = chunk0(trainer, stacked)
+            finally:
+                in_chunk.pop()
+            probe.losses += list(trainer.chunk_losses)
+            return out
+
+        def occ_update(trainer, *a, **kw):
+            probe.occ_steps.append(trainer.step_count)
+            return occ0(trainer, *a, **kw)
 
         def run_loop(trainer, **kw):
             if probe.before is not None:
@@ -1292,7 +1510,8 @@ class CliProbe:
                 probe.ssim = (gt.detach().cpu().clone(), pred.detach().cpu().clone(), float(out))
             return out
 
-        Trainer.step, loop.run_training_loop = step, run_loop
+        Trainer.step, Trainer.train_chunk, Trainer.occ_update = step, train_chunk, occ_update
+        loop.run_training_loop = run_loop
         checkpoints.save_checkpoint, metrics.ssim = save, ssim
         return self
 
@@ -1302,13 +1521,19 @@ class CliProbe:
         return False
 
     def step_ms(self, skip: set) -> list:
-        """ms of each train step i (its start to the next one's) for the
-        steps after the first 16 that run no occupancy update (i % 16) and
-        are not in `skip` (steps followed by an eval or a save)."""
+        """ms a step of each call (its start to the next call's, over its
+        steps) of the run's largest calls: single steps i after the first
+        16 that run no occupancy update (i % 16); or chunks after a chunk
+        graph's eager warm-up and its capture (the first two), each holding
+        the next chunk's occupancy update. No call with a step in `skip`
+        (steps followed by an eval or a save)."""
+        n_max = max(n for _, n, _ in self.calls)
         out = []
-        for (i, a), (_, b) in zip(self.events, self.events[1:]):
-            if i >= 16 and i % 16 and i not in skip:
-                out.append(a.elapsed_time(b))
+        for (i, n, a), (_, _, b) in zip(self.calls, self.calls[1:]):
+            if n != n_max or any(s in skip for s in range(i, i + n)):
+                continue
+            if (n == 1 and i >= 16 and i % 16) or (n > 1 and i >= 2 * n):
+                out.append(a.elapsed_time(b) / n)
         return out
 
 
@@ -1412,8 +1637,10 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60, 20), scene=No
         print(f"4e scene: {scene['n_cams']} frames of {scene['w']}x{scene['h']} written in "
               f"{time.time() - t0:.1f} s; {card}")
 
-        # train, saving the middle step's state for the resume
-        mid = n_train // 2 - 1
+        # train, saving the middle step's state for the resume: the loop
+        # saves at the last step of the chunk (the CLI's SCAN steps) that
+        # holds step n_train // 2 - 1
+        mid = min((n_train // 2 - 1) // SCAN * SCAN + SCAN - 1, n_train - 1)
         train_argv = ["lsenerf", "--data", data, "--output-dir", os.path.join(work, "run"),
                       "--max-num-iterations", str(n_train)] + HEADLINE
         cadence = ["--steps-per-save", str(n_train // 2), "--steps-per-eval-batch", str(n_train // 2),
@@ -1429,8 +1656,9 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60, 20), scene=No
         dmc = DataManagerConfig(rgb_frac=0.66, rgb_loss_mode="deblur")
         rays = 4 * dmc.train_num_col_rays_per_batch + 2 * dmc.train_num_evs_rays_per_batch
         step_ms = statistics.median(ms)
-        print(f"4e train step (untraced, CUDA events, {len(ms)} steps with no occupancy update or "
-              f"cadence): median {step_ms:.3f} ms/step, mean {statistics.mean(ms):.3f}, min "
+        print(f"4e train step (untraced, CUDA events, {len(ms)} replayed chunks of {SCAN} steps with "
+              f"no cadence, each holding the next chunk's occupancy update; a chunk's ms / {SCAN}): "
+              f"median {step_ms:.3f} ms/step, mean {statistics.mean(ms):.3f}, min "
               f"{min(ms):.3f}, max {max(ms):.3f}; {rays} rays a step, "
               f"{rays / step_ms * 1e3:.0f} rays/s; {card}")
         print(f"4e train eval_mean.json ({n_train} steps, {scene['w']}x{scene['h']}): "
@@ -1547,8 +1775,9 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60, 20), scene=No
         dmc = DataManagerConfig(rgb_frac=1.0, rgb_loss_mode="deblur")
         rays = 4 * dmc.train_num_col_rays_per_batch
         step_ms = statistics.median(ms)
-        print(f"4h ngpf32 train step (untraced, CUDA events, {len(ms)} steps with no occupancy update "
-              f"or cadence): median {step_ms:.3f} ms/step, mean {statistics.mean(ms):.3f}, min "
+        print(f"4h ngpf32 train step (untraced, CUDA events, {len(ms)} replayed chunks of {SCAN} "
+              f"steps with no cadence, each holding the next chunk's occupancy update): median "
+              f"{step_ms:.3f} ms/step, mean {statistics.mean(ms):.3f}, min "
               f"{min(ms):.3f}, max {max(ms):.3f}; {rays} rays a step, "
               f"{rays / step_ms * 1e3:.0f} rays/s; {card}")
         print(f"4h ngpf32 train eval_mean.json ({n_ngp} steps): {json.dumps(eval_mean(ngp_run))}; "
@@ -1600,9 +1829,8 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60, 20), scene=No
                                      "--pipeline.model.proposal-warmup-steps", str(warm)] + knob,
               probe)
         want = [0] * warm + [16] * (n_knob - warm)
-        steps = [i for i, _ in probe.events]
-        if probe.proposals != want or steps != list(range(n_knob)):
-            fail(f"4j proposal warmup: steps {steps} ran at F {probe.proposals}, not {want}")
+        if probe.proposals != want or probe.steps != list(range(n_knob)):
+            fail(f"4j proposal warmup: steps {probe.steps} ran at F {probe.proposals}, not {want}")
         print(f"4j proposal warmup: steps 0-{warm - 1} without the proposal, {warm}-{n_knob - 1} "
               f"at F=16, one trainer throughout; {card}")
         # segments wider than a warp: the hierarchical march at coarse_factor 64
@@ -1622,8 +1850,30 @@ def cli_path(card: str, steps=(200, 100, 60, 100, 30, 60, 200, 60, 20), scene=No
         if seen != dict(hier=True, cf=64, wide=march.STATIC):
             fail(f"4j coarse_factor 64: the run's march is {seen}, not hierarchical at 64")
         print(f"4j coarse_factor 64: {n_knob} steps on a 256^3 grid through K3's hierarchical march "
-              f"(segments of 64 candidates, wider than a warp); 4j {time.time() - t0:.1f} s wall; "
-              f"{card}")
+              f"(segments of 64 candidates, wider than a warp); {card}")
+        # chunks of SCAN_ODD steps: the occupancy updates land on JAX's steps
+        # (before each chunk that covers a multiple of the interval)
+        from lsenerf_tpu_torch.engine.loop import _covered
+
+        n_odd = 3 * SCAN_ODD + 4
+        graphs = {}
+        probe = CliProbe(after=lambda t: graphs.update(
+            {k: (cg.graph is not None, cg.launches) for k, cg in t._chunks.items()}))
+        stage(f"4j scan_steps {SCAN_ODD}", ["lsenerf", "--output-dir", os.path.join(work, "scan12"),
+                                             "--max-num-iterations", str(n_odd),
+                                             "--machine.scan-steps", str(SCAN_ODD)] + knob, probe)
+        want = [it for it in range(0, n_odd, SCAN_ODD)
+                if _covered(it, 16, min(SCAN_ODD, n_odd - it))]
+        chunks = [(i, n) for i, n, _ in probe.calls]
+        want_chunks = [(i, SCAN_ODD) for i in range(0, 3 * SCAN_ODD, SCAN_ODD)] + [
+            (i, 1) for i in range(3 * SCAN_ODD, n_odd)]
+        if probe.occ_steps != want or chunks != want_chunks or not graphs.get(SCAN_ODD, (0,))[0]:
+            fail(f"4j scan_steps {SCAN_ODD}: occupancy updates at {probe.occ_steps} (JAX's: {want}), "
+                 f"calls {chunks}, graphs {graphs}")
+        print(f"4j scan_steps {SCAN_ODD}: {n_odd} steps as chunks at {[i for i, _ in chunks[:3]]} "
+              f"(the second captured, the third replayed) and {n_odd - 3 * SCAN_ODD} single steps; "
+              f"occupancy updates at steps {probe.occ_steps}, JAX's; launches captured "
+              f"{graphs[SCAN_ODD][1]}; 4j {time.time() - t0:.1f} s wall; {card}")
     print(f"4e-4j peak memory {peak / 2**30:.2f} GiB; launches {total}; {card}")
     return total
 
@@ -2021,6 +2271,7 @@ def main() -> int:
                                                     compute_dtype="float32"),
     }
     by_path = {p: run_path(dev, card, p, make) for p, make in paths.items()}
+    by_path.update({f"scan {p}": scan_path(dev, card, p, make) for p, make in paths.items()})
     by_path["cli"] = cli_path(card)
     by_path["tiny_golden"] = tiny_golden(card)
     by_path["data_parallel"] = data_parallel(dev, card)

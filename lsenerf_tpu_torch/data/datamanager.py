@@ -126,6 +126,12 @@ class MultiCamDataManager:
             batch["e_thresh"] = np.full((n_evs, 1), self.evs.e_thresh, np.float32)
         return batch
 
+    def next_train_stack(self, step: int, k: int) -> dict:
+        """k batches of next_train, drawn in the same order, stacked into
+        (k, ...) arrays: one chunk of Trainer.make_train_step_multi(k)."""
+        batches = [self.next_train(step + i) for i in range(k)]
+        return {key: np.stack([b[key] for b in batches]) for key in batches[0]}
+
     def next_eval_image(self, idx: int, eval_dataset: Optional[ColorDataset] = None) -> dict:
         """One view's full pixel grid [cam, y, x], its image and ids."""
         ds = eval_dataset if eval_dataset is not None else self.col

@@ -13,10 +13,10 @@ mappings of str, int, float, bool and None. yaml.safe_load reads the
 port's files to the same dict, and the reader reads the JAX CLI's
 yaml.safe_dump output.
 
-Every option of the tree lowers. `machine.scan_steps` and
-`pipeline.model.supergrid_matmul` are kept so that JAX config trees load,
-and change nothing here: the port runs single steps, and its march has no
-one-hot matmul.
+Every option of the tree lowers. `machine.scan_steps` goes to the
+training loop (k steps a chunk, one CUDA graph on the card).
+`pipeline.model.supergrid_matmul` is kept so that JAX config trees load,
+and changes nothing here: the port's march has no one-hot matmul.
 """
 
 from __future__ import annotations
@@ -174,7 +174,7 @@ class PipelineCLI:
 class MachineConfig:
     seed: int = 42
     num_devices: int = 1
-    scan_steps: int = 16  # the JAX package's steps a dispatch; the port runs single steps
+    scan_steps: int = 16  # train steps a chunk: one CUDA graph on the card (engine/loop.py)
 
 
 @dataclass

@@ -12,7 +12,9 @@ sharded over them.
 
 `Trainer.step(batch)` is the public entry. PyTorch runs eagerly, so there
 is no jitted step: the step is the forward, `backward()` and the optimizer
-update, on `self.device`.
+update, on `self.device`. `Trainer.make_train_step_multi(k)` takes k
+steps a call (JAX's lax.scan over stacked batches): on the card one
+replayed CUDA graph (engine/chunk_graph.py), on the CPU k eager steps.
 """
 
 from __future__ import annotations
@@ -123,18 +125,37 @@ def build_optimizer(config: TrainerConfig, params: dict):
     groups; the JAX package zeroes their updates). Returns (optimizer,
     per-group schedules, per-group leaf paths), the optimizer None where
     nothing trains; the caller sets each group's lr to schedule(count)
-    before the update, count = updates this optimizer has made, the count
-    optax passes to its schedule."""
+    before the update (set_lrs), count = updates this optimizer has made,
+    the count optax passes to its schedule. On CUDA the optimizer is
+    capturable, with each group's lr a device tensor, so that a CUDA graph
+    can hold its steps; eager steps there take the same arithmetic."""
     groups, schedules, paths = [], [], []
+    capturable = False
     for name, g in (("model", config.fields_optimizer), ("camera_opt", config.camera_optimizer)):
         leaves = [(p, t) for p, t in tree_leaves(params[name], name) if trainable(config.mode, p)]
         if not leaves:
             continue
-        groups.append({"params": [t for _, t in leaves], "lr": g.lr, "eps": g.eps, "name": name})
+        capturable = leaves[0][1].is_cuda
+        lr = torch.tensor(g.lr, dtype=torch.float32, device=leaves[0][1].device) if capturable else g.lr
+        groups.append({"params": [t for _, t in leaves], "lr": lr, "eps": g.eps, "name": name})
         schedules.append(exponential_decay(g.lr, g.lr_final, g.max_steps, g.warmup_steps))
         paths.append([p for p, _ in leaves])
-    optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999)) if groups else None
+    optimizer = None
+    if groups:
+        optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999), capturable=capturable)
+        # eager steps of a capturable Adam are meant here: no warning for them
+        optimizer._warned_capturable_if_run_uncaptured = True
     return optimizer, schedules, paths
+
+
+def set_lrs(optimizer, schedules, count: int) -> None:
+    """Each group's lr to its schedule at `count`: a float, or written into
+    the group's device tensor where the optimizer is capturable."""
+    for group, sched in zip(optimizer.param_groups, schedules):
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(sched(count))
+        else:
+            group["lr"] = sched(count)
 
 
 class Trainer:
@@ -178,6 +199,9 @@ class Trainer:
         self.params = None
         self.occ = None
         self.step_count = 0
+        self._chunks = {}  # k -> engine.chunk_graph.ChunkGraph
+        self.chunk_losses = None  # each step's loss of the last chunk
+        self._eager_note = False
 
     # -- init ----------------------------------------------------------------
 
@@ -248,6 +272,7 @@ class Trainer:
         from it."""
         if isinstance(rng, torch.Tensor):
             rng = {"occ": rng, "bg": rng[None]}
+        self.invalidate_graphs()
         self._gen.set_state(rng["occ"])
         if self.rank < rng["bg"].shape[0]:
             self._bg_gen.set_state(rng["bg"][self.rank].clone())
@@ -255,8 +280,17 @@ class Trainer:
     def rebuild_optimizer(self) -> None:
         """A fresh optimizer (no moments, count 0) over the current leaves,
         as after a change to the tree (the test embedding's graft)."""
+        self.invalidate_graphs()
         self.optimizer, self.schedules, self.opt_paths = build_optimizer(self.config, self.params)
         self.opt_count = 0
+
+    def invalidate_graphs(self) -> None:
+        """Drop the chunks' CUDA graphs: something they read was replaced
+        (the optimizer or Adam's state, a generator's state); the next
+        chunk of each k warms up and captures anew. A graph of another
+        model config (model_override, a replaced grid config) is replaced
+        at its next chunk (train_chunk)."""
+        self._chunks.clear()
 
     # -- bundles -------------------------------------------------------------
 
@@ -362,14 +396,18 @@ class Trainer:
         """Rays one step renders for this batch (the background's rows)."""
         return sum(self.bundle_sizes(batch))
 
-    def _step_bundles(self, cam_params: dict, batch: dict, step: int):
+    def _step_bundles(self, cam_params: dict, batch: dict, step: int, gates=None):
         """The bundles one step renders, in order (RGB, prev and next event;
         no next under denerf), and the RGB and event targets (None where
-        the batch has no such rays)."""
+        the batch has no such rays). The cameras' delayed-activation gates
+        are step's, or `gates` (RGB, event), device values a CUDA graph
+        reads at each replay."""
         tcfg = self.config
         has_col, has_evs = self._has()
-        col_gate = pose_opt.activation_gate(step, tcfg.col_cam_opt.scheme, tcfg.col_cam_opt.delay_cnt)
-        evs_gate = pose_opt.activation_gate(step, tcfg.evs_cam_opt.scheme, tcfg.evs_cam_opt.delay_cnt)
+        if gates is None:
+            gates = (pose_opt.activation_gate(step, tcfg.col_cam_opt.scheme, tcfg.col_cam_opt.delay_cnt),
+                     pose_opt.activation_gate(step, tcfg.evs_cam_opt.scheme, tcfg.evs_cam_opt.delay_cnt))
+        col_gate, evs_gate = gates
         bundles, col_batch, evs_batch = [], None, None
         if has_col:
             bundles.append(self._make_col_bundle(cam_params, batch, col_gate))
@@ -380,15 +418,16 @@ class Trainer:
             evs_batch = {"image": batch["evs_values"], "e_thresh": batch["e_thresh"]}
         return bundles, col_batch, evs_batch
 
-    def loss_fn(self, params: dict, occ, batch: dict, step: int, bg_color=None):
+    def loss_fn(self, params: dict, occ, batch: dict, step: int, bg_color=None, gates=None):
         """(params, occ, batch, step, background) -> (loss, metrics): one
         volume render for all bundles (RGB, prev and next event; no next
-        under denerf), split and post-processed per branch."""
+        under denerf), split and post-processed per branch. `gates`, where
+        given, stands for step's camera gates (_step_bundles)."""
         mcfg = self.model_config
         has_col, has_evs = self._has()
         cam_params = params["camera_opt"]
         col_out = prev_out = next_out = None
-        bundles, col_batch, evs_batch = self._step_bundles(cam_params, batch, step)
+        bundles, col_batch, evs_batch = self._step_bundles(cam_params, batch, step, gates)
         sizes = [len(b) for b in bundles]
         big = model_lib.concat_bundles(bundles) if len(bundles) > 1 else bundles[0]
         raw = model_lib.render_bundle(params["model"], big, occ, mcfg, train=True, bg_color=bg_color)
@@ -486,13 +525,63 @@ class Trainer:
             metrics = self.dp.average_metrics(dict(metrics, loss=loss))
             loss = metrics.pop("loss")
         if self.optimizer is not None:
-            for group, sched in zip(self.optimizer.param_groups, self.schedules):
-                group["lr"] = sched(self.opt_count)
+            set_lrs(self.optimizer, self.schedules, self.opt_count)
             self.optimizer.step()
             self.opt_count += 1
         self.step_count += 1
         metrics["loss"] = loss
         return {k: v.detach() for k, v in metrics.items()}
+
+    def make_train_step_multi(self, k: int):
+        """k steps a call (JAX's make_train_step_multi): fn(stacked) with
+        stacked a dict of (k, ...) arrays from
+        MultiCamDataManager.next_train_stack. Returns the last step's
+        metrics and advances step_count and opt_count by k; each step's
+        loss is left in chunk_losses. No occupancy update runs inside a
+        chunk: the training loop runs it before the chunk."""
+
+        def train_steps(stacked: dict) -> dict:
+            n = len(next(iter(stacked.values())))
+            if n != k:
+                raise ValueError(f"a chunk of {n} batches given to a {k}-step function")
+            return self.train_chunk(stacked)
+
+        return train_steps
+
+    def _eager_chunk_reason(self) -> Optional[str]:
+        """Why a chunk on the card runs as k eager steps, or None: data
+        parallelism (the gradient all-reduce runs on the host over gloo)
+        and compact_chunk (one host sync a call) cannot be captured."""
+        if self.dp is not None:
+            return "data parallelism averages the gradients on the host"
+        if self.model_config.compact_chunk > 0:
+            return "compact_chunk reads its live-chunk count on the host"
+        return None
+
+    def train_chunk(self, stacked: dict) -> dict:
+        """One chunk of make_train_step_multi: on the CPU, and where
+        _eager_chunk_reason names a reason (said once), k eager steps; on
+        the card one CUDA graph (engine/chunk_graph.py)."""
+        k = len(next(iter(stacked.values())))
+        reason = self._eager_chunk_reason() if self.device.type == "cuda" else None
+        if self.device.type != "cuda" or reason is not None:
+            if reason is not None and not self._eager_note:
+                print(f"[lsenerf-torch] scan_steps: each chunk runs as {k} eager steps ({reason})")
+                self._eager_note = True
+            out = [self.step({key: v[j] for key, v in stacked.items()}, update_occ=False)
+                   for j in range(k)]
+            self.chunk_losses = torch.stack([m["loss"] for m in out])
+            return out[-1]
+        from lsenerf_tpu_torch.engine.chunk_graph import ChunkGraph
+
+        cg = self._chunks.get(k)
+        if cg is None or cg.model_config is not self.model_config:
+            cg = self._chunks[k] = ChunkGraph(self, k, stacked)
+        metrics, self.chunk_losses = cg.run(stacked)
+        if self.optimizer is not None:
+            self.opt_count += k
+        self.step_count += k
+        return metrics
 
     @torch.no_grad()
     def eval_batch(self, cameras: cam_lib.Cameras, idx, coords, gt, app_id) -> dict:
@@ -552,10 +641,13 @@ class Trainer:
         if set(adam) - set(leaves) or any(
                 adam[p]["exp_avg"].shape != leaves[p].shape for p in adam):
             return False
+        # a capturable Adam keeps its step count on the device
+        on_dev = self.optimizer.param_groups[0]["capturable"]
+        self.invalidate_graphs()
         for p, st in adam.items():
             t = leaves[p]
             self.optimizer.state[t] = {
-                k: v.to(t.device) if k != "step" else v.clone() for k, v in st.items()}
+                k: v.to(t.device) if k != "step" or on_dev else v.clone() for k, v in st.items()}
         self.opt_count = int(count)
         return True
 

@@ -12,6 +12,7 @@ different function).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field as dc_field
 
 import torch
@@ -71,6 +72,16 @@ class FieldConfig:
                 f"coarse_stride={self.coarse_stride} requires 0 < coarse_levels < num_levels "
                 f"(got coarse_levels={self.coarse_levels}, num_levels={self.hash.num_levels})"
             )
+
+
+@functools.lru_cache(maxsize=None)
+def _anchors(k: int, S: int, device: torch.device) -> torch.Tensor:
+    """Samples 0, S, 2S, ... and k - 1, made once a shape and device: a
+    copy from the host inside a captured CUDA graph would fail."""
+    idx = list(range(0, k, S))
+    if idx[-1] != k - 1:
+        idx.append(k - 1)
+    return torch.tensor(idx, device=device)
 
 
 def init_field(generator: torch.Generator, config: FieldConfig, num_imgs: int = 1,
@@ -148,11 +159,8 @@ def _strided_encode(params: dict, unit: torch.Tensor, ts: torch.Tensor, config: 
     table = params["hash_table"]
     feats_fine = he.hash_encode(table, unit.reshape(-1, 3),
                                 dataclasses.replace(config.hash, level_lo=C))
-    anchor_idx = list(range(0, k, S))
-    if anchor_idx[-1] != k - 1:
-        anchor_idx.append(k - 1)
-    A = len(anchor_idx)
-    anchors = torch.tensor(anchor_idx, device=unit.device)
+    anchors = _anchors(k, S, unit.device)
+    A = len(anchors)
     feats_a = he.hash_encode(table, unit[:, anchors].reshape(-1, 3),
                              dataclasses.replace(config.hash, level_hi=C)).reshape(n, A, -1)
     # sample j lies between anchors seg(j) and seg(j) + 1

@@ -5,6 +5,7 @@ the signed error map."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -14,12 +15,18 @@ from lsenerf_tpu_torch import EPS
 REC601 = (0.2989, 0.5870, 0.1140)  # Rec.601 luma weights
 
 
+@functools.lru_cache(maxsize=None)
+def _rec601(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The (3, 1) weights, made once a dtype and device: a copy from the
+    host inside a captured CUDA graph would fail."""
+    return torch.tensor(REC601, dtype=dtype, device=device).reshape(3, 1)
+
+
 def to_gray(img: torch.Tensor) -> torch.Tensor:
     """(..., 3) -> (..., 1) Rec.601 grayscale; other widths pass through."""
     if img.shape[-1] != 3:
         return img
-    w = torch.tensor(REC601, dtype=img.dtype, device=img.device).reshape(3, 1)
-    return img @ w
+    return img @ _rec601(img.dtype, img.device)
 
 
 def lin_log(x: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:

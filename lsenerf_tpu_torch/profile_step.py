@@ -1,7 +1,7 @@
 """Where the flagship train step's time goes on the card.
 
     python -m lsenerf_tpu_torch.profile_step [--production | --preset NAME] [--warm 17] [--timed 8] [--steps 7]
-        [--out outputs/profile] [--hash-layout ngp] [--compute-dtype float32]
+        [--out outputs/profile] [--hash-layout ngp] [--compute-dtype float32] [--scan-steps 16]
 
 Runs the flagship trainer (flagship.py), with `--production` the
 production protocol's (RGB spline + deblur x4), or with `--preset` one of
@@ -32,6 +32,17 @@ script measures a tree that names them the same (the parent of a change,
 unpacked beside it: copy this file into it and run it there). A kernel
 counts in the outermost layer range that was open on the host when its
 launching op started.
+
+With `--scan-steps k` (k > 1) the steps run as the CLI runs them, k a
+chunk through Trainer.make_train_step_multi (one replayed CUDA graph;
+the occupancy update before each chunk that covers one): two chunks
+warm up (the eager warm-up and the capture), one replayed chunk is timed
+untraced and the next traced, each without its occupancy update. It
+prints ms a step of both, the device's busy time a step and its idle
+share over the traced chunk, the host's launches a chunk (graph launches,
+kernel launches, copies) and the kernels the replay ran (the graph's
+nodes), and the kernels by device time; the layer table needs the
+Python of each step, which a replay does not run.
 Needs a CUDA device.
 """
 
@@ -154,6 +165,77 @@ def _busy_ms(events) -> float:
     return total / 1e3  # us -> ms
 
 
+def profile_chunk(trainer, label: str, card: str, args) -> int:
+    """--scan-steps k: one replayed chunk untraced, then one traced."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lsenerf_tpu_torch.engine.loop import _covered
+
+    k = args.scan_steps
+    every = trainer.model_config.grid.update_interval
+    stacks = [trainer.dm.next_train_stack(c * k, k) for c in range(4)]
+    fn = trainer.make_train_step_multi(k)
+
+    def occ(c):
+        if _covered(c * k, every, k):
+            trainer.occ_update()
+
+    for c in (0, 1):  # the eager warm-up, then the capture and its replay
+        occ(c)
+        fn(stacks[c])
+    cg = trainer._chunks[k]
+
+    def timed(c):
+        torch.cuda.synchronize()
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(stacks[c])
+        z.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(z) / k
+
+    occ(2)
+    untraced_ms = timed(2)
+    occ(3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_ms = timed(3)
+    events = prof.events()
+    dev_events = [e for e in events if e.device_type.name == "CUDA"
+                  and not getattr(e, "is_user_annotation", False)]
+    busy = _busy_ms(dev_events) / k
+    host = {}
+    for e in events:
+        if e.device_type.name == "CPU" and e.name.startswith("cu"):
+            host[e.name] = host.get(e.name, 0) + 1
+    rays = trainer.num_rays({key: v[0] for key, v in stacks[0].items()})
+    print(f"card: {card}")
+    print(f"{label} chunk of {k} steps (one replayed CUDA graph) untraced {untraced_ms:.3f} ms/step "
+          f"({rays / untraced_ms * 1e3:.0f} rays/s) over steps {2 * k}..{3 * k - 1}")
+    print(f"{label} chunk traced {step_ms:.3f} ms/step ({rays / step_ms * 1e3:.0f} rays/s) over steps "
+          f"{3 * k}..{4 * k - 1}; device busy {busy:.3f} ms/step, idle share "
+          f"{1 - busy / step_ms:.3f}; {len(dev_events)} device events a chunk "
+          f"({len(dev_events) / k:.0f} a step)")
+    print(f"  host calls a chunk: " + ", ".join(f"{n} {c}" for n, c in sorted(host.items())))
+    print(f"  kernels captured in the graph by the wrappers: {cg.launches}")
+    kern = {}
+    for e in dev_events:
+        v = kern.setdefault(e.name, [0.0, 0])
+        v[0] += (e.time_range.end - e.time_range.start) / 1e3
+        v[1] += 1
+    print("top device time per step:")
+    for name, (t, c) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {t / k:8.4f} ms  {c / k:6.1f}x  {name[:90]}")
+    os.makedirs(args.out, exist_ok=True)
+    name = f"profile_chunk_{label}"
+    with open(os.path.join(args.out, f"{name}.txt"), "w") as f:
+        f.write(f"card: {card}\n")
+        f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
+    prof.export_chrome_trace(os.path.join(args.out, f"{name}_trace.json.gz"))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -167,6 +249,8 @@ def main(argv=None) -> int:
     ap.add_argument("--timed", type=int, default=8)
     ap.add_argument("--steps", type=int, default=7)
     ap.add_argument("--out", default="outputs/profile")
+    ap.add_argument("--scan-steps", type=int, default=1,
+                    help="k > 1: profile one replayed chunk of k steps (a CUDA graph)")
     args = ap.parse_args(argv)
 
     import torch
@@ -191,6 +275,8 @@ def main(argv=None) -> int:
         label = "production" if args.production else "flagship"
     if args.hash_layout != "blocked" or args.compute_dtype != "bfloat16":
         label += f"_{args.hash_layout}_{args.compute_dtype}"
+    if args.scan_steps > 1:
+        return profile_chunk(trainer, label, card, args)
     interval = trainer.model_config.grid.update_interval
     traced_from = args.warm + args.timed
     n = traced_from + args.steps

@@ -16,7 +16,9 @@ process each, on cuda:0..N-1 over NCCL (over gloo on the CPU); a process
 that torchrun started joins its group instead (parallel/ddp.py). Rank 0
 writes the run dir, the logs and the checkpoints and runs the evals.
 `--is_render True` runs the render mode (nothing trains, no occupancy
-update, no eval-ray batch). A training run on the blocked layout logs
+update, no eval-ray batch). `--machine.scan-steps k` (JAX's default 16)
+trains k steps a chunk: on the card one replayed CUDA graph a chunk, on
+the CPU k eager steps (engine/loop.py). A training run on the blocked layout logs
 `grad_overflow` every 256 steps (engine/loop.py), and every step's with
 `--pipeline.model.grad-overflow-telemetry True`.
 """
@@ -200,7 +202,8 @@ def run(argv, device, dp=None, timestamp: str = ""):
         logger=logger, eval_ds=eval_ds, eval_chunk=chunk,
         eval_batch_rays=config.pipeline.datamanager.eval_num_rays_per_batch, ckpt_dir=ckpt_dir,
         base_dir=base_dir, apply_cam_opt=config.is_eval, evs_only=evs_only,
-        profile_dir=os.environ.get("LSENERF_PROFILE_DIR"), is_render=config.is_render)
+        profile_dir=os.environ.get("LSENERF_PROFILE_DIR"), is_render=config.is_render,
+        scan_steps=config.machine.scan_steps)
 
     total = config.max_num_iterations
     warmup = int(config.pipeline.model.proposal_warmup_steps)

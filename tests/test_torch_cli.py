@@ -57,8 +57,11 @@ def test_cli_train_eval_sh_emb_eval_sh(tmp_path):
     data = str(tmp_path / "scene")
     write_reference_scene(data, n_cams=8, h=16, w=16, focal=20.0, n_val=2, with_prevnext=True,
                           with_msk=True, with_full_camera=True, texture_freq=3.0)
+    # chunks of 6 steps end on the cadence's own steps, so the saves fall
+    # where single steps put them
     cadence = ["--max-num-iterations", "12", "--steps-per-save", "6", "--steps-per-eval-batch", "6",
-               "--steps-per-eval-image", "6", "--steps-per-eval-all-images", "12"]
+               "--steps-per-eval-image", "6", "--steps-per-eval-all-images", "12",
+               "--machine.scan-steps", "6"]
     runs = {}
     for preset in ("lsenerf", "lsenerf_emb"):
         runs[preset] = _cli(train_argv(preset, data) + cadence + TINY_MODEL, str(tmp_path))

@@ -194,9 +194,10 @@ CADENCE = dict(steps_per_save=7, steps_per_eval_batch=5, steps_per_eval_image=6,
 START, STEPS = 37, 30
 
 
-def _jax_loop_events(monkeypatch):
+def _jax_loop_events(monkeypatch, scan_steps=1):
     """The absolute steps at which JAX's run_training_loop fires each
-    cadence, with a stub trainer whose step only counts."""
+    cadence, with a stub trainer whose step (and k-step chunk, at
+    scan_steps k) only counts."""
     from lsenerf_tpu.engine import checkpoints as jckpt
     from lsenerf_tpu.engine import evaluation as jeval
     from lsenerf_tpu.engine import loop as jloop
@@ -224,11 +225,17 @@ def _jax_loop_events(monkeypatch):
         ev["occ"].append(int(state.step))
         return state
 
+    def make_train_step_multi(k):
+        def train_steps(state, batches):
+            cur[0] = int(state.step) + k - 1
+            return state.replace(step=state.step + k), {"loss": jnp.float32(0.0)}
+        return train_steps
+
     trainer = types.SimpleNamespace(
         config=jtr.TrainerConfig(grad_overflow_every=0, **CADENCE),
         model_config=types.SimpleNamespace(grid=types.SimpleNamespace(update_interval=4)),
-        dm=types.SimpleNamespace(next_train=lambda it: {}),
-        _train_step=train_step, _occ_update=occ_update,
+        dm=types.SimpleNamespace(next_train=lambda it: {}, next_train_stack=lambda it, k: {}),
+        _train_step=train_step, _occ_update=occ_update, make_train_step_multi=make_train_step_multi,
         make_eval_batch_fn=lambda cams: lambda *a: (ev["eval_batch"].append(cur[0]), {})[1],
     )
     eval_ds = types.SimpleNamespace(
@@ -241,7 +248,8 @@ def _jax_loop_events(monkeypatch):
         ev["eval_all"].append(cur[0]), {})[1])
     monkeypatch.setattr(jckpt, "save_checkpoint", lambda d, step, *a, **k: ev["save"].append(step))
     jloop.run_training_loop(trainer, State(step=START, params={"model": {}}), num_steps=STEPS,
-                            eval_ds=eval_ds, ckpt_dir="unused", base_dir="unused", scan_steps=1)
+                            eval_ds=eval_ds, ckpt_dir="unused", base_dir="unused",
+                            scan_steps=scan_steps)
     return ev
 
 
@@ -290,3 +298,47 @@ def test_loop_cadences_fire_on_jax_steps(monkeypatch):
     assert tr.step_count == START + STEPS
     assert ev == want
     assert want["occ"] == [40, 44, 48, 52, 56, 60, 64] and want["save"][-1] == START + STEPS - 1
+
+
+@pytest.mark.parametrize("scan_steps", [4, 12, 16])
+def test_loop_cadences_fire_on_jax_steps_in_chunks(monkeypatch, scan_steps):
+    """At scan_steps k (chunks of k from the resumed start 37, the last one
+    trimmed to single steps): the occupancy updates, eval batches, eval
+    images, saves (the final one included) and full evals fire on the same
+    absolute steps as in JAX's chunked loop, each after its chunk's last
+    step; Trainer.make_train_step_multi runs the chunks (on the CPU, k
+    eager steps) with no occupancy update inside them."""
+    from lsenerf_tpu_torch.engine import evaluation as teval
+    from lsenerf_tpu_torch.engine import loop as tloop
+    from lsenerf_tpu_torch.engine import renderer as tren
+
+    want = _jax_loop_events(monkeypatch, scan_steps)
+    ev = {k: [] for k in want}
+    tr = _tiny_trainer()
+    for k, v in CADENCE.items():
+        setattr(tr.config, k, v)
+    tr.step_count = START
+    real_step = tr.step
+    seen = []
+
+    def step(batch, bg_color=None, **kw):
+        ev["_cur"] = tr.step_count
+        seen.append((tr.step_count, kw.get("update_occ", True)))
+        return real_step(batch, bg_color, **kw)
+
+    tr.step = step
+    tr.occ_update = lambda *a, **k: ev["occ"].append(tr.step_count)
+    tr.grads = lambda batch, bg_color=None: (torch.zeros(()), {}, {})
+    tr.eval_batch = lambda *a: (ev["eval_batch"].append(ev["_cur"]), {})[1]
+    monkeypatch.setattr(tren, "render_image", lambda *a, **k: (
+        ev["eval_image"].append(ev["_cur"]), {"rgb": np.ones((16, 16, 3), np.float32)})[1])
+    monkeypatch.setattr(teval, "average_eval_metrics", lambda *a, **k: (
+        ev["eval_all"].append(ev["_cur"]), {})[1])
+    monkeypatch.setattr(ckpt, "save_checkpoint", lambda d, step, *a, **k: ev["save"].append(step))
+    tloop.run_training_loop(tr, num_steps=STEPS, eval_ds=tr.dm.col, ckpt_dir="unused",
+                            base_dir="unused", scan_steps=scan_steps)
+    ev.pop("_cur")
+    assert tr.step_count == START + STEPS
+    assert seen == [(s, False) for s in range(START, START + STEPS)]
+    assert ev == want
+    assert want["save"][-1] == START + STEPS - 1

@@ -9,7 +9,8 @@ table and index shapes; K3 (lsenerf_tpu_torch/ops/march.py) at the
 flagship's widths on three grids and past its static layout (96 slots and
 coarse segments, 4096 candidates), its selection bit for bit, and K5a/K5b
 (lsenerf_tpu_torch/ops/composite.py) at 1 to 200 samples a ray for every
-background.
+background; and scan_steps' chunk graph (lsenerf_tpu_torch/engine/
+chunk_graph.py) against eager steps, and a capture that fails.
 
 This file imports neither JAX nor the JAX package, so a machine with the
 card and without JAX runs it on its own, skipping the JAX conftest:
@@ -579,3 +580,90 @@ def test_march_composite_wrappers_refuse_what_the_kernels_do_not_take():
         composite.composite_fwd(dens[:, :8], rgb, ts, te, mask)
     with pytest.raises(ValueError, match="is on cpu"):
         composite.composite_fwd(dens, rgb.cpu(), ts, te, mask)
+
+
+def _scan_trainer(dev):
+    """A small trainer for the scan_steps card tests: RGB and events, SO3xR3
+    deltas (the RGB ones delayed, on from step 4), a random background and
+    the occupancy update every 4 steps (tests/test_torch_scan_steps.py's
+    on the CPU)."""
+    from lsenerf_tpu_torch.data import datamanager as tdm
+    from lsenerf_tpu_torch.data import synthetic as tsyn
+    from lsenerf_tpu_torch.engine import trainer as ttr
+    from lsenerf_tpu_torch.models import field as tfield
+    from lsenerf_tpu_torch.models import lsenerf as tmodel
+    from lsenerf_tpu_torch.ops import occupancy as tocc
+
+    col, evs = tsyn.make_synthetic_scene(n_cams=4, h=16, w=16, focal=20.0)
+    dm = tdm.MultiCamDataManager(tdm.DataManagerConfig(train_num_rays_per_batch=64), col, evs,
+                                 seed=3)
+    mcfg = tmodel.ModelConfig(
+        field=tfield.FieldConfig(hash=the.HashEncodingConfig(num_levels=4, base_res=4, max_res=32,
+                                                              layout="blocked", blocked_rows_log2=8)),
+        grid=tocc.OccGridConfig(resolution=16, levels=1, update_interval=4),
+        max_samples=16, max_candidates=64, hierarchical_march=False)
+    cfg = ttr.TrainerConfig(
+        col_cam_opt=ttr.CameraOptConfig(mode="SO3xR3", scheme="delayed", delay_cnt=3),
+        evs_cam_opt=ttr.CameraOptConfig(mode="SO3xR3"),
+        fields_optimizer=ttr.OptimizerGroupConfig(lr=1e-2, lr_final=1e-3, max_steps=10))
+    tr = ttr.Trainer(cfg, mcfg, dm, device=dev)
+    tr.setup()
+    return tr
+
+
+@pytest.mark.cuda
+def test_chunk_graph_matches_eager_steps_on_card():
+    """Three chunks of 3 steps (the eager warm-up, the capture and its
+    replay, a replay; the RGB gate switches on at step 4, inside the
+    captured chunk) against 9 eager steps of a trainer built the same way:
+    the counts and the background generator's state equal after each
+    chunk, each loss within rtol 1e-3 (K2's atomics add in no fixed order,
+    and Adam's eps of 1e-15 turns their noise into steps of up to lr), and
+    the captured graph holds K1, K2, K3, K5a and K5b once a step."""
+    from lsenerf_tpu_torch.engine.chunk_graph import path_kernels
+    from lsenerf_tpu_torch.engine.loop import _covered
+
+    dev = _card()
+    k = 3
+    eager, chunked = _scan_trainer(dev), _scan_trainer(dev)
+    stacked = eager.dm.next_train_stack(0, 3 * k)
+    chunked.dm.next_train_stack(0, 3 * k)
+    fn = chunked.make_train_step_multi(k)
+    for c in range(3):
+        part = {key: v[c * k:(c + 1) * k] for key, v in stacked.items()}
+        for t in (eager, chunked):
+            if _covered(c * k, 4, k):
+                t.occ_update()
+        want = torch.stack([eager.step({key: v[j] for key, v in part.items()}, update_occ=False)["loss"]
+                            for j in range(k)])
+        got = fn(part)
+        torch.testing.assert_close(chunked.chunk_losses, want, rtol=1e-3, atol=0.0)
+        torch.testing.assert_close(got["loss"], want[-1], rtol=1e-3, atol=0.0)
+        assert (chunked.step_count, chunked.opt_count) == (eager.step_count, eager.opt_count)
+        assert torch.equal(chunked._bg_gen.get_state(), eager._bg_gen.get_state())
+    cg = chunked._chunks[k]
+    assert cg.graph is not None
+    names = [kn.name for kn in path_kernels() if not kn.name.startswith("ngp")]
+    assert min(cg.launches[n] for n in names) >= k, cg.launches
+
+
+@pytest.mark.cuda
+def test_chunk_graph_capture_error_propagates(monkeypatch):
+    """A host sync inside the chunk's steps ends the capture: the error
+    raises, naming where it happened, and no step runs eagerly in its
+    place."""
+    dev = _card()
+    tr = _scan_trainer(dev)
+    fn = tr.make_train_step_multi(2)
+    fn(tr.dm.next_train_stack(0, 2))  # the eager warm-up
+    real = tr._draw_background
+
+    def draw_and_sync(n):
+        out = real(n)
+        float(out.sum())  # reads the device from the host
+        return out
+
+    monkeypatch.setattr(tr, "_draw_background", draw_and_sync)
+    with pytest.raises(RuntimeError, match="capturing 2 train steps as one CUDA graph failed at"):
+        fn(tr.dm.next_train_stack(2, 2))
+    assert tr.step_count == 2

@@ -149,7 +149,9 @@ def test_cli_two_ranks(tmp_path):
     argv = train_argv("lsenerf", data) + [
         "--max-num-iterations", "6", "--steps-per-save", "3", "--steps-per-eval-batch", "3",
         "--steps-per-eval-image", "3", "--steps-per-eval-all-images", "6",
-        "--output-dir", str(tmp_path / "out"), "--machine.num-devices", "2"] + TINY_MODEL
+        "--output-dir", str(tmp_path / "out"), "--machine.num-devices", "2",
+        # chunks of 3 steps end on the cadence's own steps
+        "--machine.scan-steps", "3"] + TINY_MODEL
     run = train.main(argv + ["--device", "cpu"])
     assert sorted(os.listdir(osp.join(run, "checkpoints"))) == ["step-000000002", "step-000000005"]
     assert osp.exists(osp.join(run, "eval_mean.json"))
