@@ -33,6 +33,12 @@ Phases, each fatal on failure (exit code 1):
      a fifth small step, ngp f32 with coarse_stride 2 and the aabb field in
      place of the scene contraction, and a sixth with compact_chunk 128
      (the field on the live chunks of the validity-sorted samples) (3b);
+     then (3a-F) the generic encode kernels K1g/K2g (blocked_encode_fwd_f/
+     _bwd_f) and K7ag/K7bg (ngp_encode_fwd_f/_bwd_f) against their plain
+     versions at features_per_level F = 1, 3, 4 and 8 (56,192 uniform
+     positions, 8 levels; K7ag bit for bit), and at F = 4 on one real step
+     of each 4v path, each timed warm, with a cold L2 and beside its bound;
+     and two more small steps (3b), 8 levels of F = 4 in each layout;
   3d. K3 (march_ts, csrc/march.cu) against march_ts_plain at the flagship
      trainer's real march inputs (flagship.march_composite_calls: step
      16, right after its occupancy update) in nine cases
@@ -68,7 +74,7 @@ Phases, each fatal on failure (exit code 1):
      call that computes the same function, with G3's L2 bytes per launch as
      worked out from its design;
   4. the flagship train step (flagship.py) for STEPS steps on the card, with
-     the launch counters of K1, K2, K7a, K7b, K3, K5a and K5b set to 0
+     the launch counters of the encode kernels, K3, K5a and K5b set to 0
      just before and read just after (every path of 4-4k must launch K3,
      K5a and, where a backward runs, K5b);
   4b. the same for the production protocol's train step (flagship.py with
@@ -81,6 +87,11 @@ Phases, each fatal on failure (exit code 1):
   4g. the same for the badnerf preset with the ngp layout in f32 (the
      real_scale_badnerf_ngpf32 golden's model), through K7a/K7b, with its
      peak memory;
+  4v. the flagship's encode width (out_dim 32) as 8 levels of F = 4
+     (flagship.FEATURES_4) in the flagship (blocked, bf16) and in the
+     badnerf ngp f32 model: each path as in 4 and as in 4s below, through
+     K1g/K2g and K7ag/K7bg; every path of 4-4v launches only its config's
+     encode pair (check_encode_pair);
   4s. a scan phase for each of those five paths (scan_path): the steps in
      chunks of SCAN (16, the CLI's scan_steps) through
      Trainer.make_train_step_multi, steps 0-15 as the chunk graph's eager
@@ -134,8 +145,9 @@ Phases, each fatal on failure (exit code 1):
      process's steps on the whole batches (data_parallel's docstring has
      the tolerances); the ranks' grids after step 0's sharded occupancy
      update equal bit for bit; then one step under NCCL at world size 1;
-  5. a `kernels` JSON line (K1/K2/K7a/K7b/K3/K5a/K5b launches summed over
-     phases 4 to 4k, the ranks' included; G1-G3's from 3c),
+  5. a `kernels` JSON line (K1/K2/K1g/K2g/K7a/K7b/K7ag/K7bg/K3/K5a/K5b
+     launches summed over phases 4 to 4k, the ranks' included; G1-G3's
+     from 3c),
      the card line, and the result line {"ok": true, "device": {...}} last.
 
 Every kernel and library call is timed three ways (lsenerf_tpu_torch/
@@ -153,6 +165,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -291,25 +304,26 @@ def g3_bytes(R, n, W):
     return R * n * W * 4 + R * n * 4
 
 
-def encode_bounds(pos, lv):
-    """The bounds of K1 and K2 on these positions: bytes each function must
-    move (inputs once, outputs once; the table's rows counted as the
-    distinct rows this input touches, 54 used bf16 values each; K2 writes
-    the whole f32 gradient table) and its f32 operations, at the card's
-    peaks. Returns (K1's, K2's, distinct rows)."""
+def encode_bounds(pos, lv, table):
+    """The bounds of K1 and K2 (K1g and K2g at F != 2) on these inputs:
+    bytes each function must move (inputs once, outputs once; the table's
+    rows counted as the distinct rows this input touches, 27 F used values
+    each in the table's type; K2 writes the whole f32 gradient table) and
+    its f32 operations, at the card's peaks. Returns (K1's, K2's, distinct
+    rows)."""
     import torch
 
     from lsenerf_tpu_torch.ops import combine
 
-    n, L = pos.shape[0], lv.num
+    n, L, F = pos.shape[0], lv.num, lv.F
     keys = combine.keys_fracs(pos, lv)[0]
     rows = int(torch.unique(keys).numel())
-    row_bytes = rows * 54 * 2
+    row_bytes = rows * 27 * F * table.element_size()
     m = n * L
-    k1_bytes = n * 3 * 4 + row_bytes + m * combine.F * 4
-    k1_ops = m * (3 * 4 + 9 + 27 + 27 * 2 * 2)  # fracs, weights, 54 FMAs
-    k2_bytes = n * 3 * 4 + row_bytes + m * combine.F * 4 + n * 3 * 4 + lv.total_rows * 64 * 4
-    k2_ops = m * (3 * 4 + 27 * 4 + 27 * 3 * 3 + 27 * 2 + 8 * 2 * 2 + 3 * 4)
+    k1_bytes = n * 3 * 4 + row_bytes + m * F * 4
+    k1_ops = m * (3 * 4 + 9 + 27 + 27 * F * 2)  # fracs, weights, 27 F FMAs
+    k2_bytes = n * 3 * 4 + row_bytes + m * F * 4 + n * 3 * 4 + lv.total_rows * lv.row_width * 4
+    k2_ops = m * (3 * 4 + 27 * 2 * F + 27 * 3 * 3 + 27 * 2 + 8 * F * 2 + 3 * 4)
     return bound(k1_bytes, k1_ops), bound(k2_bytes, k2_ops), rows
 
 
@@ -341,7 +355,7 @@ def check_encode(name, pos, table, gfeat, lv):
         fail(f"K2 at {name}: dpos differs between two calls on the same inputs")
     del out, want, dpos, dtab, wdpos, wdtab, dpos2
 
-    (b1, b2, rows) = encode_bounds(pos, lv)
+    (b1, b2, rows) = encode_bounds(pos, lv, table)
     scalar, instructions, requests = atomics_per_launch(pos, lv)
     res = {}
     for k, err, fn, plain, (b_ms, b_by) in (
@@ -383,7 +397,7 @@ def check_kernels(dev):
     L = hcfg.num_levels
     pos = torch.rand((n, 3), generator=gen, device=dev)
     table = (torch.rand((hcfg.total_rows, 64), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
-    gfeat = torch.randn((n, L * combine.F), generator=gen, device=dev)
+    gfeat = torch.randn((n, L * lv.F), generator=gen, device=dev)
     res = check_encode("uniform positions", pos, table, gfeat, lv)
     del pos, table, gfeat
 
@@ -404,26 +418,26 @@ def check_kernels(dev):
 
 
 def ngp_bounds(pos, table, lv):
-    """The bounds of K7a and K7b on these inputs: bytes each function must
-    move (inputs once, outputs once; the table's entries counted as the
-    distinct entries this input touches, F values each in the table's type;
-    K7b writes the whole f32 gradient table) and its f32 operations (per
-    sample-level: the fractions, 8 corner weights and 8 two-feature terms,
-    the backward's chain rule), at the card's peaks. Returns (K7a's, K7b's,
-    distinct entries)."""
+    """The bounds of K7a and K7b (K7ag and K7bg at F != 2) on these inputs:
+    bytes each function must move (inputs once, outputs once; the table's
+    entries counted as the distinct entries this input touches, F values
+    each in the table's type; K7b writes the whole f32 gradient table) and
+    its f32 operations (per sample-level: the fractions, 8 corner weights
+    and 8 F-feature terms, the backward's chain rule), at the card's peaks.
+    Returns (K7a's, K7b's, distinct entries)."""
     import torch
 
     from lsenerf_tpu_torch.ops import ngp
 
-    n, L = pos.shape[0], lv.num
+    n, L, F = pos.shape[0], lv.num, table.shape[1]
     keys = ngp.corners(pos, lv)[0]
     entries = int(torch.unique(keys).numel())
-    entry_bytes = entries * ngp.F * table.element_size()
+    entry_bytes = entries * F * table.element_size()
     m = n * L
-    fwd_bytes = n * 3 * 4 + entry_bytes + m * ngp.F * 4
-    fwd_ops = m * (3 * 3 + 3 + 8 * 2 + 8 * 2 * 2)
-    bwd_bytes = n * 3 * 4 + entry_bytes + m * ngp.F * 4 + n * 3 * 4 + lv.table_rows * ngp.F * 4
-    bwd_ops = m * (3 * 3 + 3 + 8 * 2 + 8 * (3 + 6 + 3 + 2) + 3)
+    fwd_bytes = n * 3 * 4 + entry_bytes + m * F * 4
+    fwd_ops = m * (3 * 3 + 3 + 8 * 2 + 8 * F * 2)
+    bwd_bytes = n * 3 * 4 + entry_bytes + m * F * 4 + n * 3 * 4 + lv.table_rows * F * 4
+    bwd_ops = m * (3 * 3 + 3 + 8 * 2 + 8 * (2 * F - 1 + 6 + 3 + F) + 3)
     return bound(fwd_bytes, fwd_ops), bound(bwd_bytes, bwd_ops), entries
 
 
@@ -494,7 +508,7 @@ def check_k7a(name, pos, table, lv):
     print(f"{ngp.K7A.name} at {name}: max_abs_err 0 (the same bits), {fmt(r)}; cold L2 "
           f"{r['cold_ms']:.5f} ms; {entries} distinct entries ({table.dtype}) at n={pos.shape[0]}, "
           f"levels [{lv.lo}, {lv.lo + lv.num}) of {lv.levels} x 2^{lv.log2_T}")
-    (w0, s0), (w1, s1) = k7a_requests(pos, lv, ngp.F * table.element_size())
+    (w0, s0), (w1, s1) = k7a_requests(pos, lv, 2 * table.element_size())
     m = pos.shape[0] * lv.num
     print(f"K7a table loads per launch at {name}, worked out from the designs (not measured): a "
           f"thread a sample-level, {w0} L1 wavefronts and {s0} L2 sector requests; level-grouped "
@@ -574,6 +588,123 @@ def check_ngp(dev):
     res = shapes.pop("uniform")
     for k in res:
         res[k]["shapes"] = {name: r[k] for name, r in shapes.items() if k in r}
+    return res
+
+
+# the generic encode kernels' phase (3a-F): F values, samples (the badnerf
+# and flagship presets' 3512 rays x 16) and levels (flagship.FEATURES_4's)
+GENERIC_FEATURES = (1, 3, 4, 8)
+GENERIC_SAMPLES = 3512 * 16
+
+
+def generic_pair(layout: str):
+    """The generic (forward, backward) kernels of a layout: K1g/K2g or
+    K7ag/K7bg."""
+    from lsenerf_tpu_torch.ops import combine, ngp
+
+    return (combine.K1G, combine.K2G) if layout == "blocked" else (ngp.K7AG, ngp.K7BG)
+
+
+def check_generic_encode(name, layout, pos, table, gfeat, lv):
+    """K1g and K2g (blocked) or K7ag and K7bg (ngp) against their plain
+    versions on one input at F != 2, each launched once by its wrapper:
+    K1g rtol 1e-5 / atol 1e-6 (3a's), K7ag the plain version's bits, the
+    backwards as K2/K7b (dpos atol 1e-6 of its largest element, the table
+    gradient 1e-5 of its largest, dpos the same bits twice). Then each is
+    timed warm, with a cold L2 and beside its bound. Returns {kernel name:
+    result}."""
+    import torch
+
+    from lsenerf_tpu_torch.ops import combine, ngp
+    from lsenerf_tpu_torch.timing import cold_ms
+
+    mod = combine if layout == "blocked" else ngp
+    kf, kb = generic_pair(layout)
+    F = lv.F if layout == "blocked" else table.shape[1]
+    before = kf.launches, kb.launches
+    out = mod.encode_fwd(pos, table, lv)
+    want = mod.encode_fwd_plain(pos, table, lv)
+    dpos, dtab = mod.encode_bwd(pos, table, gfeat, lv)
+    wdpos, wdtab = mod.encode_bwd_plain(pos, table, gfeat, lv)
+    torch.cuda.synchronize()
+    if (kf.launches, kb.launches) != (before[0] + 1, before[1] + 1):
+        fail(f"{name}: the wrappers did not launch {kf.name} and {kb.name} at F = {F}")
+    if layout == "ngp":
+        if not same_bits(out, want):
+            fail(f"{kf.name} at {name}: not the plain version's bits (max abs err "
+                 f"{float((out - want).abs().max()):.3e})")
+    else:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    err1 = float((out - want).abs().max())
+    torch.testing.assert_close(dpos, wdpos, rtol=1e-4, atol=1e-6 * float(wdpos.abs().max()))
+    torch.testing.assert_close(dtab, wdtab, rtol=0, atol=1e-5 * float(wdtab.abs().max()))
+    if layout == "blocked" and dtab[:, 27 * F:].any():
+        fail(f"{kb.name} at {name}: the pad columns past 27 F moved")
+    err2 = max(float((dpos - wdpos).abs().max()), float((dtab - wdtab).abs().max()))
+    dpos2, _ = mod.encode_bwd(pos, table, gfeat, lv)
+    torch.cuda.synchronize()
+    if not torch.equal(dpos, dpos2):
+        fail(f"{kb.name} at {name}: dpos differs between two calls on the same inputs")
+    del out, want, dpos, dtab, wdpos, wdtab, dpos2
+
+    if layout == "blocked":
+        b1, b2, distinct = encode_bounds(pos, lv, table)
+    else:
+        b1, b2, distinct = ngp_bounds(pos, table, lv)
+    res = {}
+    for k, err, fn, plain, (b_ms, b_by) in (
+        (kf, err1, lambda: mod.encode_fwd(pos, table, lv),
+         lambda: mod.encode_fwd_plain(pos, table, lv), b1),
+        (kb, err2, lambda: mod.encode_bwd(pos, table, gfeat, lv),
+         lambda: mod.encode_bwd_plain(pos, table, gfeat, lv), b2),
+    ):
+        r = res[k.name] = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **timings(fn, plain))
+        r["cold_ms"] = cold_ms(fn)
+        print(f"{k.name} at {name}: max_abs_err {err:.3e}, {fmt(r)}; cold L2 {r['cold_ms']:.5f} ms; "
+              f"{distinct} distinct {'rows' if layout == 'blocked' else 'entries'} "
+              f"({table.dtype}) at n={pos.shape[0]}, L={lv.num}, F={F}")
+    return res
+
+
+def check_generic(dev):
+    """Phase 3a-F: K1g/K2g and K7ag/K7bg against their plain versions at
+    F = 1, 3, 4 and 8, on GENERIC_SAMPLES uniform positions with 8 levels
+    (the blocked layout's flagship grid with a bf16 table, the ngp one's 8
+    levels of 2^19 entries with an f32 table), then at F = 4 on the inputs
+    of one real step of each 4v path. Returns the F = 4 uniform results,
+    the others under "shapes"."""
+    import torch
+
+    from lsenerf_tpu_torch.flagship import (FEATURES_4, ngp_encode_calls, preset_trainer,
+                                            step_encode_inputs)
+    from lsenerf_tpu_torch.ops import hash_encoding as he
+
+    t0 = time.time()
+    shapes = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pos = torch.rand((GENERIC_SAMPLES, 3), generator=gen, device=dev)
+    for layout, dtype in (("blocked", torch.bfloat16), ("ngp", torch.float32)):
+        for F in GENERIC_FEATURES:
+            hcfg = he.HashEncodingConfig(layout=layout, num_levels=8, features_per_level=F)
+            table = (torch.rand(hcfg.table_shape, generator=gen, device=dev) * 2 - 1).to(dtype)
+            gfeat = torch.randn((GENERIC_SAMPLES, hcfg.out_dim), generator=gen, device=dev)
+            shapes[f"F{F}"] = dict(shapes.get(f"F{F}", {}), **check_generic_encode(
+                f"uniform positions, F={F}", layout, pos, table, gfeat, he.levels_for(hcfg, dev)))
+            del table, gfeat
+    flag = preset_trainer("lsenerf", False, dev, hash_fields=FEATURES_4)
+    spos, stable, sgfeat, slv = step_encode_inputs(trainer=flag)
+    del flag
+    shapes["step"] = check_generic_encode("one flagship F=4 step's inputs", "blocked", spos,
+                                          stable, sgfeat, slv)
+    bad = preset_trainer("badnerf", device=dev, hash_layout="ngp", compute_dtype="float32",
+                         hash_fields=FEATURES_4)
+    shapes["step"].update(check_generic_encode(
+        "one badnerf ngp f32 F=4 step's inputs", "ngp", *ngp_encode_calls(trainer=bad)["step"]))
+    del bad, spos, stable, sgfeat
+    res = shapes.pop("F4")
+    for k in res:
+        res[k]["shapes"] = {name: r[k] for name, r in shapes.items()}
+    print(f"phase 3a-F in {time.time() - t0:.1f} s")
     return res
 
 
@@ -1100,9 +1231,28 @@ def check_gathers(dev):
     return res, launches
 
 
-# the encode kernels of each hash layout: (forward, backward)
+# the encode kernels of each hash layout at F = 2: (forward, backward)
 LAYOUT_KERNELS = {"blocked": ("blocked_encode_fwd", "blocked_encode_bwd"),
                   "ngp": ("ngp_encode_fwd", "ngp_encode_bwd")}
+
+
+def encode_pair(hcfg) -> tuple:
+    """The names of the (forward, backward) encode kernels a HashEncodingConfig
+    runs: its layout's F = 2 pair, or the generic one at another F."""
+    if hcfg.features_per_level == 2:
+        return LAYOUT_KERNELS[hcfg.layout]
+    return tuple(k.name for k in generic_pair(hcfg.layout))
+
+
+def check_encode_pair(label: str, hcfg, launches: dict) -> None:
+    """Fail unless the run launched no encode kernel but its config's pair."""
+    from lsenerf_tpu_torch.ops import combine, ngp
+
+    pair = encode_pair(hcfg)
+    others = {k.name: launches[k.name] for k in combine.KERNELS + ngp.KERNELS
+              if k.name not in pair and launches[k.name]}
+    if others:
+        fail(f"{label}: encode kernels other than {pair} were launched: {others}")
 
 
 # the kernels every render runs: K3, K5a and, where a backward runs, K5b
@@ -1110,7 +1260,8 @@ RENDER_KERNELS = ("march_ts", "composite_fwd", "composite_bwd")
 
 
 def path_kernels():
-    """K1, K2, K7a, K7b, K3, K5a and K5b (their launch counters)."""
+    """K1, K2, K1g, K2g, K7a, K7b, K7ag, K7bg, K3, K5a and K5b (their launch
+    counters)."""
     from lsenerf_tpu_torch.engine import chunk_graph
 
     return chunk_graph.path_kernels()
@@ -1136,6 +1287,7 @@ def run_path(dev, card: str, label: str, make):
     batches = [trainer.dm.next_train(i) for i in range(STEPS)]
     print(f"{label} set-up {time.time() - t0:.1f} s; {hcfg.layout} table {hcfg.table_shape}, "
           f"batch {trainer.num_rays(batches[0])} rays")
+    gc.collect()  # an earlier phase's trainers and graphs, in cycles, out of the peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in path_kernels():
@@ -1158,9 +1310,10 @@ def run_path(dev, card: str, label: str, make):
         fail(f"non-finite {label} loss or psnr: {losses}, psnr {psnr}")
     n_occ = (STEPS + 15) // 16
     chunks = -(-trainer.model_config.grid.levels * 65536 // 131072)
-    fwd, bwd = LAYOUT_KERNELS[hcfg.layout]
+    fwd, bwd = encode_pair(hcfg)
     if launches[fwd] < STEPS + n_occ * chunks or launches[bwd] < STEPS:
         fail(f"{label}: kernel launch counts too low for {STEPS} steps: {launches}")
+    check_encode_pair(label, hcfg, launches)
     if min(launches[k] for k in RENDER_KERNELS) < STEPS:
         fail(f"{label}: K3/K5a/K5b launched fewer than once a step: {launches}")
     rays = trainer.num_rays(batches[0])
@@ -1257,6 +1410,7 @@ def scan_path(dev, card: str, label: str, make) -> dict:
 
     chunk(0)  # the eager warm-up
     snap = trainer_state(trainer)
+    gc.collect()  # an earlier phase's trainers and graphs, in cycles, out of the peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     got = chunk(1)  # captured, then replayed
@@ -1274,7 +1428,7 @@ def scan_path(dev, card: str, label: str, make) -> dict:
     def rel(a, b):
         return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
 
-    fwd, bwd = LAYOUT_KERNELS[trainer.model_config.field.hash.layout]
+    fwd, bwd = encode_pair(trainer.model_config.field.hash)
     need = (fwd, bwd) + RENDER_KERNELS
     # K2's (and K7b's) atomics add in no fixed order, and Adam's eps of 1e-15
     # makes steps of up to lr of the rounding noise, so two runs from one
@@ -1340,6 +1494,7 @@ def scan_path(dev, card: str, label: str, make) -> dict:
           f"one state: every loss, the last step's metrics, params, Adam's state, counts, grid and "
           f"generators bit for bit")
     launches = {kn.name: kn.launches for kn in path_kernels()}
+    check_encode_pair(f"scan {label}", trainer.model_config.field.hash, launches)
     print(f"scan {label} step over steps 16-47 (2 occupancy updates): scan_steps 1 "
           f"{times[1]:.3f} ms/step, {rays / times[1] * 1e3:.0f} rays/s, peak {peaks[1] / 2**30:.2f} GiB; "
           f"scan_steps {k} {times[k]:.3f} ms/step, {rays / times[k] * 1e3:.0f} rays/s, peak "
@@ -2238,10 +2393,11 @@ def main() -> int:
 
     from lsenerf_tpu_torch.engine.trainer import CameraOptConfig
 
-    from lsenerf_tpu_torch.flagship import flagship_trainer, preset_trainer
+    from lsenerf_tpu_torch.flagship import FEATURES_4, flagship_trainer, preset_trainer
 
     res = check_kernels(dev)
     res.update(check_ngp(dev))
+    res.update(check_generic(dev))
     res.update(check_march_composite(dev))
     so3 = CameraOptConfig(mode="SO3xR3")
     check_small_step(dev, "ns SO3xR3", so3, so3)
@@ -2260,6 +2416,10 @@ def main() -> int:
                      hash=dict(layout="ngp"),
                      field=dict(coarse_stride=2, coarse_levels=2, use_contraction=False))
     check_small_step(dev, "compact_chunk 128", so3, so3, model=dict(compact_chunk=128))
+    check_small_step(dev, "blocked, 8 levels of F=4 (K1g/K2g)", so3, so3,
+                     hash=dict(num_levels=8, features_per_level=4))
+    check_small_step(dev, "ngp f32, 8 levels of F=4 (K7ag/K7bg)", so3, so3,
+                     hash=dict(layout="ngp", num_levels=8, features_per_level=4))
     check_pretrain(dev)
     g_res, g_launches = check_gathers(dev)
     paths = {
@@ -2272,6 +2432,17 @@ def main() -> int:
     }
     by_path = {p: run_path(dev, card, p, make) for p, make in paths.items()}
     by_path.update({f"scan {p}": scan_path(dev, card, p, make) for p, make in paths.items()})
+    # 4v: the flagship's encode width as 8 levels of F = 4, through the
+    # generic kernels, eager and as replayed chunk graphs
+    wide = {
+        "flagship F=4": lambda d: preset_trainer("lsenerf", False, d, hash_fields=FEATURES_4),
+        "badnerf ngp f32 F=4": lambda d: preset_trainer(
+            "badnerf", device=d, hash_layout="ngp", compute_dtype="float32",
+            hash_fields=FEATURES_4),
+    }
+    for p, make in wide.items():
+        by_path[f"4v {p}"] = run_path(dev, card, f"4v {p}", make)
+        by_path[f"4v scan {p}"] = scan_path(dev, card, f"4v {p}", make)
     by_path["cli"] = cli_path(card)
     by_path["tiny_golden"] = tiny_golden(card)
     by_path["data_parallel"] = data_parallel(dev, card)
@@ -2283,7 +2454,7 @@ def main() -> int:
         check_render_kernels(p, n)
 
     kernels = []
-    for k, src_line in ((combine.K1, 58), (combine.K2, 76)):
+    for k, src_line in ((combine.K1, 58), (combine.K2, 76), (combine.K1G, 58), (combine.K2G, 76)):
         kernels.append(dict(
             name=k.name, route="cuda", source="lsenerf_tpu_torch/csrc/blocked_encode.cu",
             replaces=f"lsenerf_tpu/ops/pallas_combine.py:{src_line}",
@@ -2295,6 +2466,8 @@ def main() -> int:
     for k, first, rest in (
         (ngp.K7A, "lsenerf_tpu/ops/hash_encoding.py:685", ["lsenerf_tpu/ops/fast_gather.py:290"]),
         (ngp.K7B, "lsenerf_tpu/ops/fast_gather.py:312", ["lsenerf_tpu/ops/fast_gather.py:113"]),
+        (ngp.K7AG, "lsenerf_tpu/ops/hash_encoding.py:685", ["lsenerf_tpu/ops/fast_gather.py:290"]),
+        (ngp.K7BG, "lsenerf_tpu/ops/fast_gather.py:312", ["lsenerf_tpu/ops/fast_gather.py:113"]),
     ):
         kernels.append(dict(
             name=k.name, route="cuda", source="lsenerf_tpu_torch/csrc/ngp_encode.cu",

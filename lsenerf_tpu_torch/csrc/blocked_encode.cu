@@ -79,6 +79,25 @@
 // - The hash multiplies in uint32_t and wraps exactly as the JAX uint32 code.
 // - The C entries launch on the caller's stream, allocate nothing, and
 //   return cudaGetLastError().
+//
+// K1g blocked_encode_fwd_f and K2g blocked_encode_bwd_f are the same two
+// functions at any F (features a vertex) other than 2, in rows of W =
+// 32 * ceil(27F / 32) columns (27F used): they replace P1 and P2 where the
+// JAX package runs them with another F (_combine_kernel and _bwd_kernel
+// take F as a parameter). F and W are arguments, so every F >= 1 works.
+// They are bound by the same two rates as K1 and K2, scattered row loads
+// and scattered atomics, now 8F values and 8F atomics a sample-level. The
+// design is the simple one, with no layout tuned to a given F:
+// - K1g: one thread a (sample, level), thread t = sample t / L, level
+//   t % L, so a warp's F-wide outputs are one contiguous run. Keys and
+//   fractions come from K1's level_key (the same keys, bit for bit). It
+//   adds the 8 vertices of the cube in slot order, weights (ux * uy) * uz
+//   as the plain version forms them: the plain version's 27-term sum less
+//   the 19 terms whose weight is exactly 0.
+// - K2g: one thread a sample, walking its levels in order, so dpos is one
+//   sum a sample in registers, with no atomics and the same bits from call
+//   to call. Its table gradient is 8F exact f32 atomics a sample-level
+//   (none where the update is 0), adding in no fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -303,6 +322,96 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
   }
 }
 
+constexpr int kGenFwdThreads = 128;  // K1g: threads a block, one a (sample, level)
+constexpr int kGenBwdThreads = 64;   // K2g: threads a block, one a sample
+
+// Element e of the table as f32.
+template <bool kBF16>
+__device__ __forceinline__ float load_value(const void* __restrict__ table, long e) {
+  if (kBF16)
+    return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(table) + e)
+                           << 16);
+  return __ldg(reinterpret_cast<const float*>(table) + e);
+}
+
+// K1g: thread t takes sample t / L at level t % L; out[t * F + f] is its
+// feature f.
+template <bool kBF16>
+__global__ void __launch_bounds__(kGenFwdThreads)
+    encode_fwd_f_kernel(const float* __restrict__ pos, const void* __restrict__ table,
+                        const float* __restrict__ scale, const int4* __restrict__ lvl,
+                        float* __restrict__ out, int n, int L, int F, int W,
+                        uint32_t hash_mask) {
+  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long)n * L) return;
+  const long i = t / L;
+  const int l = (int)(t - i * L);
+  float w[3];
+  int o[3];
+  const long row = (long)level_key(pos, i, __ldg(scale + l), __ldg(lvl + l), hash_mask, w, o) * W;
+  const float u[3][2] = {{1.0f - w[0], w[0]}, {1.0f - w[1], w[1]}, {1.0f - w[2], w[2]}};
+  long e[8];
+  float wt[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int a = c >> 2, b = (c >> 1) & 1, z = c & 1;
+    e[c] = row + (long)((((o[0] + a) * 3 + o[1] + b) * 3 + o[2] + z) * F);
+    wt[c] = __fmul_rn(__fmul_rn(u[0][a], u[1][b]), u[2][z]);
+  }
+  float* dst = out + t * F;
+  for (int f = 0; f < F; ++f) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc = __fadd_rn(acc, __fmul_rn(wt[c], load_value<kBF16>(table, e[c] + f)));
+    dst[f] = acc;
+  }
+}
+
+// K2g: thread i takes sample i at every level, in level order.
+template <bool kBF16>
+__global__ void __launch_bounds__(kGenBwdThreads)
+    encode_bwd_f_kernel(const float* __restrict__ pos, const void* __restrict__ table,
+                        const float* __restrict__ scale, const int4* __restrict__ lvl,
+                        const float* __restrict__ gfeat, float* __restrict__ dpos,
+                        float* __restrict__ dtable, int n, int L, int F, int W,
+                        uint32_t hash_mask) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < L; ++l) {
+    const float sc = __ldg(scale + l);
+    float w[3];
+    int o[3];
+    const long row = (long)level_key(pos, i, sc, __ldg(lvl + l), hash_mask, w, o) * W;
+    const float* g = gfeat + (i * L + l) * F;
+    const float u[3][2] = {{1.0f - w[0], w[0]}, {1.0f - w[1], w[1]}, {1.0f - w[2], w[2]}};
+    // du[d][s]: d loss / d (weight of slot o + s in dimension d)
+    float du[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int a = c >> 2, b = (c >> 1) & 1, z = c & 1;
+      const long e = row + (long)((((o[0] + a) * 3 + o[1] + b) * 3 + o[2] + z) * F);
+      float gv = 0.0f;  // d loss / d (this vertex's weight)
+      for (int f = 0; f < F; ++f)
+        gv = __fadd_rn(gv, __fmul_rn(load_value<kBF16>(table, e + f), __ldg(g + f)));
+      du[0][a] = __fadd_rn(du[0][a], __fmul_rn(__fmul_rn(gv, u[1][b]), u[2][z]));
+      du[1][b] = __fadd_rn(du[1][b], __fmul_rn(__fmul_rn(gv, u[0][a]), u[2][z]));
+      du[2][z] = __fadd_rn(du[2][z], __fmul_rn(__fmul_rn(gv, u[0][a]), u[1][b]));
+      const float wt = __fmul_rn(__fmul_rn(u[0][a], u[1][b]), u[2][z]);
+      for (int f = 0; f < F; ++f) {
+        const float upd = __fmul_rn(wt, __ldg(g + f));
+        if (upd != 0.0f) atomicAdd(dtable + e + f, upd);
+      }
+    }
+    // the slots o and o + 1 weigh 1 - w and w: d w = du[1] - du[0]
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      acc[d] = __fadd_rn(acc[d], __fmul_rn(__fsub_rn(du[d][1], du[d][0]), sc));
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) dpos[i * 3 + d] = acc[d];
+}
+
 }  // namespace
 
 extern "C" {
@@ -355,6 +464,46 @@ int blocked_encode_bwd(const float* pos, const void* table, int table_bf16,
   else
     encode_bwd_kernel<false><<<blocks, threads, smem, s>>>(
         pos, table, scale, lv, gfeat, dpos, dtable, n, L, hash_mask);
+  return (int)cudaGetLastError();
+}
+
+// K1g. table (rows, W) bf16 (table_bf16=1) or f32, W >= 27 * F; out
+// (n, L*F) f32; the rest as blocked_encode_fwd.
+int blocked_encode_fwd_f(const float* pos, const void* table, int table_bf16,
+                         const float* scale, const int* lvl, float* out, int n, int L,
+                         int F, int W, unsigned int hash_mask, void* stream) {
+  if (n == 0) return 0;
+  if (L < 1 || F < 1 || W < 27 * F) return (int)cudaErrorInvalidValue;
+  const long threads = (long)n * L;
+  const unsigned int blocks = (unsigned int)((threads + kGenFwdThreads - 1) / kGenFwdThreads);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int4* lv = reinterpret_cast<const int4*>(lvl);
+  if (table_bf16)
+    encode_fwd_f_kernel<true><<<blocks, kGenFwdThreads, 0, s>>>(pos, table, scale, lv, out, n,
+                                                                L, F, W, hash_mask);
+  else
+    encode_fwd_f_kernel<false><<<blocks, kGenFwdThreads, 0, s>>>(pos, table, scale, lv, out, n,
+                                                                 L, F, W, hash_mask);
+  return (int)cudaGetLastError();
+}
+
+// K2g. gfeat (n, L*F) f32; dpos (n, 3) f32 (written); dtable (rows, W) f32
+// (added into: the caller passes zeros).
+int blocked_encode_bwd_f(const float* pos, const void* table, int table_bf16,
+                         const float* scale, const int* lvl, const float* gfeat, float* dpos,
+                         float* dtable, int n, int L, int F, int W, unsigned int hash_mask,
+                         void* stream) {
+  if (n == 0) return 0;
+  if (L < 1 || F < 1 || W < 27 * F) return (int)cudaErrorInvalidValue;
+  const unsigned int blocks = (unsigned int)((n + kGenBwdThreads - 1) / kGenBwdThreads);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int4* lv = reinterpret_cast<const int4*>(lvl);
+  if (table_bf16)
+    encode_bwd_f_kernel<true><<<blocks, kGenBwdThreads, 0, s>>>(
+        pos, table, scale, lv, gfeat, dpos, dtable, n, L, F, W, hash_mask);
+  else
+    encode_bwd_f_kernel<false><<<blocks, kGenBwdThreads, 0, s>>>(
+        pos, table, scale, lv, gfeat, dpos, dtable, n, L, F, W, hash_mask);
   return (int)cudaGetLastError();
 }
 

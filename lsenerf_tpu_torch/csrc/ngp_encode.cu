@@ -80,6 +80,23 @@
 //   forward adds the corners in JAX's order (x outer, z inner) with __fadd_rn.
 // - The C entries launch on the caller's stream, allocate nothing (the
 //   wrapper zero-fills the table gradient) and return cudaGetLastError().
+//
+// K7ag ngp_encode_fwd_f and K7bg ngp_encode_bwd_f are the same two functions
+// at any F (features a level) other than 2: the JAX package's ngp branch and
+// take_cols take any F. The table is (L_all*T, F) row-major, F an argument,
+// so every F >= 1 works. They are bound as K7a/K7b are, by scattered
+// requests: 8 vertices of F values a sample-level, and 8F atomics in the
+// backward. The design is the simple one:
+// - K7ag: one thread a (sample, level), thread t = sample t / Lw, level
+//   t % Lw, so a warp's F-wide outputs are one contiguous run. Keys and
+//   weights come from K7b's `cube` and `corner` (JAX's bits), and feature
+//   f is the 8 corners added in the plain forward's order (the first
+//   term, then the others with __fadd_rn): the plain version's bits at any
+//   shape, as K7a gives them at F = 2.
+// - K7bg: one thread a sample walking its levels in order, as K7b: dpos
+//   summed in registers (the same bits from call to call), the table
+//   gradient as 8F scalar f32 atomics a sample-level (none where the
+//   corner's weight is 0), adding in no fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -287,6 +304,97 @@ __global__ void __launch_bounds__(kBwdSamples)
   for (int d = 0; d < 3; ++d) dpos[(i0 + k) * 3 + d] = acc[d];
 }
 
+constexpr int kGenFwdThreads = 128;  // K7ag: threads a block, one a (sample, level)
+
+// Element e of the table as f32.
+template <bool kBF16>
+__device__ __forceinline__ float load_value(const void* __restrict__ table, long e) {
+  if (kBF16)
+    return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(table) + e)
+                           << 16);
+  return __ldg(reinterpret_cast<const float*>(table) + e);
+}
+
+// K7ag: thread t takes sample t / L at window level t % L; out[t * F + f]
+// is its feature f.
+template <bool kBF16>
+__global__ void __launch_bounds__(kGenFwdThreads)
+    ngp_fwd_f_kernel(const float* __restrict__ pos, const void* __restrict__ table,
+                     const float* __restrict__ scale, float* __restrict__ out, int n, int L,
+                     int F, int lo, int log2_T) {
+  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long)n * L) return;
+  const long i = t / L;
+  const int l = (int)(t - i * L);
+  int b[3];
+  float w[3];
+  cube(pos, i, __ldg(scale + l), b, w);
+  const uint32_t mask = (1u << log2_T) - 1u;
+  const long base = (long)(lo + l) << log2_T;
+  long e[8];
+  float wt[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) e[c] = corner(c, b, w, mask, base, &wt[c]) * F;
+  float* dst = out + t * F;
+  for (int f = 0; f < F; ++f) {
+    float acc = __fmul_rn(load_value<kBF16>(table, e[0] + f), wt[0]);
+#pragma unroll
+    for (int c = 1; c < 8; ++c)
+      acc = __fadd_rn(acc, __fmul_rn(load_value<kBF16>(table, e[c] + f), wt[c]));
+    dst[f] = acc;
+  }
+}
+
+// K7bg: thread i takes sample i at every window level, in level order.
+template <bool kBF16>
+__global__ void __launch_bounds__(kBwdSamples)
+    ngp_bwd_f_kernel(const float* __restrict__ pos, const void* __restrict__ table,
+                     const float* __restrict__ scale, const float* __restrict__ gfeat,
+                     float* __restrict__ dpos, float* __restrict__ dtable, int n, int L, int F,
+                     int lo, int log2_T) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t mask = (1u << log2_T) - 1u;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < L; ++l) {
+    const float sc = __ldg(scale + l);
+    int b[3];
+    float w[3];
+    cube(pos, i, sc, b, w);
+    const float* g = gfeat + (i * L + l) * F;
+    const long base = (long)(lo + l) << log2_T;
+    const float u[3][2] = {{__fsub_rn(1.0f, w[0]), w[0]},
+                           {__fsub_rn(1.0f, w[1]), w[1]},
+                           {__fsub_rn(1.0f, w[2]), w[2]}};
+    float dw[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int cx = c >> 2, cy = (c >> 1) & 1, cz = c & 1;
+      float wt;
+      const long e = corner(c, b, w, mask, base, &wt) * F;
+      // d loss / d weight of this corner, its features in order
+      float dW = __fmul_rn(load_value<kBF16>(table, e), __ldg(g));
+      for (int f = 1; f < F; ++f)
+        dW = __fadd_rn(dW, __fmul_rn(load_value<kBF16>(table, e + f), __ldg(g + f)));
+      // the chain rule through (wx' * wy') * wz' as K7b takes it
+      const float ux = u[0][cx], uy = u[1][cy], uz = u[2][cz];
+      const float dxy = __fmul_rn(dW, uz);
+      const float term[3] = {__fmul_rn(dxy, uy), __fmul_rn(dxy, ux),
+                             __fmul_rn(dW, __fmul_rn(ux, uy))};
+      const int bit[3] = {cx, cy, cz};
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        dw[d] = bit[d] ? __fadd_rn(dw[d], term[d]) : __fsub_rn(dw[d], term[d]);
+      if (wt != 0.0f)
+        for (int f = 0; f < F; ++f) atomicAdd(dtable + e + f, __fmul_rn(__ldg(g + f), wt));
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) acc[d] = __fadd_rn(acc[d], __fmul_rn(dw[d], sc));
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) dpos[i * 3 + d] = acc[d];
+}
+
 }  // namespace
 
 extern "C" {
@@ -335,6 +443,42 @@ int ngp_encode_bwd(const float* pos, const void* table, int table_bf16, const fl
   else
     ngp_bwd_kernel<false><<<blocks, kBwdSamples, smem, s>>>(pos, table, scale, g, dpos, dt, n,
                                                             L, lo, log2_T);
+  return (int)cudaGetLastError();
+}
+
+// K7ag. table (L_all*T, F) f32 or bf16 (table_bf16 = 1); out (n, L*F) f32;
+// the rest as ngp_encode_fwd.
+int ngp_encode_fwd_f(const float* pos, const void* table, int table_bf16, const float* scale,
+                     float* out, int n, int L, int F, int lo, int log2_T, void* stream) {
+  if (n == 0) return 0;
+  if (L < 1 || F < 1 || lo < 0 || log2_T < 1 || log2_T > 30) return (int)cudaErrorInvalidValue;
+  const long threads = (long)n * L;
+  const unsigned int blocks = (unsigned int)((threads + kGenFwdThreads - 1) / kGenFwdThreads);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (table_bf16)
+    ngp_fwd_f_kernel<true><<<blocks, kGenFwdThreads, 0, s>>>(pos, table, scale, out, n, L, F, lo,
+                                                            log2_T);
+  else
+    ngp_fwd_f_kernel<false><<<blocks, kGenFwdThreads, 0, s>>>(pos, table, scale, out, n, L, F,
+                                                             lo, log2_T);
+  return (int)cudaGetLastError();
+}
+
+// K7bg. gfeat (n, L*F) f32; dpos (n, 3) f32 (written); dtable (L_all*T, F)
+// f32 (added into: the caller passes zeros).
+int ngp_encode_bwd_f(const float* pos, const void* table, int table_bf16, const float* scale,
+                     const float* gfeat, float* dpos, float* dtable, int n, int L, int F, int lo,
+                     int log2_T, void* stream) {
+  if (n == 0) return 0;
+  if (L < 1 || F < 1 || lo < 0 || log2_T < 1 || log2_T > 30) return (int)cudaErrorInvalidValue;
+  const unsigned int blocks = (unsigned int)((n + kBwdSamples - 1) / kBwdSamples);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (table_bf16)
+    ngp_bwd_f_kernel<true><<<blocks, kBwdSamples, 0, s>>>(pos, table, scale, gfeat, dpos, dtable,
+                                                         n, L, F, lo, log2_T);
+  else
+    ngp_bwd_f_kernel<false><<<blocks, kBwdSamples, 0, s>>>(pos, table, scale, gfeat, dpos,
+                                                          dtable, n, L, F, lo, log2_T);
   return (int)cudaGetLastError();
 }
 

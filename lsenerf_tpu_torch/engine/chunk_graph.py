@@ -39,8 +39,8 @@ from lsenerf_tpu_torch.ops import occupancy as occ_lib
 
 
 def path_kernels():
-    """The launch counters of the train step's kernels: K1, K2, K7a, K7b,
-    K3, K5a and K5b."""
+    """The launch counters of the train step's kernels: K1, K2, K1g, K2g,
+    K7a, K7b, K7ag, K7bg, K3, K5a and K5b."""
     from lsenerf_tpu_torch.ops import combine, composite, march, ngp
 
     return combine.KERNELS + ngp.KERNELS + march.KERNELS + composite.KERNELS

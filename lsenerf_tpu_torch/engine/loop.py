@@ -9,8 +9,10 @@ Trainer.step a step, as before:
   - the occupancy update every grid.update_interval steps, before any
     chunk that covers one of its steps (with scan_steps 1 inside
     Trainer.step, on the same absolute steps);
-  - scalar logging every LOG_EVERY steps (printed every PRINT_EVERY),
-    and a non-finite loss stops the run;
+  - scalar logging every `log_every` steps (printed every `print_every`),
+    each logged step also handed to `callback(step, scalars)`; with
+    `fail_fast` (the default) a non-finite loss stops the run, else it is
+    logged and the run goes on;
   - the eval-ray-batch, eval-image and eval-all-images cadences;
   - the checkpoint cadence and the final checkpoint;
   - the grad_overflow sentinel (TrainerConfig.grad_overflow_every, TRAIN
@@ -43,10 +45,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-LOG_EVERY = 100
-PRINT_EVERY = 1000
-
-
 def _covered(first: int, every: int, k: int) -> bool:
     """Does the step range [first, first+k-1] contain a multiple of `every`?"""
     if every <= 0:
@@ -71,10 +69,16 @@ def run_training_loop(
     profile_dir: Optional[str] = None,
     is_render: bool = False,
     scan_steps: int = 1,
+    log_every: int = 100,
+    print_every: int = 1000,
+    callback=None,
+    fail_fast: bool = True,
 ):
     """Run `num_steps` steps (default max_num_iterations) from the
     trainer's current step, `scan_steps` a chunk. Returns the last step's
-    metrics as floats."""
+    metrics as floats. `log_every`, `print_every`, `callback` and
+    `fail_fast` are JAX's, with its defaults (lsenerf_tpu/engine/loop.py:
+    66-69)."""
     from lsenerf_tpu_torch.engine import checkpoints as ckpt_lib
     from lsenerf_tpu_torch.engine import evaluation, renderer
     from lsenerf_tpu_torch.engine.trainer import RunMode
@@ -140,13 +144,15 @@ def run_training_loop(
             metrics = dict(metrics, grad_overflow=overflow)
             if logger is not None:
                 logger.log(last, {"grad_overflow": float(overflow)})
-        if _covered(it, LOG_EVERY, k_eff):
+        if _covered(it, log_every, k_eff):
             scal = {k: float(v) for k, v in metrics.items()}
             if logger is not None:
                 logger.log(last, scal)
-            if not math.isfinite(scal.get("loss", 0.0)):
+            if callback is not None:
+                callback(last, scal)
+            if fail_fast and not math.isfinite(scal.get("loss", 0.0)):
                 raise RuntimeError(f"non-finite loss at step {last}: {scal}")
-            if _covered(it, PRINT_EVERY, k_eff) and logger is not None:
+            if _covered(it, print_every, k_eff) and logger is not None:
                 print(f"step {last}: " + ", ".join(f"{k}={v:.4f}" for k, v in scal.items()))
         if eval_cams is not None and not is_render and _covered(it + 1, cfg.steps_per_eval_batch, k_eff):
             nb = eval_batch_rays

@@ -651,6 +651,20 @@ class Trainer:
         self.opt_count = int(count)
         return True
 
+    # -- loop ----------------------------------------------------------------
+
+    def train(self, num_steps: Optional[int] = None, log_every: int = 100, callback=None,
+              **loop_kwargs) -> dict:
+        """The library's entry point (lsenerf_tpu/engine/trainer.py::
+        Trainer.train): an alias of engine.loop.run_training_loop, the loop
+        the CLI runs. Other keyword arguments (scan_steps, eval_ds,
+        ckpt_dir, print_every, fail_fast, ...) go to the loop. Returns the
+        last step's metrics; the state stays on the trainer."""
+        from lsenerf_tpu_torch.engine.loop import run_training_loop
+
+        return run_training_loop(self, num_steps=num_steps, log_every=log_every,
+                                 callback=callback, **loop_kwargs)
+
     # -- occupancy maintenance ------------------------------------------------
 
     @torch.no_grad()

@@ -61,6 +61,11 @@ PRESETS = {
 }
 
 
+# the flagship's encode width (out_dim 32 = 16 levels x 2 features) as 8
+# levels of 4 features: a hash_fields of preset_model_config
+FEATURES_4 = dict(num_levels=8, features_per_level=4)
+
+
 def flagship_model_config() -> model_lib.ModelConfig:
     return model_lib.ModelConfig(
         field=field_lib.FieldConfig(
@@ -77,14 +82,17 @@ def flagship_model_config() -> model_lib.ModelConfig:
 
 
 def preset_model_config(preset: str, production: bool = True, hash_layout: str = "blocked",
-                        compute_dtype: str = "bfloat16",
-                        coarse_stride: int = 1) -> model_lib.ModelConfig:
+                        compute_dtype: str = "bfloat16", coarse_stride: int = 1,
+                        hash_fields: dict | None = None) -> model_lib.ModelConfig:
     """The preset's model at the flagship's widths; with `production`,
     deblur x4 RGB rays; the field's hash layout, compute (and gather) dtype
-    and coarse stride as the CLI lowers those flags."""
+    and coarse stride as the CLI lowers those flags; `hash_fields` sets
+    other HashEncodingConfig fields, which the CLI does not take (e.g.
+    FEATURES_4)."""
     _, use_map, mapping, map_mode, evs_mapping, emb_type = PRESETS[preset]
     base = flagship_model_config()
-    hash_cfg = dataclasses.replace(base.field.hash, layout=hash_layout, gather_dtype=compute_dtype)
+    hash_cfg = dataclasses.replace(base.field.hash, layout=hash_layout, gather_dtype=compute_dtype,
+                                   **(hash_fields or {}))
     return dataclasses.replace(
         base,
         field=dataclasses.replace(base.field, embedding=emb_lib.EmbeddingConfig(emb_type),
@@ -102,7 +110,7 @@ def preset_configs(preset: str, production: bool = True, **field):
     `production` under train_lse_data.sh's protocol (RGB spline + deblur
     x4, event `ns` deltas), else with `ns` deltas for both cameras and one
     ray an RGB pixel, as the flagship; `field` as preset_model_config
-    takes it (hash_layout, compute_dtype, coarse_stride)."""
+    takes it (hash_layout, compute_dtype, coarse_stride, hash_fields)."""
     cfg = TrainerConfig(
         col_cam_opt=CameraOptConfig(mode="SO3xR3", optim_type="spline" if production else "ns"),
         evs_cam_opt=CameraOptConfig(mode="SO3xR3", optim_type="ns"),
@@ -134,12 +142,12 @@ def flagship_trainer(device=None, dm_seed: int = 0, production: bool = False) ->
     return preset_trainer("lsenerf", production, device, dm_seed)
 
 
-def step_encode_inputs(device=None, preset: str | None = None):
+def step_encode_inputs(device=None, preset: str | None = None, trainer: Trainer | None = None):
     """The arguments the blocked encode's backward kernel (K2,
     combine.encode_bwd) is given in one real train step: a fresh flagship
-    trainer (or the preset's production trainer) takes its step 0 (the
-    occupancy update, the march, the field and the backward) with the
-    wrapper watched. Returns (positions, table, cotangent, levels); the
+    trainer (or the preset's production trainer, or `trainer`) takes its
+    step 0 (the occupancy update, the march, the field and the backward)
+    with the wrapper watched. Returns (positions, table, cotangent, levels); the
     positions come ray-major, as many samples a ray as the march gives (16
     for the flagship, 48 under F=0). The ngp layout's are ngp_encode_calls'."""
     seen, real = [], combine.encode_bwd
@@ -148,10 +156,9 @@ def step_encode_inputs(device=None, preset: str | None = None):
         seen.append((positions.clone(), table.clone(), gfeat.clone(), levels))
         return real(positions, table, gfeat, levels)
 
-    if preset is None:
-        trainer = flagship_trainer(device=device)
-    else:
-        trainer = preset_trainer(preset, True, device)
+    if trainer is None:
+        trainer = (flagship_trainer(device=device) if preset is None
+                   else preset_trainer(preset, True, device))
     combine.encode_bwd = watch
     try:
         trainer.step(trainer.dm.next_train(0))

@@ -49,7 +49,7 @@ def builds(others) -> dict:
 
         def fwd(positions, table, lv, lib=lib, label=path.name):
             n = ngp._check(positions, table, lv)
-            o = torch.empty((n, lv.num * ngp.F), dtype=torch.float32, device=positions.device)
+            o = torch.empty((n, lv.num * 2), dtype=torch.float32, device=positions.device)
             err = ngp.launch_fwd(lib, positions, table, lv, o)
             if err:
                 raise RuntimeError(f"{label}: ngp_encode_fwd launch failed: cudaError {err}")

@@ -3,16 +3,18 @@ Port of lsenerf_tpu/ops/hash_encoding.py.
 
 "ngp" (the default, as in JAX) is the reference-exact per-vertex hash
 (tiny-cuda-nn's HashGrid): every sample-level reads the 8 vertices of its
-cube, each hashed into the level's 2^log2_hashmap_size entries of F=2
-features. The table is (num_levels * T, F) row-major, the transpose of
-JAX's (F, num_levels * T) (convert.ngp_table_from_jax). Forward kernel K7a,
-backward K7b (ops/ngp.py).
+cube, each hashed into the level's 2^log2_hashmap_size entries of F
+features (features_per_level). The table is (num_levels * T, F) row-major,
+the transpose of JAX's (F, num_levels * T) (convert.ngp_table_from_jax).
+Forward kernel K7a, backward K7b at F = 2; K7ag/K7bg at any other F
+(ops/ngp.py).
 
 "blocked" (the flagship's) groups vertices into overlapping 3x3x3 blocks
 keyed by the half-resolution cell k = floor(cube_base / 2), so every
-sample-level reads one 64-wide row (27 vertices x F=2 features + 10 pad
-columns). Dense levels index the block lattice directly; the rest use the
-XOR-prime hash. Forward kernel K1, backward K2 (ops/combine.py).
+sample-level reads one row of blocked_row_width columns (27 vertices x F
+features, padded to a multiple of 32: 64 at F = 2). Dense levels index the
+block lattice directly; the rest use the XOR-prime hash. Forward kernel
+K1, backward K2 at F = 2; K1g/K2g at any other F (ops/combine.py).
 
 Both encodes are torch.autograd.Functions whose backward recomputes keys
 and fractions from the positions instead of keeping the gathered rows. The
@@ -30,6 +32,7 @@ forward and backward: the strided coarse-level field relies on it.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 
@@ -70,8 +73,8 @@ class HashEncodingConfig:
     def __post_init__(self):
         if self.layout not in LAYOUTS:
             raise ValueError(f"layout {self.layout!r}: one of {LAYOUTS}")
-        if self.features_per_level != combine.F:
-            raise ValueError(f"the encode kernels take features_per_level={combine.F}")
+        if self.features_per_level < 1:
+            raise ValueError(f"features_per_level={self.features_per_level}: at least 1")
         lo, hi = self.active_range
         if not 0 <= lo < hi <= self.num_levels:
             raise ValueError(f"level window [{lo}, {hi}) of {self.num_levels} levels")
@@ -193,6 +196,8 @@ def _levels(config: HashEncodingConfig, device: torch.device):
         params=torch.tensor(params[lo:hi], device=device),
         hash_mask=2**config.blocked_rows_log2 - 1,
         total_rows=config.total_rows,
+        F=config.features_per_level,
+        row_width=config.blocked_row_width,
     )
 
 
@@ -214,10 +219,6 @@ def init_hash_table(
     """U(-scale, scale) init of the layout's table (config.table_shape)."""
     u = torch.rand(config.table_shape, generator=generator, dtype=torch.float32, device=device)
     return (u * 2.0 - 1.0) * config.hash_init_scale
-
-
-# each layout's (forward, backward) wrappers: K7a/K7b and K1/K2
-_KERNELS = {"ngp": ngp, "blocked": combine}
 
 
 class _Encode(torch.autograd.Function):
@@ -243,13 +244,31 @@ class _Encode(torch.autograd.Function):
         )
 
 
+def hash_encode_blocked(
+    table: torch.Tensor, positions: torch.Tensor, config: HashEncodingConfig
+) -> torch.Tensor:
+    """The blocked layout's encode (lsenerf_tpu/ops/hash_encoding.py::
+    hash_encode_blocked): (n, 3) positions in [0,1]^3 -> (n, out_dim), one
+    row of 27 x F features a sample-level, through K1/K2 (K1g/K2g). As in
+    JAX, the table is read as the blocked layout's (total_rows,
+    blocked_row_width) whatever `config.layout` says."""
+    if config.layout != "blocked":
+        config = dataclasses.replace(config, layout="blocked")
+    return _Encode.apply(
+        table, positions, levels_for(config, positions.device),
+        config.gather_dtype == "bfloat16", combine,
+    )
+
+
 def hash_encode(
     table: torch.Tensor, positions: torch.Tensor, config: HashEncodingConfig
 ) -> torch.Tensor:
     """Encode (n, 3) positions in [0,1]^3 -> (n, out_dim) features of the
     active level window. Differentiable in the table and in the
     positions; the table's gradient has the table's whole shape."""
+    if config.layout == "blocked":
+        return hash_encode_blocked(table, positions, config)
     return _Encode.apply(
         table, positions, levels_for(config, positions.device),
-        config.gather_dtype == "bfloat16", _KERNELS[config.layout],
+        config.gather_dtype == "bfloat16", ngp,
     )

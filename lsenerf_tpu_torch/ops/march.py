@@ -87,6 +87,13 @@ def ts_at_indices(t_min: torch.Tensor, i: torch.Tensor, config: MarchConfig):
     return torch.where(i <= n_lin, t_lin, t_geo_start * _growth(geo_steps, cone))
 
 
+def candidate_ts(t_min: torch.Tensor, config: MarchConfig) -> torch.Tensor:
+    """(n,) start distances -> (n, max_candidates + 1) interval boundaries:
+    ts_at_indices at every candidate index."""
+    i = torch.arange(config.max_candidates + 1, dtype=torch.float32, device=t_min.device)
+    return ts_at_indices(t_min, i[None, :], config)
+
+
 def _growth(geo_steps: torch.Tensor, cone: float) -> torch.Tensor:
     """(1+cone)^geo_steps in f64, rounded once to f32: closer to XLA's f32
     pow than torch's."""

@@ -3,22 +3,25 @@ ctypes wrappers. Counterpart of the ngp branch of
 lsenerf_tpu/ops/hash_encoding.py::hash_encode and of
 lsenerf_tpu/ops/fast_gather.py::take_cols.
 
-K7a `encode_fwd`: unit positions (n, 3) + table (L_all*T, 2) -> features
-(n, Lw*2) over the level window [lo, lo + Lw). It replaces the 8 hashed
+K7a `encode_fwd`: unit positions (n, 3) + table (L_all*T, F) -> features
+(n, Lw*F) over the level window [lo, lo + Lw). It replaces the 8 hashed
 corner gathers a sample-level of hash_encoding.py:685 (`take_cols`,
 fast_gather.py:290) and the weighted corner sum.
 
-K7b `encode_bwd`: positions + table + cotangent (n, Lw*2) -> (dpos (n, 3),
-dtable (L_all*T, 2)). It replaces take_cols' table gradient
+K7b `encode_bwd`: positions + table + cotangent (n, Lw*F) -> (dpos (n, 3),
+dtable (L_all*T, F)). It replaces take_cols' table gradient
 (fast_gather.py:312: a scatter-add, or on the TPU the sort-and-window
 `sorted_window_accumulate`, :113) with exact f32 atomics, and the position
 gradient through the trilinear weights.
 
-The table is (L_all*T, 2) row-major, where the JAX package stores the
+The table is (L_all*T, F) row-major, where the JAX package stores the
 transpose (F, L_all*T): `convert.ngp_table_from_jax` maps one to the other.
+F, the features a level, is the table's width. At F = 2 the wrappers launch
+K7a/K7b; at any other F the generic kernels K7ag `ngp_encode_fwd_f` and
+K7bg `ngp_encode_bwd_f`, which take F as an argument.
 The sources are csrc/ngp_encode.cu, built and loaded by cuda_build. A
 wrapper runs the plain PyTorch version for CPU tensors only; for CUDA
-tensors it launches its kernel or raises. F = 2 features per level.
+tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ import torch
 from . import cuda_build
 from .cuda_build import Kernel
 
-F = 2
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
 
@@ -40,7 +42,9 @@ SOURCE = cuda_build.CSRC / "ngp_encode.cu"
 
 K7A = Kernel("ngp_encode_fwd")
 K7B = Kernel("ngp_encode_bwd")
-KERNELS = (K7A, K7B)
+K7AG = Kernel("ngp_encode_fwd_f")
+K7BG = Kernel("ngp_encode_bwd_f")
+KERNELS = (K7A, K7B, K7AG, K7BG)
 
 
 @dataclass(frozen=True, eq=False)
@@ -98,11 +102,11 @@ def corners(positions: torch.Tensor, lv: Levels):
 
 
 def _gather(table, keys):
-    return table.index_select(0, keys.reshape(-1)).float().reshape(*keys.shape, F)
+    return table.index_select(0, keys.reshape(-1)).float().reshape(*keys.shape, table.shape[1])
 
 
 def encode_fwd_plain(positions, table, lv: Levels) -> torch.Tensor:
-    n = positions.shape[0]
+    n, F = positions.shape[0], table.shape[1]
     keys, wts, _ = corners(positions, lv)
     vals = _gather(table, keys) * wts[..., None]  # (8, Lw, n, F)
     # the corners added one at a time, in order, as K7a adds them: the
@@ -114,7 +118,7 @@ def encode_fwd_plain(positions, table, lv: Levels) -> torch.Tensor:
 
 
 def encode_bwd_plain(positions, table, gfeat, lv: Levels):
-    n = positions.shape[0]
+    n, F = positions.shape[0], table.shape[1]
     keys, wts, w = corners(positions, lv)
     g = gfeat.reshape(n, lv.num, F).permute(1, 0, 2)  # (Lw, n, F)
     dW = (_gather(table, keys) * g[None]).sum(-1)  # (8, Lw, n)
@@ -140,12 +144,18 @@ def encode_bwd_plain(positions, table, gfeat, lv: Levels):
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the argument types of a built ngp_encode library's two entries."""
+    """Set the argument types of a built ngp_encode library's entries (a
+    source without the generic kernels' entries binds the first two)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ngp_encode_fwd.argtypes = [p, p, i, p, p, i, i, i, i, p]
     lib.ngp_encode_fwd.restype = i
     lib.ngp_encode_bwd.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p]
     lib.ngp_encode_bwd.restype = i
+    if hasattr(lib, "ngp_encode_fwd_f"):
+        lib.ngp_encode_fwd_f.argtypes = [p, p, i, p, p, i, i, i, i, i, p]
+        lib.ngp_encode_fwd_f.restype = i
+        lib.ngp_encode_bwd_f.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, p]
+        lib.ngp_encode_bwd_f.restype = i
     return lib
 
 
@@ -164,6 +174,9 @@ def _check(positions, table, lv: Levels, gfeat=None) -> int:
     if dev.type != "cuda":
         raise ValueError(f"the kernels take CUDA tensors, got {dev}")
     n = positions.shape[0]
+    if table.dim() != 2 or table.shape[1] < 1:
+        raise ValueError(f"table has shape {tuple(table.shape)}, expected (rows, F >= 1)")
+    F = table.shape[1]
     cuda_build.check("positions", positions, (torch.float32,), (n, 3), dev)
     cuda_build.check("table", table, _TABLE_TYPES, (lv.table_rows, F), dev)
     cuda_build.check("levels.scale", lv.scale, (torch.float32,), (lv.num,), dev)
@@ -175,17 +188,26 @@ def _check(positions, table, lv: Levels, gfeat=None) -> int:
 
 
 def encode_fwd(positions, table, lv: Levels) -> torch.Tensor:
-    """K7a: (n, 3) unit positions, (L_all*T, 2) table -> (n, Lw*2) f32."""
+    """K7a (F = 2) or K7ag (any other F): (n, 3) unit positions, (L_all*T,
+    F) table -> (n, Lw*F) f32."""
     if positions.device.type == "cpu":
         return encode_fwd_plain(positions, table, lv)
     n = _check(positions, table, lv)
-    if table.data_ptr() % (2 * F * table.element_size()):
+    F = table.shape[1]
+    if F == 2 and table.data_ptr() % (2 * F * table.element_size()):
         # K7a loads a cube's x-neighbours as one aligned pair of entries
         raise ValueError("table must start on a two-entry boundary")
     out = torch.empty((n, lv.num * F), dtype=torch.float32, device=positions.device)
     if n == 0:
         return out
-    K7A.count(launch_fwd(_library(), positions, table, lv, out))
+    if F == 2:
+        K7A.count(launch_fwd(_library(), positions, table, lv, out))
+        return out
+    K7AG.count(_library().ngp_encode_fwd_f(
+        positions.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16),
+        lv.scale.data_ptr(), out.data_ptr(), n, lv.num, F, lv.lo, lv.log2_T,
+        cuda_build.stream(positions),
+    ))
     return out
 
 
@@ -200,18 +222,25 @@ def launch_fwd(lib: ctypes.CDLL, positions, table, lv: Levels, out) -> int:
 
 
 def encode_bwd(positions, table, gfeat, lv: Levels):
-    """K7b: -> (dpos (n, 3) f32, dtable (L_all*T, 2) f32)."""
+    """K7b (F = 2) or K7bg (any other F): -> (dpos (n, 3) f32, dtable
+    (L_all*T, F) f32)."""
     if positions.device.type == "cpu":
         return encode_bwd_plain(positions, table, gfeat, lv)
     n = _check(positions, table, lv, gfeat)
+    F = table.shape[1]
     dpos = torch.empty((n, 3), dtype=torch.float32, device=positions.device)
     dtable = torch.zeros((lv.table_rows, F), dtype=torch.float32, device=positions.device)
     if n == 0:
         return dpos, dtable
-    err = _library().ngp_encode_bwd(
-        positions.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16),
-        lv.scale.data_ptr(), gfeat.data_ptr(), dpos.data_ptr(), dtable.data_ptr(),
-        n, lv.num, lv.lo, lv.log2_T, cuda_build.stream(positions),
-    )
-    K7B.count(err)
+    bf16, stream = int(table.dtype == torch.bfloat16), cuda_build.stream(positions)
+    if F == 2:
+        K7B.count(_library().ngp_encode_bwd(
+            positions.data_ptr(), table.data_ptr(), bf16, lv.scale.data_ptr(), gfeat.data_ptr(),
+            dpos.data_ptr(), dtable.data_ptr(), n, lv.num, lv.lo, lv.log2_T, stream,
+        ))
+        return dpos, dtable
+    K7BG.count(_library().ngp_encode_bwd_f(
+        positions.data_ptr(), table.data_ptr(), bf16, lv.scale.data_ptr(), gfeat.data_ptr(),
+        dpos.data_ptr(), dtable.data_ptr(), n, lv.num, F, lv.lo, lv.log2_T, stream,
+    ))
     return dpos, dtable

@@ -71,6 +71,13 @@ def _log2(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x) / torch.full_like(x, _LN2_F32)
 
 
+def level_of_positions(positions: torch.Tensor, config: OccGridConfig) -> torch.Tensor:
+    """Finest grid level whose aabb contains each (..., 3) position, int32."""
+    mag = torch.amax(positions.abs(), dim=-1) / config.aabb_scale
+    lvl = torch.ceil(_log2(torch.clamp(mag, min=1e-12)))
+    return torch.clamp(lvl, 0, config.levels - 1).to(torch.int32)
+
+
 def _cell_coords(x, y, z, R: int, config: OccGridConfig):
     """Level-selecting cell coordinates (lvl, ix, iy, iz), int64."""
     mag = torch.maximum(torch.maximum(x.abs(), y.abs()), z.abs())
@@ -100,6 +107,16 @@ def _grid_lookup(grid: torch.Tensor, x, y, z, config: OccGridConfig):
     return _take(grid, _flat_cell_index(x, y, z, grid.shape[-1], config))
 
 
+def occupancy_at_coords(state: OccGridState, x, y, z, config: OccGridConfig):
+    """Coordinate-separate occupancy lookup (any common shape) -> bool."""
+    return _grid_lookup(state.binaries, x, y, z, config)
+
+
+def occupancy_at(state: OccGridState, positions: torch.Tensor, config: OccGridConfig):
+    """(n, 3) world positions -> (n,) bool occupancy at their finest level."""
+    return occupancy_at_coords(state, positions[:, 0], positions[:, 1], positions[:, 2], config)
+
+
 def ema_at_coords(occs: torch.Tensor, x, y, z, config: OccGridConfig):
     """Level-selecting EMA lookup (the march's proposal signal)."""
     return _grid_lookup(occs, x, y, z, config)
@@ -127,6 +144,16 @@ def build_super_binaries(binaries: torch.Tensor, factor: int) -> torch.Tensor:
 
 def binarize(occs: torch.Tensor, config: OccGridConfig) -> torch.Tensor:
     return occs > torch.clamp(occs.mean(), max=config.occ_thre)
+
+
+def full_update(state: OccGridState, density_eval: torch.Tensor,
+                config: OccGridConfig) -> OccGridState:
+    """The warmup-phase update with a density at every cell: a new state of
+    occs = max(old * decay, density) and its binaries; `state` is not
+    written. density_eval: (levels, R^3), post-activation density x step
+    size at the (jittered) cell centres, evaluated with no gradient."""
+    occs = torch.maximum(state.occs * config.ema_decay, density_eval.reshape(state.occs.shape))
+    return OccGridState(occs=occs, binaries=binarize(occs, config))
 
 
 def scatter_update(occs: torch.Tensor, cell_ids: torch.Tensor, density_eval: torch.Tensor,
@@ -163,10 +190,7 @@ def update_positions(cell_ids: torch.Tensor, jitter: torch.Tensor, config: OccGr
     j = (cell_ids // R) % R
     k = cell_ids % R
     unit = (torch.stack([i, j, k], dim=-1).float() + jitter) / R
-    halves = config.aabb_scale * torch.exp2(
-        torch.arange(config.levels, dtype=torch.float32, device=cell_ids.device)
-    )
-    return (unit * 2.0 - 1.0) * halves[:, None, None]
+    return (unit * 2.0 - 1.0) * _halves(config, cell_ids.device)[:, None, None]
 
 
 def sample_update_positions(
@@ -180,6 +204,34 @@ def sample_update_positions(
     )
     jitter = torch.rand((config.levels, num_cells, 3), generator=generator, device=device)
     return cell_ids, update_positions(cell_ids, jitter, config)
+
+
+def _halves(config: OccGridConfig, device) -> torch.Tensor:
+    """(levels,) half-widths of the levels' aabbs, s * 2^l."""
+    return config.aabb_scale * torch.exp2(
+        torch.arange(config.levels, dtype=torch.float32, device=device))
+
+
+def _cell_centers(config: OccGridConfig, device="cpu") -> torch.Tensor:
+    """(levels, R^3, 3) world-space centres of every cell at every level."""
+    R = config.resolution
+    ar = torch.arange(R, device=device)
+    idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), dim=-1).reshape(-1, 3)
+    unit = (idx.float() + 0.5) / R
+    return (unit[None] * 2.0 - 1.0) * _halves(config, device)[:, None, None]
+
+
+def full_update_positions(config: OccGridConfig, generator: torch.Generator | None = None,
+                          jitter: torch.Tensor | None = None, device="cpu") -> torch.Tensor:
+    """(levels, R^3, 3) jittered world positions covering every cell: each
+    cell's centre moved by (u - 0.5) cells, u U(0, 1) per coordinate, from
+    `generator` or given as `jitter` (levels, R^3, 3) (the tests pass JAX's
+    draws)."""
+    centers = _cell_centers(config, device)
+    cell_size = 2.0 * _halves(config, device) / config.resolution
+    if jitter is None:
+        jitter = torch.rand(centers.shape, generator=generator, device=device)
+    return centers + (jitter.to(device) - 0.5) * cell_size[:, None, None]
 
 
 def num_update_cells(config: OccGridConfig) -> int:

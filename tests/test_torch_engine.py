@@ -4,6 +4,8 @@ each against JAX's), checkpoints with exact resume, and the training
 loop's cadences on a resumed start."""
 
 import dataclasses
+import functools
+import math
 import types
 
 import jax
@@ -194,10 +196,11 @@ CADENCE = dict(steps_per_save=7, steps_per_eval_batch=5, steps_per_eval_image=6,
 START, STEPS = 37, 30
 
 
-def _jax_loop_events(monkeypatch, scan_steps=1):
+def _jax_loop_events(monkeypatch, scan_steps=1, loss=0.0, via_train=False, **loop_kwargs):
     """The absolute steps at which JAX's run_training_loop fires each
     cadence, with a stub trainer whose step (and k-step chunk, at
-    scan_steps k) only counts."""
+    scan_steps k) only counts and gives `loss`; `loop_kwargs` go to the
+    loop (through JAX's Trainer.train with `via_train`)."""
     from lsenerf_tpu.engine import checkpoints as jckpt
     from lsenerf_tpu.engine import evaluation as jeval
     from lsenerf_tpu.engine import loop as jloop
@@ -219,7 +222,7 @@ def _jax_loop_events(monkeypatch, scan_steps=1):
 
     def train_step(state, batch):
         cur[0] = int(state.step)
-        return state.replace(step=state.step + 1), {"loss": jnp.float32(0.0)}
+        return state.replace(step=state.step + 1), {"loss": jnp.float32(loss)}
 
     def occ_update(state):
         ev["occ"].append(int(state.step))
@@ -228,7 +231,7 @@ def _jax_loop_events(monkeypatch, scan_steps=1):
     def make_train_step_multi(k):
         def train_steps(state, batches):
             cur[0] = int(state.step) + k - 1
-            return state.replace(step=state.step + k), {"loss": jnp.float32(0.0)}
+            return state.replace(step=state.step + k), {"loss": jnp.float32(loss)}
         return train_steps
 
     trainer = types.SimpleNamespace(
@@ -247,9 +250,10 @@ def _jax_loop_events(monkeypatch, scan_steps=1):
     monkeypatch.setattr(jeval, "average_eval_metrics", lambda *a, **k: (
         ev["eval_all"].append(cur[0]), {})[1])
     monkeypatch.setattr(jckpt, "save_checkpoint", lambda d, step, *a, **k: ev["save"].append(step))
-    jloop.run_training_loop(trainer, State(step=START, params={"model": {}}), num_steps=STEPS,
-                            eval_ds=eval_ds, ckpt_dir="unused", base_dir="unused",
-                            scan_steps=scan_steps)
+    run = functools.partial(jtr.Trainer.train, trainer) if via_train else functools.partial(
+        jloop.run_training_loop, trainer)
+    run(State(step=START, params={"model": {}}), num_steps=STEPS, eval_ds=eval_ds,
+        ckpt_dir="unused", base_dir="unused", scan_steps=scan_steps, **loop_kwargs)
     return ev
 
 
@@ -342,3 +346,124 @@ def test_loop_cadences_fire_on_jax_steps_in_chunks(monkeypatch, scan_steps):
     assert seen == [(s, False) for s in range(START, START + STEPS)]
     assert ev == want
     assert want["save"][-1] == START + STEPS - 1
+
+
+# -- the loop's hooks: log_every, print_every, callback, fail_fast ------------
+
+
+class _Logger:
+    def __init__(self):
+        self.logged = []
+
+    def log(self, step, scalars):
+        self.logged.append((step, dict(scalars)))
+
+
+def _hooked_trainer(loss=0.0):
+    """_tiny_trainer at the resumed start with CADENCE, its gradient, the
+    occupancy update and the evals stubbed, each step's loss `loss`."""
+    tr = _tiny_trainer()
+    for k, v in CADENCE.items():
+        setattr(tr.config, k, v)
+    tr.step_count = START
+    tr.occ_update = lambda *a, **k: None
+    tr.grads = lambda batch, bg_color=None: (torch.tensor(float(loss)), {}, {})
+    tr.eval_batch = lambda *a: {}
+    return tr
+
+
+def _stub_evals(monkeypatch):
+    from lsenerf_tpu_torch.engine import evaluation as teval
+    from lsenerf_tpu_torch.engine import renderer as tren
+
+    monkeypatch.setattr(tren, "render_image",
+                        lambda *a, **k: {"rgb": np.ones((16, 16, 3), np.float32)})
+    monkeypatch.setattr(teval, "average_eval_metrics", lambda *a, **k: {})
+    monkeypatch.setattr(ckpt, "save_checkpoint", lambda *a, **k: None)
+
+
+def _run_port(tr, scan_steps, via_train=False, **loop_kwargs):
+    from lsenerf_tpu_torch.engine import loop as tloop
+
+    kw = dict(num_steps=STEPS, eval_ds=tr.dm.col, ckpt_dir="unused", base_dir="unused",
+              scan_steps=scan_steps, **loop_kwargs)
+    return tr.train(**kw) if via_train else tloop.run_training_loop(tr, **kw)
+
+
+@pytest.mark.parametrize("scan_steps", [1, 16])
+@pytest.mark.parametrize("log_every", [5, 50])
+def test_loop_callback_fires_on_jax_steps(monkeypatch, scan_steps, log_every):
+    """callback(step, scalars) fires on the steps of JAX's loop, at
+    scan_steps 1 and in chunks of 16 (the last trimmed to single steps),
+    with the logged scalars; of steps 37..66 log_every 50 covers step 50,
+    which logs after step 50 at scan_steps 1 and after its chunk's last
+    step, 52, at 16."""
+    want = []
+    _jax_loop_events(monkeypatch, scan_steps, log_every=log_every,
+                     callback=lambda step, scal: want.append(step))
+    _stub_evals(monkeypatch)
+    tr = _hooked_trainer()
+    got, logger = [], _Logger()
+    _run_port(tr, scan_steps, log_every=log_every, logger=logger,
+              callback=lambda step, scal: got.append((step, scal)))
+    assert [s for s, _ in got] == want and tr.step_count == START + STEPS
+    assert got == [(s, d) for s, d in logger.logged if "loss" in d]  # the evals log too
+    assert all(d["loss"] == 0.0 for _, d in got)
+    if log_every == 5:
+        assert len(want) >= 2
+    else:
+        assert want == ([52] if scan_steps == 16 else [50])
+
+
+@pytest.mark.parametrize("scan_steps", [1, 16])
+def test_loop_prints_every_print_every(monkeypatch, capsys, scan_steps):
+    """With a logger, the logged scalars are printed where print_every
+    falls, as JAX's loop prints them."""
+    jlog = _Logger()
+    _jax_loop_events(monkeypatch, scan_steps, log_every=2, print_every=10, logger=jlog)
+    want = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step ")]
+    _stub_evals(monkeypatch)
+    logger = _Logger()
+    _run_port(_hooked_trainer(), scan_steps, log_every=2, print_every=10, logger=logger)
+    got = [ln.split(":")[0] for ln in capsys.readouterr().out.splitlines() if ln.startswith("step ")]
+    assert got == [ln.split(":")[0] for ln in want] and len(got) >= 2
+    assert ([s for s, d in logger.logged if "loss" in d]
+            == [s for s, d in jlog.logged if "loss" in d])
+
+
+@pytest.mark.parametrize("scan_steps", [1, 16])
+def test_loop_fail_fast_both_ways(monkeypatch, scan_steps):
+    """A non-finite loss stops the run at the first logged step with
+    fail_fast (the default), as in JAX; with fail_fast=False it is logged
+    and handed to the callback, and the run goes on to its end."""
+    with pytest.raises(RuntimeError, match="non-finite loss"):
+        _jax_loop_events(monkeypatch, scan_steps, loss=float("nan"), log_every=5)
+    want = []
+    _jax_loop_events(monkeypatch, scan_steps, loss=float("nan"), log_every=5, fail_fast=False,
+                     callback=lambda step, scal: want.append(step))
+    _stub_evals(monkeypatch)
+    tr = _hooked_trainer(float("nan"))
+    with pytest.raises(RuntimeError, match="non-finite loss"):
+        _run_port(tr, scan_steps, log_every=5)
+    tr, got = _hooked_trainer(float("nan")), []
+    last = _run_port(tr, scan_steps, log_every=5, fail_fast=False,
+                     callback=lambda step, scal: got.append((step, scal["loss"])))
+    assert [s for s, _ in got] == want and tr.step_count == START + STEPS
+    assert all(math.isnan(v) for _, v in got) and math.isnan(last["loss"])
+
+
+@pytest.mark.parametrize("scan_steps", [1, 16])
+def test_trainer_train_is_the_loop(monkeypatch, scan_steps):
+    """Trainer.train(num_steps, log_every, callback, **loop_kwargs) runs the
+    loop from the trainer's step and returns the last step's metrics; its
+    callback fires where JAX's Trainer.train fires it."""
+    want = []
+    _jax_loop_events(monkeypatch, scan_steps, via_train=True, log_every=7,
+                     callback=lambda step, scal: want.append(step))
+    _stub_evals(monkeypatch)
+    tr, got = _hooked_trainer(), []
+    out = _run_port(tr, scan_steps, via_train=True, log_every=7,
+                    callback=lambda step, scal: got.append(step))
+    assert got == want and len(got) >= 2
+    assert tr.step_count == START + STEPS and out["loss"] == 0.0
+

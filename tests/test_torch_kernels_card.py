@@ -1,7 +1,8 @@
 """The port's kernels against their plain PyTorch versions on the card: K1
 and K2 (lsenerf_tpu_torch/ops/combine.py) and K7a and K7b
-(lsenerf_tpu_torch/ops/ngp.py, with level windows; K7a bit for bit) in an
-f32-table and a bf16-table arm, also where many samples of a warp share rows (one cell, rays), at the
+(lsenerf_tpu_torch/ops/ngp.py, with level windows; K7a bit for bit), and
+the generic K1g/K2g and K7ag/K7bg at features_per_level 1, 3, 4 and 8
+(K7ag bit for bit), in an f32-table and a bf16-table arm, also where many samples of a warp share rows (one cell, rays), at the
 flagship's 16 levels (16 and 48 samples a ray) and at 2 and 3 levels, and
 the gathers G1-G3 (lsenerf_tpu_torch/ops/gather.py), held to exact
 equality, G2 at the shapes that pick each of its paths and G3 at several
@@ -260,6 +261,88 @@ def test_ngp_wrappers_refuse_what_the_kernels_do_not_take():
             ngp.encode_fwd(*args)
     with pytest.raises(ValueError):
         ngp.encode_bwd(p, tab, gg[:, :-2], lv)
+
+
+# the generic kernels K1g/K2g (blocked) and K7ag/K7bg (ngp) at F != 2: L = 5
+# (blocked: 3 dense and 2 hashed levels of 2^10 rows; ngp: 2^10 entries a
+# level) on uniform positions, along rays and (ngp) on cell faces and
+# outside the cube, and at the 4v paths' 8 levels of the full-width grids
+def _generic_cfg(layout, F, full=False):
+    if full:
+        return the.HashEncodingConfig(layout=layout, num_levels=8, features_per_level=F)
+    return the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, layout=layout,
+                                  blocked_rows_log2=10, log2_hashmap_size=10,
+                                  features_per_level=F)
+
+
+GENERIC_KINDS = {"blocked": (("uniform", 4099), ("rays", 4112), ("one_cell", 1000)),
+                 "ngp": (("uniform", 4099), ("rays", 4112), ("faces", 4099),
+                         ("outside", 4099))}
+
+
+def _generic_check(layout, cfg, kind, n, dtype, dev):
+    mod = combine if layout == "blocked" else ngp
+    kf, kb = (combine.K1G, combine.K2G) if layout == "blocked" else (ngp.K7AG, ngp.K7BG)
+    rng = np.random.default_rng(12)
+    p = torch.from_numpy(_positions(kind, n, rng)).to(dev)
+    tab = torch.from_numpy(rng.standard_normal(cfg.table_shape).astype(np.float32)).to(dev, dtype)
+    gg = torch.from_numpy(rng.standard_normal((n, cfg.out_dim)).astype(np.float32)).to(dev)
+    lv = the.levels_for(cfg, "cuda")
+    before = kf.launches, kb.launches
+    got, want = mod.encode_fwd(p, tab, lv), mod.encode_fwd_plain(p, tab, lv)
+    dpos, dtab = mod.encode_bwd(p, tab, gg, lv)
+    torch.cuda.synchronize()
+    assert (kf.launches, kb.launches) == (before[0] + 1, before[1] + 1), "not the generic kernels"
+    if layout == "ngp":  # the plain forward's keys, weights and order: its bits
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:  # 8 weighted terms against 27
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    wdpos, wdtab = mod.encode_bwd_plain(p, tab, gg, lv)
+    torch.testing.assert_close(dpos, wdpos, rtol=1e-4, atol=1e-6 * float(wdpos.abs().max()))
+    torch.testing.assert_close(dtab, wdtab, rtol=0, atol=1e-5 * float(wdtab.abs().max()))
+    if layout == "blocked":
+        assert not dtab[:, 27 * cfg.features_per_level:].any(), "pad columns moved"
+    again, _ = mod.encode_bwd(p, tab, gg, lv)
+    assert torch.equal(dpos, again), "dpos differs from call to call"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [1, 3, 4, 8])
+@pytest.mark.parametrize("layout", ["blocked", "ngp"])
+def test_generic_encode_matches_plain_on_card(layout, F, dtype):
+    """K1g/K2g and K7ag/K7bg, which the wrappers launch at F != 2, against
+    their plain versions (K7ag bit for bit; the rest with K1/K2's and
+    K7b's tolerances), at L = 5 for each kind of positions and at 8 levels
+    of the full-width grid along rays (56,192 samples, less 7)."""
+    dev = _card()
+    for kind, n in GENERIC_KINDS[layout]:
+        _generic_check(layout, _generic_cfg(layout, F), kind, n, dtype, dev)
+    _generic_check(layout, _generic_cfg(layout, F, full=True), "rays", 56_192 - 7, dtype, dev)
+
+
+@pytest.mark.cuda
+def test_generic_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    for layout in ("blocked", "ngp"):
+        cfg = _generic_cfg(layout, 4)
+        mod = combine if layout == "blocked" else ngp
+        lv = the.levels_for(cfg, "cuda")
+        p = torch.rand((33, 3), device=dev)
+        tab = torch.zeros(cfg.table_shape, device=dev)
+        gg = torch.zeros((33, cfg.out_dim), device=dev)
+        for args in ((p.double(), tab, lv), (p, tab[1:], lv), (p, tab.half(), lv)):
+            with pytest.raises(ValueError):
+                mod.encode_fwd(*args)
+        with pytest.raises(ValueError):
+            mod.encode_bwd(p, tab, gg[:, :-1], lv)
+    # F = 2 in rows other than K1's 64 columns
+    lv = the.levels_for(_generic_cfg("blocked", 2), "cuda")
+    odd = combine.Levels(scale=lv.scale, params=lv.params, hash_mask=lv.hash_mask,
+                         total_rows=lv.total_rows, F=2, row_width=96)
+    with pytest.raises(ValueError):
+        combine.encode_fwd(torch.rand((4, 3), device=dev),
+                           torch.zeros((lv.total_rows, 96), device=dev), odd)
 
 
 def _same(got, want):
@@ -619,7 +702,8 @@ def test_chunk_graph_matches_eager_steps_on_card():
     the counts and the background generator's state equal after each
     chunk, each loss within rtol 1e-3 (K2's atomics add in no fixed order,
     and Adam's eps of 1e-15 turns their noise into steps of up to lr), and
-    the captured graph holds K1, K2, K3, K5a and K5b once a step."""
+    the captured graph holds K1, K2, K3, K5a and K5b once a step, and
+    neither the ngp kernels nor the generic ones of F != 2."""
     from lsenerf_tpu_torch.engine.chunk_graph import path_kernels
     from lsenerf_tpu_torch.engine.loop import _covered
 
@@ -643,8 +727,10 @@ def test_chunk_graph_matches_eager_steps_on_card():
         assert torch.equal(chunked._bg_gen.get_state(), eager._bg_gen.get_state())
     cg = chunked._chunks[k]
     assert cg.graph is not None
-    names = [kn.name for kn in path_kernels() if not kn.name.startswith("ngp")]
+    names = [kn.name for kn in path_kernels()
+             if not kn.name.startswith("ngp") and not kn.name.endswith("_f")]
     assert min(cg.launches[n] for n in names) >= k, cg.launches
+    assert not any(n for name, n in cg.launches.items() if name not in names), cg.launches
 
 
 @pytest.mark.cuda
