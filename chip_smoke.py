@@ -35,9 +35,11 @@ Phases, each fatal on failure (exit code 1):
      (the field on the live chunks of the validity-sorted samples) (3b);
      then (3a-F) the generic encode kernels K1g/K2g (blocked_encode_fwd_f/
      _bwd_f) and K7ag/K7bg (ngp_encode_fwd_f/_bwd_f) against their plain
-     versions at features_per_level F = 1, 3, 4 and 8 (56,192 uniform
-     positions, 8 levels; K7ag bit for bit), and at F = 4 on one real step
-     of each 4v path, each timed warm, with a cold L2 and beside its bound;
+     versions at features_per_level F = 1, 3, 4, 6, 8 and 16 (56,192
+     uniform positions, 8 levels; K7ag bit for bit), and at F = 4 on one
+     real step of each 4v path, each timed warm, with a cold L2 and beside
+     its bound, K2g and K7bg beside their L2 atomic requests a launch as
+     gbwd_compare.requests works them out from the designs;
      and two more small steps (3b), 8 levels of F = 4 in each layout;
   3d. K3 (march_ts, csrc/march.cu) against march_ts_plain at the flagship
      trainer's real march inputs (flagship.march_composite_calls: step
@@ -147,7 +149,7 @@ Phases, each fatal on failure (exit code 1):
      update equal bit for bit; then one step under NCCL at world size 1;
   5. a `kernels` JSON line (K1/K2/K1g/K2g/K7a/K7b/K7ag/K7bg/K3/K5a/K5b
      launches summed over phases 4 to 4k, the ranks' included; G1-G3's
-     from 3c),
+     from 3c; each kernel's `status`, ported or redesigned),
      the card line, and the result line {"ok": true, "device": {...}} last.
 
 Every kernel and library call is timed three ways (lsenerf_tpu_torch/
@@ -591,10 +593,9 @@ def check_ngp(dev):
     return res
 
 
-# the generic encode kernels' phase (3a-F): F values, samples (the badnerf
-# and flagship presets' 3512 rays x 16) and levels (flagship.FEATURES_4's)
-GENERIC_FEATURES = (1, 3, 4, 8)
-GENERIC_SAMPLES = 3512 * 16
+# the generic encode kernels' phase (3a-F): F values, at 56,192 samples
+# (the badnerf and flagship presets' 3512 rays x 16) and FEATURES_4's 8 levels
+GENERIC_FEATURES = (1, 3, 4, 6, 8, 16)
 
 
 def generic_pair(layout: str):
@@ -615,6 +616,7 @@ def check_generic_encode(name, layout, pos, table, gfeat, lv):
     result}."""
     import torch
 
+    from lsenerf_tpu_torch import gbwd_compare
     from lsenerf_tpu_torch.ops import combine, ngp
     from lsenerf_tpu_torch.timing import cold_ms
 
@@ -663,44 +665,38 @@ def check_generic_encode(name, layout, pos, table, gfeat, lv):
         print(f"{k.name} at {name}: max_abs_err {err:.3e}, {fmt(r)}; cold L2 {r['cold_ms']:.5f} ms; "
               f"{distinct} distinct {'rows' if layout == 'blocked' else 'entries'} "
               f"({table.dtype}) at n={pos.shape[0]}, L={lv.num}, F={F}")
+    # a model, not a measurement: printed only, kept out of the kernels line
+    scalar, new = gbwd_compare.requests(layout, pos, table, gfeat, lv)
+    ms, m = res[kb.name]["device_ms"], pos.shape[0] * lv.num
+    print(f"{kb.name} L2 atomic requests a launch at {name}, worked out from the designs (not "
+          f"measured): {new} ({new / m:.2f} a sample-level; the first design's scalar atomics "
+          f"{scalar}, {scalar / m:.2f}): {new / ms / 1e6:.1f} G requests/s at "
+          f"{ms:.5f} ms on the device")
     return res
 
 
 def check_generic(dev):
     """Phase 3a-F: K1g/K2g and K7ag/K7bg against their plain versions at
-    F = 1, 3, 4 and 8, on GENERIC_SAMPLES uniform positions with 8 levels
-    (the blocked layout's flagship grid with a bf16 table, the ngp one's 8
-    levels of 2^19 entries with an f32 table), then at F = 4 on the inputs
-    of one real step of each 4v path. Returns the F = 4 uniform results,
-    the others under "shapes"."""
-    import torch
-
-    from lsenerf_tpu_torch.flagship import (FEATURES_4, ngp_encode_calls, preset_trainer,
-                                            step_encode_inputs)
-    from lsenerf_tpu_torch.ops import hash_encoding as he
+    GENERIC_FEATURES, on flagship.generic_encode_uniform's 56,192 uniform
+    positions with 8 levels (the blocked layout's flagship grid with a bf16
+    table, the ngp one's 8 levels of 2^19 entries with an f32 table), then
+    at F = 4 on the inputs of one real step of each 4v path
+    (flagship.generic_encode_steps). Returns the F = 4 uniform results, the
+    others under "shapes"."""
+    from lsenerf_tpu_torch.flagship import generic_encode_steps, generic_encode_uniform
 
     t0 = time.time()
     shapes = {}
-    gen = torch.Generator(device=dev).manual_seed(0)
-    pos = torch.rand((GENERIC_SAMPLES, 3), generator=gen, device=dev)
-    for layout, dtype in (("blocked", torch.bfloat16), ("ngp", torch.float32)):
-        for F in GENERIC_FEATURES:
-            hcfg = he.HashEncodingConfig(layout=layout, num_levels=8, features_per_level=F)
-            table = (torch.rand(hcfg.table_shape, generator=gen, device=dev) * 2 - 1).to(dtype)
-            gfeat = torch.randn((GENERIC_SAMPLES, hcfg.out_dim), generator=gen, device=dev)
-            shapes[f"F{F}"] = dict(shapes.get(f"F{F}", {}), **check_generic_encode(
-                f"uniform positions, F={F}", layout, pos, table, gfeat, he.levels_for(hcfg, dev)))
-            del table, gfeat
-    flag = preset_trainer("lsenerf", False, dev, hash_fields=FEATURES_4)
-    spos, stable, sgfeat, slv = step_encode_inputs(trainer=flag)
-    del flag
-    shapes["step"] = check_generic_encode("one flagship F=4 step's inputs", "blocked", spos,
-                                          stable, sgfeat, slv)
-    bad = preset_trainer("badnerf", device=dev, hash_layout="ngp", compute_dtype="float32",
-                         hash_fields=FEATURES_4)
-    shapes["step"].update(check_generic_encode(
-        "one badnerf ngp f32 F=4 step's inputs", "ngp", *ngp_encode_calls(trainer=bad)["step"]))
-    del bad, spos, stable, sgfeat
+    for layout, F, pos, table, gfeat, lv in generic_encode_uniform(GENERIC_FEATURES, dev):
+        shapes[f"F{F}"] = dict(shapes.get(f"F{F}", {}), **check_generic_encode(
+            f"uniform positions, F={F}", layout, pos, table, gfeat, lv))
+        del table, gfeat
+    steps = generic_encode_steps(dev)
+    shapes["step"] = check_generic_encode("one flagship F=4 step's inputs", "blocked",
+                                          *steps["blocked"])
+    shapes["step"].update(check_generic_encode("one badnerf ngp f32 F=4 step's inputs", "ngp",
+                                               *steps["ngp"]))
+    del steps
     res = shapes.pop("F4")
     for k in res:
         res[k]["shapes"] = {name: r[k] for name, r in shapes.items()}
@@ -2362,6 +2358,26 @@ def tiny_golden(card: str, device=None):
     return launches
 
 
+# each kernel's status: "ported" (its first design) or "redesigned" (PERF.md
+# §6 gives each redesign and its times)
+STATUS = {
+    "blocked_encode_fwd": "redesigned",
+    "blocked_encode_bwd": "redesigned",
+    "blocked_encode_fwd_f": "ported",
+    "blocked_encode_bwd_f": "redesigned",
+    "ngp_encode_fwd": "redesigned",
+    "ngp_encode_bwd": "redesigned",
+    "ngp_encode_fwd_f": "ported",
+    "ngp_encode_bwd_f": "redesigned",
+    "march_ts": "redesigned",
+    "composite_fwd": "redesigned",
+    "composite_bwd": "redesigned",
+    "row_gather": "ported",
+    "take_along": "redesigned",
+    "gather_sum": "ported (a shared-memory redesign was measured and dropped)",
+}
+
+
 def main() -> int:
     import torch
 
@@ -2507,6 +2523,8 @@ def main() -> int:
             replaces=first, also_replaces=rest, launches=g_launches[k.name],
             **g_res[k.name],
         ))
+    for k in kernels:
+        k["status"] = STATUS[k["name"]]
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -86,18 +86,40 @@
 // JAX package runs them with another F (_combine_kernel and _bwd_kernel
 // take F as a parameter). F and W are arguments, so every F >= 1 works.
 // They are bound by the same two rates as K1 and K2, scattered row loads
-// and scattered atomics, now 8F values and 8F atomics a sample-level. The
-// design is the simple one, with no layout tuned to a given F:
-// - K1g: one thread a (sample, level), thread t = sample t / L, level
-//   t % L, so a warp's F-wide outputs are one contiguous run. Keys and
-//   fractions come from K1's level_key (the same keys, bit for bit). It
-//   adds the 8 vertices of the cube in slot order, weights (ux * uy) * uz
-//   as the plain version forms them: the plain version's 27-term sum less
-//   the 19 terms whose weight is exactly 0.
-// - K2g: one thread a sample, walking its levels in order, so dpos is one
-//   sum a sample in registers, with no atomics and the same bits from call
-//   to call. Its table gradient is 8F exact f32 atomics a sample-level
-//   (none where the update is 0), adding in no fixed order.
+// and scattered atomics, now 8F values and 8F updates a sample-level.
+// - K1g (the simple design): one thread a (sample, level), thread
+//   t = sample t / L, level t % L, so a warp's F-wide outputs are one
+//   contiguous run. Keys and fractions come from K1's level_key (the same
+//   keys, bit for bit). It adds the 8 vertices of the cube in slot order,
+//   weights (ux * uy) * uz as the plain version forms them: the plain
+//   version's 27-term sum less the 19 terms whose weight is exactly 0.
+// - K2g is K2's design at any F. Its first design, a thread a sample,
+//   sent 8F scalar atomics a sample-level, each its own L2 request (32 at
+//   F = 4), and read its cotangent strided by L F floats across a warp
+//   (2.2x slower at F = 4, PERF.md §6). Now a block takes 32 neighbouring
+//   samples at every level, one
+//   warp a level (at most kGenBwdWarps, as many as 48 KB of shared memory
+//   holds, each then taking every warps-th level), with positions and the
+//   cotangent staged in shared memory, read coalesced. A lane takes one
+//   (sample, level): it loads the cube's 8 vertices V values at a time
+//   (V = 4, 2 or 1, a vector load where F and the table's alignment allow),
+//   the 8 loads of a step in flight together, and writes its level's dpos
+//   term to shared memory; the terms are summed over the levels in level
+//   order. Its 8F updates, (x, y) run by run (2F contiguous values: the
+//   z-neighbours v and v + 1; past F = kGenChunk, kGenChunk features of
+//   each vertex at a time, so that any F fits), go to its entry in the
+//   warp's slice of shared memory, and the warp adds the 32 entries with
+//   consecutive lanes on consecutive values, skipping zeros, so that the
+//   lanes of one
+//   instruction on one 32-byte sector make one request: ~6 a sample-level
+//   at F = 4 (a 32-byte run spans 1.5 sectors), where float4 atomics would
+//   make 8 and scalar ones 32 (gbwd_compare.requests counts both designs).
+//   dpos keeps the first design's arithmetic (each vertex's features in
+//   order, the vertices in slot order, the level terms added from 0 in
+//   level order), so it has the first design's bits, the same from call to
+//   call; the table gradient's atomics add in no fixed order. Per-lane
+//   vector atomics in place of the staged scatter (8 float4s a
+//   sample-level at F = 4) were measured slower at every F.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -323,7 +345,6 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
 }
 
 constexpr int kGenFwdThreads = 128;  // K1g: threads a block, one a (sample, level)
-constexpr int kGenBwdThreads = 64;   // K2g: threads a block, one a sample
 
 // Element e of the table as f32.
 template <bool kBF16>
@@ -367,49 +388,225 @@ __global__ void __launch_bounds__(kGenFwdThreads)
   }
 }
 
-// K2g: thread i takes sample i at every level, in level order.
-template <bool kBF16>
-__global__ void __launch_bounds__(kGenBwdThreads)
+// Values e .. e + V - 1 of the table as f32: one load of V values (the
+// caller keeps e a multiple of V and the table aligned to V values).
+template <bool kBF16, int V>
+__device__ __forceinline__ void load_vec(const void* __restrict__ table, long e, float v[V]) {
+  if constexpr (kBF16) {
+    const unsigned short* p = reinterpret_cast<const unsigned short*>(table) + e;
+    if constexpr (V == 4) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      v[0] = __uint_as_float(u.x << 16);
+      v[1] = __uint_as_float(u.x & 0xffff0000u);
+      v[2] = __uint_as_float(u.y << 16);
+      v[3] = __uint_as_float(u.y & 0xffff0000u);
+    } else if constexpr (V == 2) {
+      const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+      v[0] = __uint_as_float(u << 16);
+      v[1] = __uint_as_float(u & 0xffff0000u);
+    } else {
+      v[0] = __uint_as_float((uint32_t)__ldg(p) << 16);
+    }
+  } else {
+    const float* p = reinterpret_cast<const float*>(table) + e;
+    if constexpr (V == 4) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+    } else if constexpr (V == 2) {
+      const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+      v[0] = f.x, v[1] = f.y;
+    } else {
+      v[0] = __ldg(p);
+    }
+  }
+}
+
+constexpr int kGenBwdWarps = 16;  // K2g: warps (levels) a block, at most
+constexpr int kGenStageLd = 33;   // K2g: the staged cotangent's row stride (32 samples + 1)
+constexpr int kGenChunk = 8;      // K2g: a corner's features an entry holds, at most
+constexpr size_t kSmemOptIn = 232448;  // the H100's most shared memory a block (227 KB)
+
+// K2g's dynamic shared memory in 4-byte words: positions (32 x 3), the dpos
+// terms (L x 32 x 3), the cotangent (L F x kGenStageLd) where staged, and a
+// warp's entries (32 x (8 Fc + 1), Fc = min(F, kGenChunk)) with their rows
+// and first columns (2 x 32).
+size_t gen_bwd_words(int L, int F, int warps, bool staged) {
+  const size_t fc = F < kGenChunk ? F : kGenChunk;
+  return 96 + 96 * (size_t)L + (staged ? (size_t)kGenStageLd * L * F : 0) +
+         (size_t)warps * (32 * (8 * fc + 1) + 64);
+}
+
+using GenBwdKernel = void (*)(const float*, const void*, const float*, const int4*,
+                              const float*, float*, float*, int, int, int, int, uint32_t, int);
+
+// K2g: block b takes samples 32b .. 32b+31 at every level, lane = sample;
+// warp w takes levels w, w + warps, ... in turn. For each level a lane
+// loads its sample's cube V values at a time (the 8 corners' loads of a
+// step in flight together), computes its dpos term with the first
+// design's arithmetic (each corner's features in order, the corners in slot
+// order) and writes its updates to its entry in the warp's slice of shared
+// memory: all 8F (corner c's feature f at c F + f, so that run q of the
+// cube, corners 2q and 2q + 1, is values 2qF .. 2qF + 2F - 1) or, kChunked
+// (F > kGenChunk), kGenChunk features of each corner at a time. The warp
+// then adds its 32 entries into dtable with consecutive lanes on
+// consecutive values, so that the lanes on one 32-byte sector make one L2
+// request. The cotangent of sample k, level l, feature f is
+// g[(l F + f) gs + k gk]: staged in shared memory (gs = kGenStageLd, gk =
+// 1) or, where it does not fit, read from gfeat (gs = 1, gk = L F). The two
+// forms of the entries are two instantiations because the one that holds
+// a whole cube compiles to the faster kernel at F <= kGenChunk (on the
+// H100 0.110 against 0.124 ms at F = 4, PERF.md §6), the chunked one at
+// F = 16.
+template <bool kBF16, int V, bool kChunked>
+__global__ void __launch_bounds__(kGenBwdWarps * 32)
     encode_bwd_f_kernel(const float* __restrict__ pos, const void* __restrict__ table,
                         const float* __restrict__ scale, const int4* __restrict__ lvl,
                         const float* __restrict__ gfeat, float* __restrict__ dpos,
                         float* __restrict__ dtable, int n, int L, int F, int W,
-                        uint32_t hash_mask) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  for (int l = 0; l < L; ++l) {
+                        uint32_t hash_mask, int staged) {
+  extern __shared__ float smem[];
+  float* pos_s = smem;         // (32, 3)
+  float* part = smem + 96;     // (L, 32, 3): each level's dpos term
+  float* g_s = part + 96 * L;  // (L F, kGenStageLd) where staged
+  const int Fc = kChunked ? kGenChunk : F;  // a corner's features an entry holds
+  const int S = 8 * Fc + 1;  // an entry's stride (odd: no bank conflicts)
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  float* ent = g_s + (staged ? kGenStageLd * L * F : 0) + (threadIdx.x >> 5) * (32 * S + 64);
+  int* rows = reinterpret_cast<int*>(ent + 32 * S);  // an entry's row and first column
+  int* cols = rows + 32;
+  const long i0 = (long)blockIdx.x * 32;
+  const int live_n = (int)min((long)32, (long)n - i0);
+  const int LF = L * F;
+  for (int e = threadIdx.x; e < live_n * 3; e += blockDim.x) pos_s[e] = __ldg(pos + i0 * 3 + e);
+  const float* g = gfeat + i0 * LF;
+  int gs = 1, gk = LF;
+  if (staged) {  // read coalesced, stored transposed
+    for (int e = threadIdx.x; e < live_n * LF; e += blockDim.x) {
+      const int k = e / LF;
+      g_s[(e - k * LF) * kGenStageLd + k] = __ldg(gfeat + i0 * LF + e);
+    }
+    g = g_s, gs = kGenStageLd, gk = 1;
+  }
+  __syncthreads();
+  const bool live = lane < live_n;
+  // a whole cube's entry: the lane's first value of the scatter (entry k0,
+  // value j0) and its step of 32
+  const int E = 8 * F, k0 = lane / E, j0 = lane - k0 * E, dk = 32 / E, dj = 32 % E;
+  const int D = 2 * F;  // a run's values
+  for (int l = threadIdx.x >> 5; l < L; l += warps) {
     const float sc = __ldg(scale + l);
-    float w[3];
-    int o[3];
-    const long row = (long)level_key(pos, i, sc, __ldg(lvl + l), hash_mask, w, o) * W;
-    const float* g = gfeat + (i * L + l) * F;
+    float w[3] = {0.0f, 0.0f, 0.0f};
+    int o[3] = {0, 0, 0};
+    int key = 0;
+    if (live) key = level_key(pos_s, lane, sc, __ldg(lvl + l), hash_mask, w, o);
     const float u[3][2] = {{1.0f - w[0], w[0]}, {1.0f - w[1], w[1]}, {1.0f - w[2], w[2]}};
     // du[d][s]: d loss / d (weight of slot o + s in dimension d)
     float du[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+    const int v0 = (o[0] * 3 + o[1]) * 3 + o[2];
+    const float* gl = g + (long)l * F * gs + (long)lane * gk;  // gl[f gs]: feature f
+    float wt[8];  // kChunked: the corners' weights
+    if (live) {
+      const long row = (long)key * W;
+      float gv[8];  // d loss / d (corner c's weight), its features in order
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int a = c >> 2, b = (c >> 1) & 1, z = c & 1;
-      const long e = row + (long)((((o[0] + a) * 3 + o[1] + b) * 3 + o[2] + z) * F);
-      float gv = 0.0f;  // d loss / d (this vertex's weight)
-      for (int f = 0; f < F; ++f)
-        gv = __fadd_rn(gv, __fmul_rn(load_value<kBF16>(table, e + f), __ldg(g + f)));
-      du[0][a] = __fadd_rn(du[0][a], __fmul_rn(__fmul_rn(gv, u[1][b]), u[2][z]));
-      du[1][b] = __fadd_rn(du[1][b], __fmul_rn(__fmul_rn(gv, u[0][a]), u[2][z]));
-      du[2][z] = __fadd_rn(du[2][z], __fmul_rn(__fmul_rn(gv, u[0][a]), u[1][b]));
-      const float wt = __fmul_rn(__fmul_rn(u[0][a], u[1][b]), u[2][z]);
-      for (int f = 0; f < F; ++f) {
-        const float upd = __fmul_rn(wt, __ldg(g + f));
-        if (upd != 0.0f) atomicAdd(dtable + e + f, upd);
+      for (int c = 0; c < 8; ++c) gv[c] = 0.0f;
+      for (int f = 0; f < F; f += V) {
+        float t[8][V];
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          load_vec<kBF16, V>(table, row + (v0 + (c >> 2) * 9 + ((c >> 1) & 1) * 3 + (c & 1)) * F + f,
+                             t[c]);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float gf = gl[(f + j) * gs];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) gv[c] = __fadd_rn(gv[c], __fmul_rn(t[c][j], gf));
+        }
+      }
+      float* e = ent + lane * S;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int a = c >> 2, b = (c >> 1) & 1, z = c & 1;
+        du[0][a] = __fadd_rn(du[0][a], __fmul_rn(__fmul_rn(gv[c], u[1][b]), u[2][z]));
+        du[1][b] = __fadd_rn(du[1][b], __fmul_rn(__fmul_rn(gv[c], u[0][a]), u[2][z]));
+        du[2][z] = __fadd_rn(du[2][z], __fmul_rn(__fmul_rn(gv[c], u[0][a]), u[1][b]));
+        wt[c] = __fmul_rn(__fmul_rn(u[0][a], u[1][b]), u[2][z]);
+        if constexpr (!kChunked)
+          for (int f = 0; f < F; ++f) e[c * F + f] = __fmul_rn(wt[c], gl[f * gs]);
+      }
+      rows[lane] = key;
+      cols[lane] = v0 * F;
+    }
+    if constexpr (!kChunked) {
+      __syncwarp();
+      // the warp's live_n x 8F values, 32 a step: lane takes value j of
+      // entry k, value j - 2qF of its run q, which starts (9 (q >> 1) +
+      // 3 (q & 1)) F past the entry's first column
+      for (int k = k0, j = j0; k < live_n;) {
+        const float val = ent[k * S + j];
+        if (val != 0.0f) {
+          const int q = (j >= D) + (j >= 2 * D) + (j >= 3 * D);
+          const int col = cols[k] + ((q >> 1) * 9 + (q & 1) * 3) * F + j - q * D;
+          atomicAdd(dtable + (long)rows[k] * W + col, val);
+        }
+        k += dk, j += dj;
+        if (j >= E) j -= E, ++k;
+      }
+      __syncwarp();
+    } else {
+      for (int f0 = 0; f0 < F; f0 += Fc) {  // features f0 .. f0 + fc - 1 of each corner
+        const int fc = min(Fc, F - f0), Ec = 8 * fc;
+        if (live) {
+          float* e = ent + lane * S;
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            for (int f = 0; f < fc; ++f) e[c * fc + f] = __fmul_rn(wt[c], gl[(f0 + f) * gs]);
+        }
+        __syncwarp();
+        // the warp's live_n x 8 fc values, 32 a step: lane takes value j of
+        // entry k, corner c's feature f0 + j - c fc, which lies (9 (c >> 2)
+        // + 3 ((c >> 1) & 1) + (c & 1)) F + f0 past the entry's first column
+        int k = lane / Ec, j = lane - k * Ec;
+        const int dkc = 32 / Ec, djc = 32 % Ec;
+        while (k < live_n) {
+          const float val = ent[k * S + j];
+          if (val != 0.0f) {
+            int c = 0;
+#pragma unroll
+            for (int m = 1; m < 8; ++m) c += j >= m * fc;
+            const int off = (c >> 2) * 9 + ((c >> 1) & 1) * 3 + (c & 1);
+            atomicAdd(dtable + (long)rows[k] * W + cols[k] + off * F + f0 + j - c * fc, val);
+          }
+          k += dkc, j += djc;
+          if (j >= Ec) j -= Ec, ++k;
+        }
+        __syncwarp();
       }
     }
     // the slots o and o + 1 weigh 1 - w and w: d w = du[1] - du[0]
 #pragma unroll
     for (int d = 0; d < 3; ++d)
-      acc[d] = __fadd_rn(acc[d], __fmul_rn(__fsub_rn(du[d][1], du[d][0]), sc));
+      part[(l * 32 + lane) * 3 + d] = __fmul_rn(__fsub_rn(du[d][1], du[d][0]), sc);
   }
-#pragma unroll
-  for (int d = 0; d < 3; ++d) dpos[i * 3 + d] = acc[d];
+  __syncthreads();
+  // dpos: t sums sample t / 3, dimension t % 3 over the levels in level order
+  for (int t = threadIdx.x; t < live_n * 3; t += blockDim.x) {
+    float acc = 0.0f;
+    for (int l = 0; l < L; ++l) acc = __fadd_rn(acc, part[l * 96 + t]);
+    dpos[i0 * 3 + t] = acc;
+  }
+}
+
+// K2g's kernel for a table type, a load width V and the entries' form.
+template <bool kChunked>
+GenBwdKernel gen_bwd_kernel(int table_bf16, int V) {
+  if (table_bf16)
+    return V == 4   ? &encode_bwd_f_kernel<true, 4, kChunked>
+           : V == 2 ? &encode_bwd_f_kernel<true, 2, kChunked>
+                    : &encode_bwd_f_kernel<true, 1, kChunked>;
+  return V == 4   ? &encode_bwd_f_kernel<false, 4, kChunked>
+         : V == 2 ? &encode_bwd_f_kernel<false, 2, kChunked>
+                  : &encode_bwd_f_kernel<false, 1, kChunked>;
 }
 
 }  // namespace
@@ -488,22 +685,43 @@ int blocked_encode_fwd_f(const float* pos, const void* table, int table_bf16,
 }
 
 // K2g. gfeat (n, L*F) f32; dpos (n, 3) f32 (written); dtable (rows, W) f32
-// (added into: the caller passes zeros).
+// (added into: the caller passes zeros). The table's loads take V = 4, 2 or
+// 1 values at once: the largest that divides F and W and to whose width
+// the table is aligned. The block stages the cotangent where a warp's
+// layout with it fits in 227 KB, and takes as many warps as levels (at
+// most kGenBwdWarps) as far as 48 KB allows; one warp that needs more opts
+// in to it. Returns cudaErrorInvalidValue where even one warp's layout
+// without the staged cotangent does not fit (some 600 levels).
 int blocked_encode_bwd_f(const float* pos, const void* table, int table_bf16,
                          const float* scale, const int* lvl, const float* gfeat, float* dpos,
                          float* dtable, int n, int L, int F, int W, unsigned int hash_mask,
                          void* stream) {
   if (n == 0) return 0;
   if (L < 1 || F < 1 || W < 27 * F) return (int)cudaErrorInvalidValue;
-  const unsigned int blocks = (unsigned int)((n + kGenBwdThreads - 1) / kGenBwdThreads);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int4* lv = reinterpret_cast<const int4*>(lvl);
-  if (table_bf16)
-    encode_bwd_f_kernel<true><<<blocks, kGenBwdThreads, 0, s>>>(
-        pos, table, scale, lv, gfeat, dpos, dtable, n, L, F, W, hash_mask);
-  else
-    encode_bwd_f_kernel<false><<<blocks, kGenBwdThreads, 0, s>>>(
-        pos, table, scale, lv, gfeat, dpos, dtable, n, L, F, W, hash_mask);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(table);
+  const int elt = table_bf16 ? 2 : 4;
+  int V = 4;
+  while (V > 1 && (F % V || W % V || at % (V * elt))) V /= 2;
+  // as many warps as fit in 48 KB (or one, in as much as it needs), then
+  // as few as take the same levels a warp
+  const int most = L < kGenBwdWarps ? L : kGenBwdWarps;
+  bool staged = gen_bwd_words(L, F, 1, true) * 4 <= kSmemOptIn;
+  if (gen_bwd_words(L, F, 1, staged) * 4 > kSmemOptIn) return (int)cudaErrorInvalidValue;
+  int warps = most;
+  while (warps > 1 && gen_bwd_words(L, F, warps, staged) * 4 > 48 * 1024) --warps;
+  warps = (L + (L + warps - 1) / warps - 1) / ((L + warps - 1) / warps);
+  const size_t smem = gen_bwd_words(L, F, warps, staged) * 4;
+  GenBwdKernel kernel = F > kGenChunk ? gen_bwd_kernel<true>(table_bf16, V)
+                                      : gen_bwd_kernel<false>(table_bf16, V);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned int blocks = (unsigned int)((n + 31) / 32);
+  kernel<<<blocks, 32 * warps, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      pos, table, scale, reinterpret_cast<const int4*>(lvl), gfeat, dpos, dtable, n, L, F, W,
+      hash_mask, staged ? 1 : 0);
   return (int)cudaGetLastError();
 }
 

@@ -85,18 +85,34 @@
 // at any F (features a level) other than 2: the JAX package's ngp branch and
 // take_cols take any F. The table is (L_all*T, F) row-major, F an argument,
 // so every F >= 1 works. They are bound as K7a/K7b are, by scattered
-// requests: 8 vertices of F values a sample-level, and 8F atomics in the
-// backward. The design is the simple one:
-// - K7ag: one thread a (sample, level), thread t = sample t / Lw, level
-//   t % Lw, so a warp's F-wide outputs are one contiguous run. Keys and
-//   weights come from K7b's `cube` and `corner` (JAX's bits), and feature
-//   f is the 8 corners added in the plain forward's order (the first
-//   term, then the others with __fadd_rn): the plain version's bits at any
-//   shape, as K7a gives them at F = 2.
-// - K7bg: one thread a sample walking its levels in order, as K7b: dpos
-//   summed in registers (the same bits from call to call), the table
-//   gradient as 8F scalar f32 atomics a sample-level (none where the
-//   corner's weight is 0), adding in no fixed order.
+// requests: 8 vertices of F values a sample-level, and 8F updates in the
+// backward.
+// - K7ag (the simple design): one thread a (sample, level), thread
+//   t = sample t / Lw, level t % Lw, so a warp's F-wide outputs are one
+//   contiguous run. Keys and weights come from K7b's `cube` and `corner`
+//   (JAX's bits), and feature f is the 8 corners added in the plain
+//   forward's order (the first term, then the others with __fadd_rn): the
+//   plain version's bits at any shape, as K7a gives them at F = 2.
+// - K7bg is K7b's design at any F. It keeps one thread a sample walking
+//   its levels in order (faster for K7b than a thread a (sample, level):
+//   the samples resident at once work on about one level, so the working
+//   set is a level of the 64 MiB table and of its 64 MiB gradient, not all
+//   of both against the 50 MB L2), with dpos summed in registers. Its first
+//   design sent 8F scalar atomics a sample-level and loaded a corner as F
+//   scalars, reading its cotangent strided by Lw F floats across a warp
+//   (2.1x slower at F = 4, PERF.md §6). Now the block's cotangent is
+//   staged in shared memory, read coalesced, and a corner's F values are
+//   loaded and added into the gradient V at a time: V = 4 (a float4 load
+//   and Hopper's float4 atomicAdd on global memory), 2 (float2) or 1, the
+//   largest that divides F and to whose width the table and the gradient
+//   are aligned, chosen a launch. At F = 4 that is 8 vector loads and 8
+//   float4 atomics a sample-level against the first design's 32 and 32;
+//   F = 1 and 3 stay scalar. The 8 corners' loads of a step are in flight
+//   together.
+//   dpos keeps the first design's arithmetic (a corner's features in
+//   order, the chain rule over the corners in order, the levels in order),
+//   so it has the first design's bits, the same from call to call; the
+//   atomics add in no fixed order (none where the corner's weight is 0).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -345,24 +361,127 @@ __global__ void __launch_bounds__(kGenFwdThreads)
   }
 }
 
-// K7bg: thread i takes sample i at every window level, in level order.
-template <bool kBF16>
+// Values e .. e + V - 1 of the table as f32: one load of V values (the
+// caller keeps e a multiple of V and the table aligned to V values).
+template <bool kBF16, int V>
+__device__ __forceinline__ void load_vec(const void* __restrict__ table, long e, float v[V]) {
+  if constexpr (kBF16) {
+    const unsigned short* p = reinterpret_cast<const unsigned short*>(table) + e;
+    if constexpr (V == 4) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      v[0] = __uint_as_float(u.x << 16);
+      v[1] = __uint_as_float(u.x & 0xffff0000u);
+      v[2] = __uint_as_float(u.y << 16);
+      v[3] = __uint_as_float(u.y & 0xffff0000u);
+    } else if constexpr (V == 2) {
+      const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+      v[0] = __uint_as_float(u << 16);
+      v[1] = __uint_as_float(u & 0xffff0000u);
+    } else {
+      v[0] = __uint_as_float((uint32_t)__ldg(p) << 16);
+    }
+  } else {
+    const float* p = reinterpret_cast<const float*>(table) + e;
+    if constexpr (V == 4) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+    } else if constexpr (V == 2) {
+      const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+      v[0] = f.x, v[1] = f.y;
+    } else {
+      v[0] = __ldg(p);
+    }
+  }
+}
+
+// dtable[e .. e + V - 1] += v: one float4 (V = 4) or float2 atomic, which
+// Hopper runs on global memory, or a scalar one.
+template <int V>
+__device__ __forceinline__ void atomic_add_vec(float* p, const float v[V]) {
+  if constexpr (V == 4)
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  else if constexpr (V == 2)
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  else
+    atomicAdd(p, v[0]);
+}
+
+constexpr int kGenStageLd = kBwdSamples + 1;  // K7bg: the staged cotangent's row stride
+constexpr size_t kSmemOptIn = 232448;  // the H100's most shared memory a block (227 KB)
+
+using GenBwdKernel = void (*)(const float*, const void*, const float*, const float*, float*,
+                              float*, int, int, int, int, int, int);
+
+// K7bg: thread k of block b takes sample 64b + k at every window level, in
+// level order, as K7b. A level's 8 corners are loaded V values at a time,
+// the 8 loads of a step in flight together; d loss / d (a corner's weight)
+// sums its features in order and the chain rule takes the corners in
+// order (the first design's arithmetic, so dpos keeps its bits); the
+// updates go into dtable V at a time. The cotangent of sample k, level l, feature f is
+// g[(l F + f) gs + k gk]: staged in shared memory, read coalesced (gs =
+// kGenStageLd, gk = 1), or, where it does not fit, read from gfeat (gs = 1,
+// gk = L F).
+template <bool kBF16, int V>
 __global__ void __launch_bounds__(kBwdSamples)
     ngp_bwd_f_kernel(const float* __restrict__ pos, const void* __restrict__ table,
                      const float* __restrict__ scale, const float* __restrict__ gfeat,
                      float* __restrict__ dpos, float* __restrict__ dtable, int n, int L, int F,
-                     int lo, int log2_T) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                     int lo, int log2_T, int staged) {
+  extern __shared__ float g_stage[];  // (L F, kGenStageLd) where staged
+  const long i0 = (long)blockIdx.x * kBwdSamples;
+  const int live = (int)min((long)kBwdSamples, (long)n - i0);
+  const int LF = L * F;
+  const float* g = gfeat + i0 * LF;
+  int gs = 1, gk = LF;
+  if (staged) {  // read coalesced, stored transposed
+    for (int e = threadIdx.x; e < live * LF; e += blockDim.x) {
+      const int k = e / LF;
+      g_stage[(e - k * LF) * kGenStageLd + k] = __ldg(gfeat + i0 * LF + e);
+    }
+    g = g_stage, gs = kGenStageLd, gk = 1;
+  }
+  __syncthreads();
+  const int k = threadIdx.x;
+  if (k >= live) return;
   const uint32_t mask = (1u << log2_T) - 1u;
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int l = 0; l < L; ++l) {
     const float sc = __ldg(scale + l);
     int b[3];
     float w[3];
-    cube(pos, i, sc, b, w);
-    const float* g = gfeat + (i * L + l) * F;
+    cube(pos, i0 + k, sc, b, w);
+    const float* gl = g + (long)l * F * gs + (long)k * gk;  // gl[f gs]: feature f
     const long base = (long)(lo + l) << log2_T;
+    long e[8];  // the corners' first values
+    float wt[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) e[c] = corner(c, b, w, mask, base, &wt[c]) * F;
+    // d loss / d weight of each corner, its features in order
+    float dW[8];
+    {
+      float t[8][V];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) load_vec<kBF16, V>(table, e[c], t[c]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float gf = gl[j * gs];
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          dW[c] = j ? __fadd_rn(dW[c], __fmul_rn(t[c][j], gf)) : __fmul_rn(t[c][j], gf);
+      }
+    }
+    for (int f = V; f < F; f += V) {
+      float t[8][V];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) load_vec<kBF16, V>(table, e[c] + f, t[c]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float gf = gl[(f + j) * gs];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) dW[c] = __fadd_rn(dW[c], __fmul_rn(t[c][j], gf));
+      }
+    }
+    // the chain rule through (wx' * wy') * wz' as K7b takes it
     const float u[3][2] = {{__fsub_rn(1.0f, w[0]), w[0]},
                            {__fsub_rn(1.0f, w[1]), w[1]},
                            {__fsub_rn(1.0f, w[2]), w[2]}};
@@ -370,29 +489,34 @@ __global__ void __launch_bounds__(kBwdSamples)
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const int cx = c >> 2, cy = (c >> 1) & 1, cz = c & 1;
-      float wt;
-      const long e = corner(c, b, w, mask, base, &wt) * F;
-      // d loss / d weight of this corner, its features in order
-      float dW = __fmul_rn(load_value<kBF16>(table, e), __ldg(g));
-      for (int f = 1; f < F; ++f)
-        dW = __fadd_rn(dW, __fmul_rn(load_value<kBF16>(table, e + f), __ldg(g + f)));
-      // the chain rule through (wx' * wy') * wz' as K7b takes it
       const float ux = u[0][cx], uy = u[1][cy], uz = u[2][cz];
-      const float dxy = __fmul_rn(dW, uz);
+      const float dxy = __fmul_rn(dW[c], uz);
       const float term[3] = {__fmul_rn(dxy, uy), __fmul_rn(dxy, ux),
-                             __fmul_rn(dW, __fmul_rn(ux, uy))};
+                             __fmul_rn(dW[c], __fmul_rn(ux, uy))};
       const int bit[3] = {cx, cy, cz};
 #pragma unroll
       for (int d = 0; d < 3; ++d)
         dw[d] = bit[d] ? __fadd_rn(dw[d], term[d]) : __fsub_rn(dw[d], term[d]);
-      if (wt != 0.0f)
-        for (int f = 0; f < F; ++f) atomicAdd(dtable + e + f, __fmul_rn(__ldg(g + f), wt));
+    }
+    // the updates, none where a corner's weight is 0
+    for (int f = 0; f < F; f += V) {
+      float gf[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) gf[j] = gl[(f + j) * gs];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (wt[c] != 0.0f) {
+          float upd[V];
+#pragma unroll
+          for (int j = 0; j < V; ++j) upd[j] = __fmul_rn(gf[j], wt[c]);
+          atomic_add_vec<V>(dtable + e[c] + f, upd);
+        }
     }
 #pragma unroll
     for (int d = 0; d < 3; ++d) acc[d] = __fadd_rn(acc[d], __fmul_rn(dw[d], sc));
   }
 #pragma unroll
-  for (int d = 0; d < 3; ++d) dpos[i * 3 + d] = acc[d];
+  for (int d = 0; d < 3; ++d) dpos[(i0 + k) * 3 + d] = acc[d];
 }
 
 }  // namespace
@@ -465,20 +589,37 @@ int ngp_encode_fwd_f(const float* pos, const void* table, int table_bf16, const 
 }
 
 // K7bg. gfeat (n, L*F) f32; dpos (n, 3) f32 (written); dtable (L_all*T, F)
-// f32 (added into: the caller passes zeros).
+// f32 (added into: the caller passes zeros). A corner's values go V = 4, 2
+// or 1 at a time: the largest V that divides F and to whose width both the
+// table and dtable are aligned. The block's cotangent is staged in shared
+// memory (past 48 KB by opting in) where it fits in 227 KB, else read from
+// gfeat.
 int ngp_encode_bwd_f(const float* pos, const void* table, int table_bf16, const float* scale,
                      const float* gfeat, float* dpos, float* dtable, int n, int L, int F, int lo,
                      int log2_T, void* stream) {
   if (n == 0) return 0;
   if (L < 1 || F < 1 || lo < 0 || log2_T < 1 || log2_T > 30) return (int)cudaErrorInvalidValue;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(table), ad = reinterpret_cast<uintptr_t>(dtable);
+  const int elt = table_bf16 ? 2 : 4;
+  int V = 4;
+  while (V > 1 && (F % V || at % (V * elt) || ad % (V * 4))) V /= 2;
+  const size_t staged_bytes = (size_t)L * F * kGenStageLd * sizeof(float);
+  const bool staged = staged_bytes <= kSmemOptIn;
+  const size_t smem = staged ? staged_bytes : 0;
+  GenBwdKernel kernel = table_bf16 ? (V == 4   ? &ngp_bwd_f_kernel<true, 4>
+                                     : V == 2 ? &ngp_bwd_f_kernel<true, 2>
+                                              : &ngp_bwd_f_kernel<true, 1>)
+                                   : (V == 4   ? &ngp_bwd_f_kernel<false, 4>
+                                     : V == 2 ? &ngp_bwd_f_kernel<false, 2>
+                                              : &ngp_bwd_f_kernel<false, 1>);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   const unsigned int blocks = (unsigned int)((n + kBwdSamples - 1) / kBwdSamples);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (table_bf16)
-    ngp_bwd_f_kernel<true><<<blocks, kBwdSamples, 0, s>>>(pos, table, scale, gfeat, dpos, dtable,
-                                                         n, L, F, lo, log2_T);
-  else
-    ngp_bwd_f_kernel<false><<<blocks, kBwdSamples, 0, s>>>(pos, table, scale, gfeat, dpos,
-                                                          dtable, n, L, F, lo, log2_T);
+  kernel<<<blocks, kBwdSamples, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      pos, table, scale, gfeat, dpos, dtable, n, L, F, lo, log2_T, staged ? 1 : 0);
   return (int)cudaGetLastError();
 }
 

@@ -408,3 +408,37 @@ def composite_shapes(calls: dict, seed: int = 9) -> dict:
                torch.randn((m, 1), generator=rng, device=dev))
         shapes[key] = (a, cot)
     return shapes
+
+
+# the generic encode kernels' uniform shape: the badnerf and flagship
+# presets' 3512 rays x 16 samples, at FEATURES_4's 8 levels
+GENERIC_SAMPLES = 3512 * 16
+
+
+def generic_encode_uniform(features, device=None):
+    """K1g/K2g's and K7ag/K7bg's inputs on GENERIC_SAMPLES uniform
+    positions at 8 levels of each F in `features`, drawn from seed 0 on
+    `device` one (layout, F) at a time: yields (layout, F, positions,
+    table, cotangent, levels), the blocked layout's full-width grid with a
+    U(-1, 1) bf16 table, then the ngp layout's 8 levels of 2^19 entries
+    with an f32 one."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    pos = torch.rand((GENERIC_SAMPLES, 3), generator=gen, device=device)
+    for layout, dtype in (("blocked", torch.bfloat16), ("ngp", torch.float32)):
+        for F in features:
+            hcfg = he.HashEncodingConfig(layout=layout, num_levels=8, features_per_level=F)
+            table = (torch.rand(hcfg.table_shape, generator=gen, device=device) * 2 - 1).to(dtype)
+            gfeat = torch.randn((GENERIC_SAMPLES, hcfg.out_dim), generator=gen, device=device)
+            yield layout, F, pos, table, gfeat, he.levels_for(hcfg, device)
+
+
+def generic_encode_steps(device=None) -> dict:
+    """The generic encode backwards' arguments in one real step 0 of each
+    FEATURES_4 path: {"blocked": the flagship's (K2g), "ngp": badnerf ngp
+    f32's (K7bg)}, each (positions, table, cotangent, levels)."""
+    flag = preset_trainer("lsenerf", False, device, hash_fields=FEATURES_4)
+    blocked = step_encode_inputs(trainer=flag)
+    del flag
+    bad = preset_trainer("badnerf", device=device, hash_layout="ngp", compute_dtype="float32",
+                         hash_fields=FEATURES_4)
+    return {"blocked": blocked, "ngp": ngp_encode_calls(trainer=bad)["step"]}

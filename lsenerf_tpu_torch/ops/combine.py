@@ -169,9 +169,8 @@ def build():
     return cuda_build.build(SOURCE)
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = cuda_build.load(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built blocked_encode library's entries."""
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.blocked_encode_fwd.argtypes = [p, p, i, p, p, p, i, i, u, p]
     lib.blocked_encode_fwd.restype = i
@@ -182,6 +181,11 @@ def _library():
     lib.blocked_encode_bwd_f.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, u, p]
     lib.blocked_encode_bwd_f.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return bind(cuda_build.load(SOURCE))
 
 
 _TABLE_TYPES = (torch.bfloat16, torch.float32)

@@ -3,7 +3,7 @@ JAX package on the CPU, in both layouts: the plain versions of K1g/K2g
 (ops/combine.py) and K7ag/K7bg (ops/ngp.py), which the wrappers run on CPU
 tensors.
 
-- `hash_encode` at F in {1, 3, 4, 8}, with an f32 and a bf16 gather:
+- `hash_encode` at F in {1, 3, 4, 6, 8}, with an f32 and a bf16 gather:
   values, table gradient and position gradient against JAX's `hash_encode`
   and `jax.grad` (the blocked layout with the Pallas combine P1/P2 in
   interpret mode, which take F as a parameter);
@@ -46,7 +46,7 @@ from lsenerf_tpu_torch.ops import hash_encoding as the
 
 import torch_parity
 
-FEATURES = [1, 3, 4, 8]
+FEATURES = [1, 3, 4, 6, 8]
 
 
 def _inputs(jcfg, tcfg, seed, n=193):
@@ -133,7 +133,7 @@ def test_encode_matches_jax(layout, F, dtype):
 
 @pytest.mark.parametrize("F", FEATURES)
 def test_config_shapes_match_jax(F):
-    """Row width (32, 96, 128, 224), table shapes and out_dim as JAX's, in
+    """Row width (32, 96, 128, 192, 224), table shapes and out_dim as JAX's, in
     both layouts; init_hash_table makes the table of that shape."""
     for layout in ("blocked", "ngp"):
         jcfg, tcfg = torch_parity.hash_configs("float32", layout, features_per_level=F)
@@ -145,7 +145,7 @@ def test_config_shapes_match_jax(F):
             assert tcfg.table_shape == (tcfg.num_levels * tcfg.table_size, F)
         else:
             assert tcfg.table_shape == (int(jcfg.blocked_level_rows().sum()), jcfg.blocked_row_width)
-    assert {1: 32, 3: 96, 4: 128, 8: 224}[F] == tcfg.blocked_row_width
+    assert {1: 32, 3: 96, 4: 128, 6: 192, 8: 224}[F] == tcfg.blocked_row_width
 
 
 def test_features_per_level_must_be_positive():

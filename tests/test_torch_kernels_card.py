@@ -1,8 +1,10 @@
 """The port's kernels against their plain PyTorch versions on the card: K1
 and K2 (lsenerf_tpu_torch/ops/combine.py) and K7a and K7b
 (lsenerf_tpu_torch/ops/ngp.py, with level windows; K7a bit for bit), and
-the generic K1g/K2g and K7ag/K7bg at features_per_level 1, 3, 4 and 8
-(K7ag bit for bit), in an f32-table and a bf16-table arm, also where many samples of a warp share rows (one cell, rays), at the
+the generic K1g/K2g and K7ag/K7bg at features_per_level 1, 3, 4, 6, 8,
+16, 20 and 400 (K7ag bit for bit; K2g's and K7bg's dpos the bits of their first
+design's arithmetic, also from a table view off their vector loads'
+alignment), in an f32-table and a bf16-table arm, also where many samples of a warp share rows (one cell, rays), at the
 flagship's 16 levels (16 and 48 samples a ray) and at 2 and 3 levels, and
 the gathers G1-G3 (lsenerf_tpu_torch/ops/gather.py), held to exact
 equality, G2 at the shapes that pick each of its paths and G3 at several
@@ -308,17 +310,139 @@ def _generic_check(layout, cfg, kind, n, dtype, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("F", [1, 3, 4, 8])
+@pytest.mark.parametrize("F", [1, 3, 4, 6, 8, 16])
 @pytest.mark.parametrize("layout", ["blocked", "ngp"])
 def test_generic_encode_matches_plain_on_card(layout, F, dtype):
     """K1g/K2g and K7ag/K7bg, which the wrappers launch at F != 2, against
     their plain versions (K7ag bit for bit; the rest with K1/K2's and
     K7b's tolerances), at L = 5 for each kind of positions and at 8 levels
-    of the full-width grid along rays (56,192 samples, less 7)."""
+    of the full-width grid along rays (56,192 samples, less 7). F = 6 takes
+    K7bg's float2 width, F = 16 four float4s a corner and fewer K2g warps
+    than levels."""
     dev = _card()
     for kind, n in GENERIC_KINDS[layout]:
         _generic_check(layout, _generic_cfg(layout, F), kind, n, dtype, dev)
     _generic_check(layout, _generic_cfg(layout, F, full=True), "rays", 56_192 - 7, dtype, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [20, 400])
+@pytest.mark.parametrize("layout", ["blocked", "ngp"])
+def test_generic_encode_at_wide_F_on_card(layout, F, dtype):
+    """The generic kernels past the common widths, at L = 5: F = 20 takes
+    K2g's entries in three feature chunks (8, 8, 4); F = 400 leaves both
+    backwards' cotangent unstaged (it outgrows a block's shared memory)."""
+    dev = _card()
+    for kind, n in GENERIC_KINDS[layout][:2]:
+        _generic_check(layout, _generic_cfg(layout, F), kind, n, dtype, dev)
+
+
+def _scalar_design_dpos(layout, p, tab, gg, lv):
+    """dpos as the first design of K2g and K7bg (a thread a sample)
+    computed it, op by op in f32 (torch's elementwise kernels round each
+    product and each sum, as __fmul_rn and __fadd_rn do): levels in order,
+    corners in order, a corner's d loss / d weight over its features in
+    order, the chain rule, and the level terms added from 0 in level
+    order."""
+    n, L = p.shape[0], lv.num
+    zero = torch.zeros(n, device=p.device)
+    acc = [zero] * 3
+    if layout == "blocked":
+        F = lv.F
+        keys, o, w = combine.keys_fracs(p, lv)
+        g = gg.reshape(n, L, F)
+        for l in range(L):
+            u = [(1.0 - w[d][l], w[d][l]) for d in range(3)]
+            du = [[zero, zero] for _ in range(3)]
+            row = tab[keys[l]]
+            for c in range(8):
+                a, b, z = c >> 2, (c >> 1) & 1, c & 1
+                v = ((o[0][l] + a) * 3 + o[1][l] + b) * 3 + o[2][l] + z
+                vals = row.gather(1, v[:, None] * F + torch.arange(F, device=p.device)).float()
+                gv = zero
+                for f in range(F):
+                    gv = gv + vals[:, f] * g[:, l, f]
+                du[0][a] = du[0][a] + (gv * u[1][b]) * u[2][z]
+                du[1][b] = du[1][b] + (gv * u[0][a]) * u[2][z]
+                du[2][z] = du[2][z] + (gv * u[0][a]) * u[1][b]
+            for d in range(3):
+                acc[d] = acc[d] + (du[d][1] - du[d][0]) * lv.scale[l]
+        return torch.stack(acc, 1)
+    F = tab.shape[1]
+    keys, _, w = ngp.corners(p, lv)
+    g = gg.reshape(n, L, F)
+    for l in range(L):
+        u = [(1.0 - w[d][l], w[d][l]) for d in range(3)]
+        dw = [zero] * 3
+        for c in range(8):
+            bits = (c >> 2, (c >> 1) & 1, c & 1)
+            vals = tab[keys[c, l]].float()
+            dW = vals[:, 0] * g[:, l, 0]
+            for f in range(1, F):
+                dW = dW + vals[:, f] * g[:, l, f]
+            ux, uy, uz = (u[d][bits[d]] for d in range(3))
+            dxy = dW * uz
+            for d, term in enumerate((dxy * uy, dxy * ux, dW * (ux * uy))):
+                dw[d] = dw[d] + term if bits[d] else dw[d] - term
+        for d in range(3):
+            acc[d] = acc[d] + dw[d] * lv.scale[l]
+    return torch.stack(acc, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [1, 3, 4, 6])
+@pytest.mark.parametrize("layout", ["blocked", "ngp"])
+def test_generic_bwd_dpos_keeps_its_first_designs_bits_on_card(layout, F, dtype):
+    """K2g and K7bg keep their first design's per-level arithmetic and add the level
+    terms in level order: dpos is the bits of that arithmetic, whatever
+    the warp layout, vector width or staging."""
+    dev = _card()
+    mod = combine if layout == "blocked" else ngp
+    cfg = _generic_cfg(layout, F)
+    for kind, n in GENERIC_KINDS[layout]:
+        rng = np.random.default_rng(13)
+        p = torch.from_numpy(_positions(kind, n, rng)).to(dev)
+        tab = torch.from_numpy(rng.standard_normal(cfg.table_shape).astype(np.float32)).to(dev, dtype)
+        gg = torch.from_numpy(rng.standard_normal((n, cfg.out_dim)).astype(np.float32)).to(dev)
+        lv = the.levels_for(cfg, "cuda")
+        dpos, _ = mod.encode_bwd(p, tab, gg, lv)
+        want = _scalar_design_dpos(layout, p, tab, gg, lv)
+        assert torch.equal(dpos.view(torch.int32), want.view(torch.int32)), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["blocked", "ngp"])
+def test_generic_bwd_takes_an_unaligned_table_on_card(layout, dtype):
+    """A table view that starts 1 or 2 values past an aligned boundary (off
+    the 16 bytes of K7bg's float4 and K2g's vector loads) goes through the
+    kernel at a narrower vector width: the launch is counted, the result
+    holds the plain version, and dpos is the aligned table's bits."""
+    dev = _card()
+    mod = combine if layout == "blocked" else ngp
+    kb = combine.K2G if layout == "blocked" else ngp.K7BG
+    cfg = _generic_cfg(layout, 4)
+    rng = np.random.default_rng(14)
+    n = 4099
+    p = torch.from_numpy(_positions("uniform", n, rng)).to(dev)
+    tab = torch.from_numpy(rng.standard_normal(cfg.table_shape).astype(np.float32)).to(dev, dtype)
+    gg = torch.from_numpy(rng.standard_normal((n, cfg.out_dim)).astype(np.float32)).to(dev)
+    lv = the.levels_for(cfg, "cuda")
+    dpos, _ = mod.encode_bwd(p, tab, gg, lv)
+    wdpos, wdtab = mod.encode_bwd_plain(p, tab, gg, lv)
+    for off in (1, 2):
+        view = torch.empty(tab.numel() + off, dtype=dtype, device=dev)[off:].view(tab.shape)
+        view.copy_(tab)
+        assert view.data_ptr() % 16 != 0
+        before = kb.launches
+        got, gtab = mod.encode_bwd(p, view, gg, lv)
+        torch.cuda.synchronize()
+        assert kb.launches == before + 1, "not the kernel"
+        assert torch.equal(got.view(torch.int32), dpos.view(torch.int32))
+        torch.testing.assert_close(got, wdpos, rtol=1e-4, atol=1e-6 * float(wdpos.abs().max()))
+        torch.testing.assert_close(gtab, wdtab, rtol=0, atol=1e-5 * float(wdtab.abs().max()))
 
 
 @pytest.mark.cuda
