@@ -39,7 +39,9 @@ Phases, each fatal on failure (exit code 1):
      uniform positions, 8 levels; K7ag bit for bit), and at F = 4 on one
      real step of each 4v path, each timed warm, with a cold L2 and beside
      its bound, K2g and K7bg beside their L2 atomic requests a launch as
-     gbwd_compare.requests works them out from the designs;
+     gbwd_compare.requests works them out from the designs, K1g and K7ag
+     beside their table loads' L1 wavefronts and L2 sector requests
+     (gbwd_compare.fwd_requests);
      and two more small steps (3b), 8 levels of F = 4 in each layout;
   3d. K3 (march_ts, csrc/march.cu) against march_ts_plain at the flagship
      trainer's real march inputs (flagship.march_composite_calls: step
@@ -672,6 +674,12 @@ def check_generic_encode(name, layout, pos, table, gfeat, lv):
           f"measured): {new} ({new / m:.2f} a sample-level; the first design's scalar atomics "
           f"{scalar}, {scalar / m:.2f}): {new / ms / 1e6:.1f} G requests/s at "
           f"{ms:.5f} ms on the device")
+    (w0, s0), (w1, s1) = gbwd_compare.fwd_requests(layout, pos, table, lv)
+    ms = res[kf.name]["device_ms"]
+    print(f"{kf.name} table loads a launch at {name}, worked out from the designs (not measured): "
+          f"a thread a sample-level, {w0} L1 wavefronts and {s0} L2 sector requests ({s0 / m:.2f} "
+          f"a sample-level); this design, {w1} and {s1} ({s1 / m:.2f}): {s1 / ms / 1e6:.1f} G "
+          f"sector requests/s at {ms:.5f} ms on the device")
     return res
 
 
@@ -2363,11 +2371,11 @@ def tiny_golden(card: str, device=None):
 STATUS = {
     "blocked_encode_fwd": "redesigned",
     "blocked_encode_bwd": "redesigned",
-    "blocked_encode_fwd_f": "ported",
+    "blocked_encode_fwd_f": "redesigned",
     "blocked_encode_bwd_f": "redesigned",
     "ngp_encode_fwd": "redesigned",
     "ngp_encode_bwd": "redesigned",
-    "ngp_encode_fwd_f": "ported",
+    "ngp_encode_fwd_f": "redesigned",
     "ngp_encode_bwd_f": "redesigned",
     "march_ts": "redesigned",
     "composite_fwd": "redesigned",

@@ -87,12 +87,26 @@
 // take F as a parameter). F and W are arguments, so every F >= 1 works.
 // They are bound by the same two rates as K1 and K2, scattered row loads
 // and scattered atomics, now 8F values and 8F updates a sample-level.
-// - K1g (the simple design): one thread a (sample, level), thread
-//   t = sample t / L, level t % L, so a warp's F-wide outputs are one
-//   contiguous run. Keys and fractions come from K1's level_key (the same
-//   keys, bit for bit). It adds the 8 vertices of the cube in slot order,
-//   weights (ux * uy) * uz as the plain version forms them: the plain
-//   version's 27-term sum less the 19 terms whose weight is exactly 0.
+// - K1g is K1's design at any F. Its first design gave a thread a
+//   (sample, level) (thread t: sample t / L, level t % L) with 8F scalar
+//   loads of its cube, every level live at once (PERF.md §6 has both
+//   designs' times). Now, as K1: a block takes 32 neighbouring samples at
+//   every level, in up to kGenFwdWarps warps that each take every
+//   warps-th level; lane k works out sample k's key, first vertex and
+//   fractions with level_key (the same keys); then each group of 4 lanes
+//   takes one sample of 8 in each of 4 steps, lane q its (x, y) pair,
+//   whose z-neighbours are 2F contiguous values of the row. A lane loads
+//   them V values a vertex (V = 4, 2 or 1, as K2g chooses it), the 4
+//   steps' loads in flight together. (Loading a pair whose first vertex
+//   is even as one 16-byte load at F = 4 bf16, and the rest as two, was
+//   measured slower, PERF.md §6.)
+//   The group adds its 4 lanes' terms with a shuffle reduce-scatter,
+//   V features at a time, so any F works. The block's (32, L, F) output
+//   is staged in shared memory and written as 16-byte pieces; past 48 KB
+//   (L F > 381) each sum is written where it is made. Every product and
+//   sum is rounded on its own (__fmul_rn, __fadd_rn), so K1g is a fixed
+//   order of f32 operations (gbwd_compare.k1g_sums repeats it on any
+//   device): within rtol 1e-5 of the plain version's 27-term sum.
 // - K2g is K2's design at any F. Its first design, a thread a sample,
 //   sent 8F scalar atomics a sample-level, each its own L2 request (32 at
 //   F = 4), and read its cotangent strided by L F floats across a warp
@@ -344,50 +358,6 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
   }
 }
 
-constexpr int kGenFwdThreads = 128;  // K1g: threads a block, one a (sample, level)
-
-// Element e of the table as f32.
-template <bool kBF16>
-__device__ __forceinline__ float load_value(const void* __restrict__ table, long e) {
-  if (kBF16)
-    return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(table) + e)
-                           << 16);
-  return __ldg(reinterpret_cast<const float*>(table) + e);
-}
-
-// K1g: thread t takes sample t / L at level t % L; out[t * F + f] is its
-// feature f.
-template <bool kBF16>
-__global__ void __launch_bounds__(kGenFwdThreads)
-    encode_fwd_f_kernel(const float* __restrict__ pos, const void* __restrict__ table,
-                        const float* __restrict__ scale, const int4* __restrict__ lvl,
-                        float* __restrict__ out, int n, int L, int F, int W,
-                        uint32_t hash_mask) {
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)n * L) return;
-  const long i = t / L;
-  const int l = (int)(t - i * L);
-  float w[3];
-  int o[3];
-  const long row = (long)level_key(pos, i, __ldg(scale + l), __ldg(lvl + l), hash_mask, w, o) * W;
-  const float u[3][2] = {{1.0f - w[0], w[0]}, {1.0f - w[1], w[1]}, {1.0f - w[2], w[2]}};
-  long e[8];
-  float wt[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int a = c >> 2, b = (c >> 1) & 1, z = c & 1;
-    e[c] = row + (long)((((o[0] + a) * 3 + o[1] + b) * 3 + o[2] + z) * F);
-    wt[c] = __fmul_rn(__fmul_rn(u[0][a], u[1][b]), u[2][z]);
-  }
-  float* dst = out + t * F;
-  for (int f = 0; f < F; ++f) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc = __fadd_rn(acc, __fmul_rn(wt[c], load_value<kBF16>(table, e[c] + f)));
-    dst[f] = acc;
-  }
-}
-
 // Values e .. e + V - 1 of the table as f32: one load of V values (the
 // caller keeps e a multiple of V and the table aligned to V values).
 template <bool kBF16, int V>
@@ -419,6 +389,125 @@ __device__ __forceinline__ void load_vec(const void* __restrict__ table, long e,
       v[0] = __ldg(p);
     }
   }
+}
+
+constexpr int kGenFwdWarps = 4;  // K1g: warps a block at most, each taking every warps-th level
+constexpr size_t kGenFwdStage = 48 * 1024;  // K1g: most bytes a block stages its output in
+
+using GenFwdKernel = void (*)(const float*, const void*, const float*, const int4*, float*, int,
+                              int, int, int, uint32_t, int);
+
+// The sum of x over the 4 lanes of a group, lane q = 2a + b on its (x, y)
+// pair (a, b): (T(0, 0) + T(0, 1)) + (T(1, 0) + T(1, 1)) for each of V
+// features, as a reduce-scatter. Returns lane q's feature: V = 4, 2 (q & 1)
+// + (q >> 1); V = 2, q & 1; V = 1, 0.
+template <int V>
+__device__ __forceinline__ float group_sum(const float x[V], int q) {
+  const int h = q & 1;
+  if constexpr (V == 4) {
+    // the b pairs: lane q keeps features 2h, 2h + 1; then the a pairs
+    const float y0 = __fadd_rn(h ? x[2] : x[0], __shfl_xor_sync(0xffffffffu, h ? x[0] : x[2], 1));
+    const float y1 = __fadd_rn(h ? x[3] : x[1], __shfl_xor_sync(0xffffffffu, h ? x[1] : x[3], 1));
+    const int m = q >> 1;
+    return __fadd_rn(m ? y1 : y0, __shfl_xor_sync(0xffffffffu, m ? y0 : y1, 2));
+  } else if constexpr (V == 2) {
+    const float y = __fadd_rn(x[h], __shfl_xor_sync(0xffffffffu, x[1 - h], 1));
+    return __fadd_rn(y, __shfl_xor_sync(0xffffffffu, y, 2));
+  } else {
+    const float y = __fadd_rn(x[0], __shfl_xor_sync(0xffffffffu, x[0], 1));
+    return __fadd_rn(y, __shfl_xor_sync(0xffffffffu, y, 2));
+  }
+}
+
+// K1g: block b takes samples 32b .. 32b+31 at every level; warp w takes
+// levels w, w + warps, ... For each level lane k works out sample k's key,
+// first vertex and fractions (level_key: K1's keys); then in 4 steps of 8
+// samples each group of 4 lanes takes one sample, lane q = 2a + b its
+// (x, y) pair (a, b), whose z-neighbours v, v + 1 are 2F contiguous values
+// of the row. For each V features (a chunk; any F works) the lane loads
+// them V values a vertex, the 4 steps' 8 loads in flight together, weighs
+// them (ux uy) (1 - wz) and (ux uy) wz, and the group adds its 4 lanes'
+// terms (group_sum), every product and sum rounded
+// on its own (no fused multiply-add), so that the arithmetic is a fixed
+// order of f32 operations. Dynamic shared memory: the block's positions
+// (32 x 3), read once, coalesced, and, where it fits (`staged`), its chunk
+// of out (32 x L x F, contiguous), written as 16-byte pieces; else each
+// feature is written to out where it is summed.
+template <bool kBF16, int V>
+__global__ void __launch_bounds__(kGenFwdWarps * 32)
+    encode_fwd_f_kernel(const float* __restrict__ pos, const void* __restrict__ table,
+                        const float* __restrict__ scale, const int4* __restrict__ lvl,
+                        float* __restrict__ out, int n, int L, int F, int W,
+                        uint32_t hash_mask, int staged) {
+  extern __shared__ float smem[];
+  float* pos_s = smem;       // (32, 3)
+  float* out_s = smem + 96;  // (32, L, F), as in out, where staged
+  const int lane = threadIdx.x & 31;
+  const long i0 = (long)blockIdx.x * 32;
+  const int live_n = (int)min((long)32, (long)n - i0);
+  const int LF = L * F;
+  for (int e = threadIdx.x; e < live_n * 3; e += blockDim.x) pos_s[e] = __ldg(pos + i0 * 3 + e);
+  __syncthreads();
+  float* dst = staged ? out_s : out + i0 * LF;  // sample k, level l, feature f at (k L + l) F + f
+  const int q = lane & 3, a = q >> 1, b = q & 1, dv = a * 9 + b * 3;
+  const int fq = V == 4 ? 2 * b + a : V == 2 ? b : 0;  // the feature group_sum leaves lane q
+  for (int l = threadIdx.x >> 5; l < L; l += blockDim.x >> 5) {
+    float w[3] = {0.0f, 0.0f, 0.0f};
+    int o[3] = {0, 0, 0};
+    int key = 0;
+    if (lane < live_n)
+      key = level_key(pos_s, lane, __ldg(scale + l), __ldg(lvl + l), hash_mask, w, o);
+    const int v0 = (o[0] * 3 + o[1]) * 3 + o[2];
+    // step s: the group's sample k[s], its run's first value and its weights
+    int k[4];
+    long r[4];
+    float w0[4], w1[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      k[s] = s * 8 + (lane >> 2);
+      const int kk = __shfl_sync(0xffffffffu, key, k[s]);
+      const int kv = __shfl_sync(0xffffffffu, v0, k[s]);
+      const float wx = __shfl_sync(0xffffffffu, w[0], k[s]);
+      const float wy = __shfl_sync(0xffffffffu, w[1], k[s]);
+      const float wz = __shfl_sync(0xffffffffu, w[2], k[s]);
+      r[s] = (long)kk * W + (long)(kv + dv) * F;
+      const float wxy = __fmul_rn(a ? wx : __fsub_rn(1.0f, wx), b ? wy : __fsub_rn(1.0f, wy));
+      w0[s] = __fmul_rn(wxy, __fsub_rn(1.0f, wz));
+      w1[s] = __fmul_rn(wxy, wz);
+    }
+    for (int f = 0; f < F; f += V) {
+      float t[4][2][V];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) t[s][0][j] = t[s][1][j] = 0.0f;
+        if (k[s] < live_n) {
+          load_vec<kBF16, V>(table, r[s] + f, t[s][0]);
+          load_vec<kBF16, V>(table, r[s] + F + f, t[s][1]);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        float x[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          x[j] = __fadd_rn(__fmul_rn(w0[s], t[s][0][j]), __fmul_rn(w1[s], t[s][1][j]));
+        const float sum = group_sum<V>(x, q);
+        if (q < V && k[s] < live_n) dst[((long)k[s] * L + l) * F + f + fq] = sum;
+      }
+    }
+  }
+  if (!staged) return;
+  __syncthreads();
+  float* o = out + i0 * LF;  // 16-byte aligned where out is: i0 is a multiple of 32
+  const int count = live_n * LF;
+  int done = 0;
+  if (reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    done = (count >> 2) << 2;
+    for (int e = threadIdx.x; e < (count >> 2); e += blockDim.x)
+      reinterpret_cast<float4*>(o)[e] = reinterpret_cast<const float4*>(out_s)[e];
+  }
+  for (int e = done + threadIdx.x; e < count; e += blockDim.x) o[e] = out_s[e];
 }
 
 constexpr int kGenBwdWarps = 16;  // K2g: warps (levels) a block, at most
@@ -665,22 +754,34 @@ int blocked_encode_bwd(const float* pos, const void* table, int table_bf16,
 }
 
 // K1g. table (rows, W) bf16 (table_bf16=1) or f32, W >= 27 * F; out
-// (n, L*F) f32; the rest as blocked_encode_fwd.
+// (n, L*F) f32; the rest as blocked_encode_fwd. A vertex's values are
+// loaded V = 4, 2 or 1 at a time: the largest V that divides F and W and to
+// whose width the table is aligned. The block's output is staged where it
+// fits in kGenFwdStage bytes with the positions (L F <= 381), else written
+// where it is summed.
 int blocked_encode_fwd_f(const float* pos, const void* table, int table_bf16,
                          const float* scale, const int* lvl, float* out, int n, int L,
                          int F, int W, unsigned int hash_mask, void* stream) {
   if (n == 0) return 0;
   if (L < 1 || F < 1 || W < 27 * F) return (int)cudaErrorInvalidValue;
-  const long threads = (long)n * L;
-  const unsigned int blocks = (unsigned int)((threads + kGenFwdThreads - 1) / kGenFwdThreads);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int4* lv = reinterpret_cast<const int4*>(lvl);
-  if (table_bf16)
-    encode_fwd_f_kernel<true><<<blocks, kGenFwdThreads, 0, s>>>(pos, table, scale, lv, out, n,
-                                                                L, F, W, hash_mask);
-  else
-    encode_fwd_f_kernel<false><<<blocks, kGenFwdThreads, 0, s>>>(pos, table, scale, lv, out, n,
-                                                                 L, F, W, hash_mask);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(table);
+  const int elt = table_bf16 ? 2 : 4;
+  int V = 4;
+  while (V > 1 && (F % V || W % V || at % (V * elt))) V /= 2;
+  const size_t staged_bytes = (96 + (size_t)32 * L * F) * sizeof(float);
+  const bool staged = staged_bytes <= kGenFwdStage;
+  GenFwdKernel kernel = table_bf16 ? (V == 4   ? &encode_fwd_f_kernel<true, 4>
+                                     : V == 2 ? &encode_fwd_f_kernel<true, 2>
+                                              : &encode_fwd_f_kernel<true, 1>)
+                                   : (V == 4   ? &encode_fwd_f_kernel<false, 4>
+                                     : V == 2 ? &encode_fwd_f_kernel<false, 2>
+                                              : &encode_fwd_f_kernel<false, 1>);
+  const unsigned int blocks = (unsigned int)((n + 31) / 32);
+  const unsigned int threads = 32 * (L < kGenFwdWarps ? L : kGenFwdWarps);
+  kernel<<<blocks, threads, staged ? staged_bytes : 96 * sizeof(float),
+           reinterpret_cast<cudaStream_t>(stream)>>>(pos, table, scale,
+                                                     reinterpret_cast<const int4*>(lvl), out, n,
+                                                     L, F, W, hash_mask, staged ? 1 : 0);
   return (int)cudaGetLastError();
 }
 

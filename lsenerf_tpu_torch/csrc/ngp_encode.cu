@@ -87,12 +87,32 @@
 // so every F >= 1 works. They are bound as K7a/K7b are, by scattered
 // requests: 8 vertices of F values a sample-level, and 8F updates in the
 // backward.
-// - K7ag (the simple design): one thread a (sample, level), thread
-//   t = sample t / Lw, level t % Lw, so a warp's F-wide outputs are one
-//   contiguous run. Keys and weights come from K7b's `cube` and `corner`
-//   (JAX's bits), and feature f is the 8 corners added in the plain
-//   forward's order (the first term, then the others with __fadd_rn): the
-//   plain version's bits at any shape, as K7a gives them at F = 2.
+// - K7ag is K7a's design at any F. Its first design gave a thread a
+//   (sample, level) (thread t: sample t / Lw, level t % Lw) and loaded a
+//   corner as F scalars in a loop on the runtime F: 8F loads a
+//   sample-level, 8 in flight, about one L2 request each; every level live
+//   at once (a warp on 4 samples x 8 levels), so that the working set was
+//   the whole 64 MiB f32 table at 8 levels of 2^19 x 4; positions read
+//   strided, once a level. Now, as K7a: a warp takes one level over 32
+//   consecutive samples, and the grid runs level group by level group, so
+//   that the blocks resident at once read a few levels of the table, not
+//   all; positions are staged in shared memory. A corner's F values are
+//   loaded V at a time (V = 4, 2 or 1, the largest that divides F and to
+//   whose width the table is aligned, chosen a launch as K7bg chooses it):
+//   8 float4 loads a sample-level at F = 4 f32 against 32 scalars, the 8
+//   corners' loads of two steps in flight together. Where 2F values fit in
+//   one aligned load of at most 16 bytes (F = 1, F = 4 bf16), a cube whose
+//   base x is even loads its x-pair h, h ^ 1 as one, as K7a. The block's
+//   (64, levels, F) output is staged in shared memory and written out
+//   contiguous, 16 bytes a store where F allows; past 48 KB (F > 94 at 2
+//   levels a block) each lane writes its values from registers. Keys,
+//   weights and the order of the corner sum are the first design's, so
+//   the output is the plain version's bits at any shape. The block shape
+//   and the register cap were chosen on the card (PERF.md §6, which has
+//   both designs' times): 64 samples x 2 levels beat 4 levels at every F
+//   tried but F = 6 (2% slower there) and 1 level at every F; a cap of
+//   128 registers a thread beat 64 and 255; two steps' loads in flight
+//   beat one at F = 3, 8 and 16 and tied elsewhere.
 // - K7bg is K7b's design at any F. It keeps one thread a sample walking
 //   its levels in order (faster for K7b than a thread a (sample, level):
 //   the samples resident at once work on about one level, so the working
@@ -320,54 +340,22 @@ __global__ void __launch_bounds__(kBwdSamples)
   for (int d = 0; d < 3; ++d) dpos[(i0 + k) * 3 + d] = acc[d];
 }
 
-constexpr int kGenFwdThreads = 128;  // K7ag: threads a block, one a (sample, level)
-
-// Element e of the table as f32.
-template <bool kBF16>
-__device__ __forceinline__ float load_value(const void* __restrict__ table, long e) {
-  if (kBF16)
-    return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(table) + e)
-                           << 16);
-  return __ldg(reinterpret_cast<const float*>(table) + e);
-}
-
-// K7ag: thread t takes sample t / L at window level t % L; out[t * F + f]
-// is its feature f.
-template <bool kBF16>
-__global__ void __launch_bounds__(kGenFwdThreads)
-    ngp_fwd_f_kernel(const float* __restrict__ pos, const void* __restrict__ table,
-                     const float* __restrict__ scale, float* __restrict__ out, int n, int L,
-                     int F, int lo, int log2_T) {
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)n * L) return;
-  const long i = t / L;
-  const int l = (int)(t - i * L);
-  int b[3];
-  float w[3];
-  cube(pos, i, __ldg(scale + l), b, w);
-  const uint32_t mask = (1u << log2_T) - 1u;
-  const long base = (long)(lo + l) << log2_T;
-  long e[8];
-  float wt[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) e[c] = corner(c, b, w, mask, base, &wt[c]) * F;
-  float* dst = out + t * F;
-  for (int f = 0; f < F; ++f) {
-    float acc = __fmul_rn(load_value<kBF16>(table, e[0] + f), wt[0]);
-#pragma unroll
-    for (int c = 1; c < 8; ++c)
-      acc = __fadd_rn(acc, __fmul_rn(load_value<kBF16>(table, e[c] + f), wt[c]));
-    dst[f] = acc;
-  }
-}
-
 // Values e .. e + V - 1 of the table as f32: one load of V values (the
-// caller keeps e a multiple of V and the table aligned to V values).
+// caller keeps e a multiple of V and the table aligned to V values; V = 8
+// only for a bf16 table, 16 bytes).
 template <bool kBF16, int V>
 __device__ __forceinline__ void load_vec(const void* __restrict__ table, long e, float v[V]) {
   if constexpr (kBF16) {
     const unsigned short* p = reinterpret_cast<const unsigned short*>(table) + e;
-    if constexpr (V == 4) {
+    if constexpr (V == 8) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[2 * j] = __uint_as_float(w[j] << 16);
+        v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+      }
+    } else if constexpr (V == 4) {
       const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
       v[0] = __uint_as_float(u.x << 16);
       v[1] = __uint_as_float(u.x & 0xffff0000u);
@@ -381,6 +369,7 @@ __device__ __forceinline__ void load_vec(const void* __restrict__ table, long e,
       v[0] = __uint_as_float((uint32_t)__ldg(p) << 16);
     }
   } else {
+    static_assert(V <= 4, "an f32 load takes at most 4 values");
     const float* p = reinterpret_cast<const float*>(table) + e;
     if constexpr (V == 4) {
       const float4 f = __ldg(reinterpret_cast<const float4*>(p));
@@ -392,6 +381,172 @@ __device__ __forceinline__ void load_vec(const void* __restrict__ table, long e,
       v[0] = __ldg(p);
     }
   }
+}
+
+// p[0 .. V - 1] = v: one store of V floats (p aligned to V floats).
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float v[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (V == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
+
+constexpr int kGenFwdSamples = 64;  // K7ag: samples a block
+constexpr int kGenFwdGroup = 2;     // K7ag: levels a block at most, 2 warps a level
+constexpr int kGenFwdBlocksPerSM = 4;  // K7ag: at most 128 registers a thread
+constexpr size_t kGenFwdStage = 48 * 1024;  // K7ag: most bytes a block stages its output in
+
+using GenFwdKernel = void (*)(const float*, const void*, const float*, float*, int, int, int, int,
+                              int, int, int, int);
+
+// K7ag: block b = g * sample_blocks + s takes levels `group` g .. of the
+// window (the last group may be ragged) for samples kGenFwdSamples s .. ;
+// warp w takes level w / 2 of the group over 32 consecutive samples, as
+// K7a. A lane's corners are loaded V values at a time, the 8 loads of a
+// step in flight together, and feature f is the corner-0 term, then
+// corners 1..7 added in order (the plain version's bits). kPair (F == V,
+// 2F values in at most 16 bytes): where the cube's base x is even, its two
+// x-neighbours are entries h and h ^ 1, one aligned load of 2F values, as
+// K7a's pair load. The block's positions are staged in shared memory and,
+// where it fits (`staged`), its (samples, levels, F) output, written out
+// contiguous; else each lane writes its F values to out.
+template <bool kBF16, int V, bool kPair>
+__global__ void __launch_bounds__(kGenFwdSamples * kGenFwdGroup, kGenFwdBlocksPerSM)
+    ngp_fwd_f_kernel(const float* __restrict__ pos, const void* __restrict__ table,
+                     const float* __restrict__ scale, float* __restrict__ out, int n, int L,
+                     int F, int lo, int log2_T, int sample_blocks, int group, int staged) {
+  constexpr int kWarpsPerLevel = kGenFwdSamples / 32;
+  extern __shared__ float fwd_smem[];
+  float* p_s = fwd_smem;                        // (kGenFwdSamples, 3)
+  float* o_s = fwd_smem + kGenFwdSamples * 3;   // (samples, levels, F), as in out
+  const int g = blockIdx.x / sample_blocks;
+  const long i0 = (long)(blockIdx.x - g * sample_blocks) * kGenFwdSamples;
+  const int live = (int)min((long)kGenFwdSamples, (long)n - i0);
+  const int l0 = g * group;
+  const int levels = min(group, L - l0);
+  for (int e = threadIdx.x; e < live * 3; e += blockDim.x) p_s[e] = __ldg(pos + i0 * 3 + e);
+  __syncthreads();
+  const int j = (threadIdx.x >> 5) / kWarpsPerLevel;
+  const int k = ((threadIdx.x >> 5) % kWarpsPerLevel) * 32 + (threadIdx.x & 31);
+  if (j < levels && k < live) {
+    const int l = l0 + j;
+    const float sc = __ldg(scale + l);
+    int b[3];
+    float u[3][2];  // (1 - w, w) a dimension
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float s = __fmul_rn(p_s[k * 3 + d], sc);
+      const float f = floorf(s);
+      u[d][1] = __fsub_rn(s, f);
+      u[d][0] = __fsub_rn(1.0f, u[d][1]);
+      b[d] = (int)f;
+    }
+    const uint32_t mask = (1u << log2_T) - 1u;
+    const long base = (long)(lo + l) << log2_T;
+    const uint32_t hy[2] = {(uint32_t)b[1] * kPrime1, (uint32_t)(b[1] + 1) * kPrime1};
+    const uint32_t hz[2] = {(uint32_t)b[2] * kPrime2, (uint32_t)(b[2] + 1) * kPrime2};
+    // corner c = (cx << 2) | yz weighs (wx' * wy') * wz', as JAX forms it
+    float wt[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      wt[c] = __fmul_rn(__fmul_rn(u[0][c >> 2], u[1][(c >> 1) & 1]), u[2][c & 1]);
+    float* dst = staged ? o_s + (k * levels + j) * F : out + ((i0 + k) * L + l) * F;
+    if constexpr (kPair) {
+      // With b[0] even, b[0] + 1 == b[0] | 1, so the cx = 1 corner hashes to
+      // the cx = 0 corner's entry ^ 1 (the level's base is even): the pair
+      // is one aligned load. With b[0] odd the cx = 1 corner is a load of
+      // its own.
+      const bool paired = !(b[0] & 1);
+      long e0[4];
+      float p[4][2 * V], x1[4][V];
+#pragma unroll
+      for (int yz = 0; yz < 4; ++yz) {
+        const uint32_t r = hy[yz >> 1] ^ hz[yz & 1];
+        e0[yz] = base + (long)(((uint32_t)b[0] ^ r) & mask);
+        load_vec<kBF16, 2 * V>(table, (e0[yz] & ~1L) * V, p[yz]);
+#pragma unroll
+        for (int f = 0; f < V; ++f) x1[yz][f] = 0.0f;
+        if (!paired)
+          load_vec<kBF16, V>(table, (base + (long)(((uint32_t)(b[0] + 1) ^ r) & mask)) * V, x1[yz]);
+      }
+      float acc[V];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int yz = c & 3;
+        const bool odd = e0[yz] & 1;
+#pragma unroll
+        for (int f = 0; f < V; ++f) {
+          const float lo_v = p[yz][f], hi_v = p[yz][V + f];
+          const float x = c < 4 ? (odd ? hi_v : lo_v) : (!paired ? x1[yz][f] : odd ? lo_v : hi_v);
+          const float t = __fmul_rn(x, wt[c]);
+          acc[f] = c ? __fadd_rn(acc[f], t) : t;
+        }
+      }
+      store_vec<V>(dst, acc);
+    } else {
+      // Past 16 bytes the pair's second entry is a load of its own all the
+      // same (no load is wider than 16 bytes); at F = 4 f32 it lies in the
+      // same 32-byte sector as the first, which L1 has just fetched.
+      long e[8];  // the corners' first values
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const uint32_t h = (uint32_t)(b[0] + (c >> 2)) ^ hy[(c >> 1) & 1] ^ hz[c & 1];
+        e[c] = (base + (long)(h & mask)) * F;
+      }
+      // two steps' 16 loads in flight together
+#pragma unroll 2
+      for (int f = 0; f < F; f += V) {
+        float t[8][V];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) load_vec<kBF16, V>(table, e[c] + f, t[c]);
+        float acc[V];
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          acc[q] = __fmul_rn(t[0][q], wt[0]);
+#pragma unroll
+          for (int c = 1; c < 8; ++c) acc[q] = __fadd_rn(acc[q], __fmul_rn(t[c][q], wt[c]));
+        }
+        store_vec<V>(dst + f, acc);
+      }
+    }
+  }
+  if (!staged) return;
+  __syncthreads();
+  // sample s's `levels` F results are contiguous in out, at o + s L F
+  const int run = levels * F;
+  float* o = out + (i0 * L + l0) * F;
+  if (F % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    const int run4 = run >> 2;
+    for (int e = threadIdx.x; e < live * run4; e += blockDim.x) {
+      const int s = e / run4;
+      reinterpret_cast<float4*>(o + (long)s * L * F)[e - s * run4] =
+          reinterpret_cast<const float4*>(o_s)[e];
+    }
+  } else {
+    for (int e = threadIdx.x; e < live * run; e += blockDim.x) {
+      const int s = e / run;
+      o[(long)s * L * F + (e - s * run)] = o_s[e];
+    }
+  }
+}
+
+// K7ag's kernel for a table type, a load width V and the pair load.
+template <bool kBF16>
+GenFwdKernel gen_fwd_kernel(int V, bool pair) {
+  if (pair) {
+    if constexpr (kBF16)
+      return V == 4   ? &ngp_fwd_f_kernel<true, 4, true>
+             : V == 2 ? &ngp_fwd_f_kernel<true, 2, true>
+                      : &ngp_fwd_f_kernel<true, 1, true>;
+    else
+      return V == 2 ? &ngp_fwd_f_kernel<false, 2, true> : &ngp_fwd_f_kernel<false, 1, true>;
+  }
+  return V == 4   ? &ngp_fwd_f_kernel<kBF16, 4, false>
+         : V == 2 ? &ngp_fwd_f_kernel<kBF16, 2, false>
+                  : &ngp_fwd_f_kernel<kBF16, 1, false>;
 }
 
 // dtable[e .. e + V - 1] += v: one float4 (V = 4) or float2 atomic, which
@@ -571,20 +726,30 @@ int ngp_encode_bwd(const float* pos, const void* table, int table_bf16, const fl
 }
 
 // K7ag. table (L_all*T, F) f32 or bf16 (table_bf16 = 1); out (n, L*F) f32;
-// the rest as ngp_encode_fwd.
+// the rest as ngp_encode_fwd. A corner's values are loaded V = 4, 2 or 1
+// at a time: the largest V that divides F and to whose width both the
+// table and out are aligned; where F == V and 2F values fit in 16 bytes to
+// whose width the table is aligned, a cube's x-pair is one load. The
+// block's output is staged where it fits in kGenFwdStage bytes with the
+// positions (F <= 94 at 2 levels a block), else written from registers.
 int ngp_encode_fwd_f(const float* pos, const void* table, int table_bf16, const float* scale,
                      float* out, int n, int L, int F, int lo, int log2_T, void* stream) {
   if (n == 0) return 0;
   if (L < 1 || F < 1 || lo < 0 || log2_T < 1 || log2_T > 30) return (int)cudaErrorInvalidValue;
-  const long threads = (long)n * L;
-  const unsigned int blocks = (unsigned int)((threads + kGenFwdThreads - 1) / kGenFwdThreads);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (table_bf16)
-    ngp_fwd_f_kernel<true><<<blocks, kGenFwdThreads, 0, s>>>(pos, table, scale, out, n, L, F, lo,
-                                                            log2_T);
-  else
-    ngp_fwd_f_kernel<false><<<blocks, kGenFwdThreads, 0, s>>>(pos, table, scale, out, n, L, F,
-                                                             lo, log2_T);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(table), ao = reinterpret_cast<uintptr_t>(out);
+  const int elt = table_bf16 ? 2 : 4;
+  int V = 4;
+  while (V > 1 && (F % V || at % (V * elt) || ao % (V * 4))) V /= 2;
+  const bool pair = F == V && 2 * F * elt <= 16 && at % (2 * F * elt) == 0;
+  const int group = L < kGenFwdGroup ? L : kGenFwdGroup;
+  const size_t staged_bytes = (size_t)kGenFwdSamples * (3 + group * F) * sizeof(float);
+  const bool staged = staged_bytes <= kGenFwdStage;
+  const size_t smem = staged ? staged_bytes : kGenFwdSamples * 3 * sizeof(float);
+  const int sample_blocks = (n + kGenFwdSamples - 1) / kGenFwdSamples;
+  const unsigned int blocks = (unsigned int)sample_blocks * ((L + group - 1) / group);
+  GenFwdKernel kernel = table_bf16 ? gen_fwd_kernel<true>(V, pair) : gen_fwd_kernel<false>(V, pair);
+  kernel<<<blocks, kGenFwdSamples * group, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      pos, table, scale, out, n, L, F, lo, log2_T, sample_blocks, group, staged ? 1 : 0);
   return (int)cudaGetLastError();
 }
 

@@ -1,32 +1,37 @@
-"""K2g and K7bg, the generic encode backwards, against other builds of
-their C entries on the card, in one process; and the model of their L2
-atomic requests.
+"""The generic encode kernels against other builds of their C entries on
+the card, in one process: K2g and K7bg, the backwards, and K1g and K7ag,
+the forwards; and the models of their memory requests and of K1g's sums.
 
-    python -m lsenerf_tpu_torch.gbwd_compare OTHER.cu [OTHER.cu ...] [--out DIR]
+    python -m lsenerf_tpu_torch.gbwd_compare OTHER.cu [OTHER.cu ...] [--only fwd|bwd] [--out DIR]
 
 Each OTHER.cu is a source of csrc/blocked_encode.cu (it defines
-`blocked_encode_bwd_f` with K2g's C signature) or of csrc/ngp_encode.cu
-(`ngp_encode_bwd_f`, K7bg's): an earlier commit's, for instance, written
+`blocked_encode_bwd_f`, K2g's C entry, and `blocked_encode_fwd_f`, K1g's)
+or of csrc/ngp_encode.cu (`ngp_encode_bwd_f`, K7bg's, and
+`ngp_encode_fwd_f`, K7ag's): an earlier commit's, for instance, written
 out by `git show <commit>:lsenerf_tpu_torch/csrc/blocked_encode.cu` into a
 directory that .gitignore lists. Each is built with cuda_build's flags into
-a library of its own and called through the package's wrapper
-(combine.encode_bwd or ngp.encode_bwd) in place of the package's library.
+a library of its own and called through the package's wrappers
+(combine.encode_fwd / encode_bwd, ngp.encode_fwd / encode_bwd) in place of
+the package's library; a source without a forward entry takes part in the
+backwards only.
 
 At F = 1, 3, 4, 6, 8 and 16 on flagship.generic_encode_uniform's 56,192
 uniform samples x 8 levels (blocked: bf16 table; ngp: f32), and at F = 4
 on one real step's inputs of each flagship.FEATURES_4 path, every build
-must hold the plain version (dpos rtol 1e-4, atol 1e-6 of its largest
-element; the table gradient within 1e-5 of its largest element; blocked
-pad columns untouched), give dpos the same bits on a second call and the
-same bits as every other build of its layout. Then each build is timed
-warm (`timing.device_ms`) and with a cold L2 (`timing.cold_ms`) in turns
-(ABBA), beside `requests`' model of the L2 atomic requests of this design
-and of the first one (an OTHER's rate is printed with the first design's
-count). Last, the
-host's microseconds a call of the wrapper over the package's library and
-over the first OTHER of each layout, in turns, at F = 4. Prints the card's
-name and power limit and writes DIR/gbwd_compare.json (default
-outputs/gbwd_compare). Needs a CUDA card.
+must hold the plain version. Backwards: dpos rtol 1e-4, atol 1e-6 of its
+largest element; the table gradient within 1e-5 of its largest element;
+blocked pad columns untouched; dpos the same bits on a second call and the
+same bits as every other build of its layout. Forwards: K7ag the plain
+version's bits, K1g rtol 1e-5 / atol 1e-6. Then each build is timed warm
+(`timing.device_ms`) and with a cold L2 (`timing.cold_ms`) in turns
+(ABBA), beside the models of this design's requests and of the first
+design's (`requests`: the backwards' L2 atomic requests; `fwd_requests`:
+the forwards' L1 wavefronts and L2 sector requests; an OTHER's rate is
+printed with the first design's count). Last, the host's microseconds a
+call of each wrapper over the package's library and over the first OTHER
+of each layout, in turns, at F = 4. `--only` takes the forwards or the
+backwards alone. Prints the card's name and power limit and writes
+DIR/gbwd_compare.json (default outputs/gbwd_compare). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -43,7 +48,11 @@ from lsenerf_tpu_torch.ops import combine, ngp
 
 FEATURES = (1, 3, 4, 6, 8, 16)
 K2G_CHUNK = 8  # csrc/blocked_encode.cu kGenChunk: a corner's features a K2g entry holds
+K7AG_SAMPLES = 64  # csrc/ngp_encode.cu kGenFwdSamples: K7ag's samples a block
+K7AG_GROUP = 2  # csrc/ngp_encode.cu kGenFwdGroup: K7ag's levels a block, at most
+FWD_STAGE = 48 * 1024  # kGenFwdStage of both: the most bytes a block stages its output in
 ENTRIES = {"blocked": "blocked_encode_bwd_f", "ngp": "ngp_encode_bwd_f"}
+FWD_ENTRIES = {"blocked": "blocked_encode_fwd_f", "ngp": "ngp_encode_fwd_f"}
 
 
 # ---------------------------------------------------------------------------
@@ -129,35 +138,188 @@ def requests(layout: str, positions, table, gfeat, levels) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
+# the forwards: their choices, their loads' model and K1g's sums
+# ---------------------------------------------------------------------------
+
+
+def fwd_vec_width(layout: str, F: int, table: torch.Tensor, row_width: int | None = None) -> int:
+    """K1g's and K7ag's V: the largest of 4, 2 and 1 that divides F (and,
+    blocked, the row width W) and to whose width the table is aligned (the
+    wrapper's fresh output always is), as their C entries choose it."""
+    V = 4
+    while V > 1 and (F % V or (layout == "blocked" and row_width % V)
+                     or table.data_ptr() % (V * table.element_size())):
+        V //= 2
+    return V
+
+
+def fwd_pair(F: int, table: torch.Tensor) -> bool:
+    """Whether K7ag loads a cube's x-pair, entries h & ~1 and h | 1, as one:
+    F == V, 2F values in at most 16 bytes, to whose width the table is
+    aligned."""
+    b = 2 * F * table.element_size()
+    return F == fwd_vec_width("ngp", F, table) and b <= 16 and table.data_ptr() % b == 0
+
+
+def fwd_staged(layout: str, L: int, F: int) -> bool:
+    """Whether a K1g or K7ag block stages its output in shared memory (with
+    its positions, within FWD_STAGE bytes) or writes it from registers."""
+    if layout == "blocked":
+        return (96 + 32 * L * F) * 4 <= FWD_STAGE
+    return K7AG_SAMPLES * (3 + min(L, K7AG_GROUP) * F) * 4 <= FWD_STAGE
+
+
+def _loads(addr: torch.Tensor) -> tuple[int, int]:
+    """(L1 wavefronts, L2 sector requests) of warp load instructions whose
+    lanes' first bytes are addr (..., 32), -1 where a lane loads nothing:
+    one wavefront per distinct 128-byte line, one request per distinct
+    32-byte sector (no load here crosses a sector)."""
+    live = addr >= 0
+    return (_distinct(torch.where(live, addr >> 7, -1)),
+            _distinct(torch.where(live, addr >> 5, -1)))
+
+
+def fwd_requests(layout: str, positions, table, levels) -> tuple[tuple[int, int], tuple[int, int]]:
+    """The table loads of one launch of K1g (blocked) or K7ag (ngp) on these
+    inputs, ((wavefronts, sectors) of the first design, of this one),
+    worked out from the plain versions' keys on any device, not measured:
+    L1 wavefronts (a warp load instruction's distinct 128-byte lines) and
+    L2 sector requests (its distinct 32-byte sectors), instruction by
+    instruction, with no line kept in L1 from one instruction to the next.
+    Addresses are the table's own (its offset in a 128-byte line counted).
+
+    The first design of both: a thread a (sample, level), thread t on
+    sample t / L, level t % L, a warp on 32 consecutive threads, one scalar
+    load instruction a (corner, feature). This K7ag: a warp on one level of
+    32 consecutive samples, one V-value load a (corner, V features)
+    (`fwd_vec_width`); where `fwd_pair`, one load of entries h & ~1 and
+    h | 1 a (cy, cz) and a load of the cx = 1 corner for the lanes whose
+    cube's base x is odd. This K1g: a warp on 32 samples of one level, in 4
+    steps of 8 samples, lane 4j + q on sample 8s + j's (x, y) pair q = 2a +
+    b, whose z-neighbours' F values it loads V at a time (two instructions
+    a V-step)."""
+    n, L = positions.shape[0], levels.num
+    elt, base = table.element_size(), table.data_ptr() % 128
+    dev = positions.device
+
+    def bytes_(e):  # element index -> byte address, -1 kept
+        return torch.where(e >= 0, e * elt + base, -1)
+
+    def add(acc, wf):
+        return acc[0] + wf[0], acc[1] + wf[1]
+
+    old = new = (0, 0)
+    if layout == "blocked":
+        F, W = levels.F, levels.row_width
+        keys, o, _ = combine.keys_fracs(positions, levels)  # (L, n)
+        V = fwd_vec_width(layout, F, table, W)
+        v0 = (o[0] * 3 + o[1]) * 3 + o[2]
+        for c in range(8):
+            a, b, z = c >> 2, (c >> 1) & 1, c & 1
+            e = (keys * W + (v0 + a * 9 + b * 3 + z) * F).T.reshape(-1)  # thread t = i L + l
+            for f in range(F):
+                old = add(old, _loads(_warps(bytes_(e + f), 0)))
+        # r[l, i, q]: the first value of sample i's run q at level l
+        r = keys[..., None] * W + (v0[..., None] + torch.tensor([0, 3, 9, 12], device=dev)) * F
+        extra = -n % 32
+        r = torch.cat([r, r.new_full((L, extra, 4), -1)], 1).reshape(L, -1, 4, 8, 4)
+        lanes = r.reshape(L, -1, 4, 32)  # (level, block, step, lane 4 j + q)
+        live = lanes >= 0
+        for f in range(0, F, V):
+            for e in (lanes + f, lanes + F + f):
+                new = add(new, _loads(bytes_(torch.where(live, e, -1))))
+        return old, new
+    F = table.shape[1]
+    V, pair = fwd_vec_width(layout, F, table), fwd_pair(F, table)
+    keys = ngp.corners(positions, levels)[0]  # (8, L, n), corner c = cx*4 + cy*2 + cz
+    flat = keys.permute(0, 2, 1).reshape(8, n * L)  # thread t = i L + l
+    for f in range(F):
+        old = add(old, _loads(_warps(bytes_(flat * F + f), 1)))
+    per = _warps(keys, 2)  # (8, L, warp, 32)
+    if pair:
+        odd = _warps(torch.floor(positions[None, :, 0] * levels.scale[:, None]).long() % 2, 1)
+        e0 = per[:4]
+        new = add(new, _loads(bytes_(torch.where(e0 >= 0, (e0 & ~1) * F, -1))))
+        new = add(new, _loads(bytes_(torch.where((odd == 1) & (per[4:] >= 0), per[4:] * F, -1))))
+        return old, new
+    for f in range(0, F, V):
+        new = add(new, _loads(bytes_(torch.where(per >= 0, per * F + f, -1))))
+    return old, new
+
+
+def k1g_sums(positions, table, levels) -> torch.Tensor:
+    """K1g's output by its own arithmetic, op by op in f32 on any device
+    (each product and sum rounded, as __fmul_rn and __fadd_rn round them):
+    the group's lane q = 2a + b on its (x, y) pair, T(a, b) = w0 t(v) + w1
+    t(v + 1) with w0 = (ux uy) (1 - wz) and w1 = (ux uy) wz, and the
+    shuffles' sum (T(0, 0) + T(0, 1)) + (T(1, 0) + T(1, 1)) (n, L F)."""
+    n, L, F, W = positions.shape[0], levels.num, levels.F, levels.row_width
+    keys, o, w = combine.keys_fracs(positions, levels)  # (L, n)
+    flat = table.reshape(-1)
+    fs = torch.arange(F, device=positions.device)
+    v0 = (o[0] * 3 + o[1]) * 3 + o[2]
+    t = {}
+    for a in (0, 1):
+        for b in (0, 1):
+            r = (keys * W + (v0 + a * 9 + b * 3) * F)[..., None] + fs  # (L, n, F)
+            ux = w[0] if a else 1.0 - w[0]
+            uy = w[1] if b else 1.0 - w[1]
+            wxy = ux * uy
+            w0, w1 = (wxy * (1.0 - w[2]))[..., None], (wxy * w[2])[..., None]
+            t[a, b] = w0 * flat[r].float() + w1 * flat[r + F].float()
+    out = (t[0, 0] + t[0, 1]) + (t[1, 0] + t[1, 1])
+    return out.permute(1, 0, 2).reshape(n, L * F)
+
+
+# ---------------------------------------------------------------------------
 # the comparison on the card
 # ---------------------------------------------------------------------------
 
 
-def through(mod, lib):
-    """mod.encode_bwd (mod: combine or ngp) launching lib's entries in place
-    of the package's library."""
+def through(mod, lib, name: str):
+    """mod.<name> (mod: combine or ngp; name: encode_fwd or encode_bwd)
+    launching lib's entries in place of the package's library."""
     def call(*args):
         real = mod._library
         mod._library = lambda: lib
         try:
-            return mod.encode_bwd(*args)
+            return getattr(mod, name)(*args)
         finally:
             mod._library = real
     return call
 
 
 def builds(others) -> dict:
-    """{layout: {label: encode_bwd}}: the package's ("this") and each
-    OTHER's build (its file name), by the C entry it defines."""
-    fns = {layout: {"this": mod.encode_bwd} for layout, mod in (("blocked", combine),
-                                                                ("ngp", ngp))}
+    """{"fwd" or "bwd": {layout: {label: wrapper}}}: the package's ("this")
+    and each OTHER's build (its file name), by the C entries it defines."""
+    mods = {"blocked": combine, "ngp": ngp}
+    fns = {d: {layout: {"this": getattr(mod, f"encode_{d}")} for layout, mod in mods.items()}
+           for d in ("fwd", "bwd")}
     for label, lib in kernel_compare.build({p.name: p for p in others}).items():
         layout = next((k for k, e in ENTRIES.items() if hasattr(lib, e)), None)
         if layout is None:
             raise SystemExit(f"gbwd_compare: {label} defines neither of {list(ENTRIES.values())}")
-        mod = combine if layout == "blocked" else ngp
-        fns[layout][label] = through(mod, mod.bind(lib))
+        mod = mods[layout]
+        lib = mod.bind(lib)
+        fns["bwd"][layout][label] = through(mod, lib, "encode_bwd")
+        if hasattr(lib, FWD_ENTRIES[layout]):
+            fns["fwd"][layout][label] = through(mod, lib, "encode_fwd")
     return fns
+
+
+def holds_fwd(layout, fns: dict, args, where) -> None:
+    """Every build of K7ag gives the plain version's bits; of K1g, holds it
+    at rtol 1e-5 / atol 1e-6."""
+    mod = combine if layout == "blocked" else ngp
+    want = mod.encode_fwd_plain(*args)
+    for label, fn in fns.items():
+        got = fn(*args)
+        torch.cuda.synchronize()
+        if layout == "blocked":
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        elif not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise SystemExit(f"gbwd_compare: K7ag {label} at {where}: not the plain version's bits "
+                             f"(max abs err {float((got - want).abs().max()):.3e})")
 
 
 def holds(layout, fns: dict, args, where) -> None:
@@ -196,6 +358,7 @@ def shapes(dev) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("others", nargs="+", help="sources of blocked_encode.cu or ngp_encode.cu")
+    ap.add_argument("--only", choices=("fwd", "bwd"), help="the forwards or the backwards alone")
     ap.add_argument("--out", default="outputs/gbwd_compare")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -207,30 +370,43 @@ def main(argv=None) -> int:
     fns = builds([Path(p).resolve() for p in args.others])
     inputs = shapes(dev)
     res, model, host = {}, {}, {}
-    for layout, kernel in (("blocked", "K2g"), ("ngp", "K7bg")):
-        for name, a in inputs[layout].items():
-            holds(layout, fns[layout], a, name)
-        print(f"gbwd_compare: {kernel} builds {list(fns[layout])} hold the plain version and "
-              f"each other's dpos bits at {list(inputs[layout])}")
+    kernels = (("fwd", "blocked", "K1g"), ("fwd", "ngp", "K7ag"), ("bwd", "blocked", "K2g"),
+               ("bwd", "ngp", "K7bg"))
+    for d, layout, kernel in kernels:
+        if args.only not in (None, d):
+            continue
+        fn = fns[d][layout]
+        # a forward takes (positions, table, levels)
+        at = {k: (a[0], a[1], a[3]) if d == "fwd" else a for k, a in inputs[layout].items()}
+        for name, a in at.items():
+            (holds_fwd if d == "fwd" else holds)(layout, fn, a, name)
+        print(f"gbwd_compare: {kernel} builds {list(fn)} hold the plain version" +
+              (" and each other's dpos bits" if d == "bwd" else "") + f" at {list(at)}")
         res[kernel] = kernel_compare.abba(
-            fns[layout], inputs[layout], card,
+            fn, at, card,
             lambda label, name, a, kernel=kernel: f"{kernel} {label} at {name} (n={a[0].shape[0]}, "
                                                   f"{a[1].dtype})")
         model[kernel] = {}
         for name, a in inputs[layout].items():
-            first, this = requests(layout, *a)
             warm = {label: min(t["warm"]) for label, t in res[kernel][name].items()}
+            m = a[0].shape[0] * a[3].num
+            if d == "bwd":
+                first, this = requests(layout, *a)
+                what = "L2 atomic requests"
+            else:
+                (_, first), (_, this) = fwd_requests(layout, a[0], a[1], a[3])
+                what = "L2 sector requests of its table loads"
             model[kernel][name] = {"first": first, "this": this}
-            print(f"{kernel} L2 atomic requests a launch at {name}, worked out from the designs "
-                  f"(not measured): the first design's {first}, this one's {this}; this one's "
-                  f"over this build's warm time, the first's over each other's: " + ", ".join(
+            print(f"{kernel} {what} a launch at {name}, worked out from the designs (not "
+                  f"measured): the first design's {first} ({first / m:.2f} a sample-level), this "
+                  f"one's {this} ({this / m:.2f}); this one's over this build's warm time, the "
+                  f"first's over each other's: " + ", ".join(
                       f"{label} {t:.5f} ms, {(this if label == 'this' else first) / t / 1e6:.1f} "
                       f"G/s" for label, t in warm.items()) + f"; {card}")
-        others = [label for label in fns[layout] if label != "this"]
+        others = [label for label in fn if label != "this"]
         if others:
-            at = {k: inputs[layout][k] for k in ("uniform F=4", "one 4v step, F=4")}
-            host[kernel] = kernel_compare.host_turns(fns[layout]["this"], fns[layout][others[0]],
-                                                     at, card, kernel)
+            f4 = {k: at[k] for k in ("uniform F=4", "one 4v step, F=4")}
+            host[kernel] = kernel_compare.host_turns(fn["this"], fn[others[0]], f4, card, kernel)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "gbwd_compare.json").write_text(json.dumps(

@@ -2,10 +2,12 @@
 and K2 (lsenerf_tpu_torch/ops/combine.py) and K7a and K7b
 (lsenerf_tpu_torch/ops/ngp.py, with level windows; K7a bit for bit), and
 the generic K1g/K2g and K7ag/K7bg at features_per_level 1, 3, 4, 6, 8,
-16, 20 and 400 (K7ag bit for bit; K2g's and K7bg's dpos the bits of their first
-design's arithmetic, also from a table view off their vector loads'
-alignment), in an f32-table and a bf16-table arm, also where many samples of a warp share rows (one cell, rays), at the
-flagship's 16 levels (16 and 48 samples a ray) and at 2 and 3 levels, and
+16, 20 and 400 (K7ag bit for bit, K1g the bits of its own order of sums;
+K2g's and K7bg's dpos the bits of their first design's arithmetic; all
+four also from a table view off their vector loads' alignment; the
+forwards on both sides of their output's staging limit), in an f32-table
+and a bf16-table arm, also where many samples of a warp share rows (one
+cell, rays), at the flagship's 16 levels (16 and 48 samples a ray) and at 2 and 3 levels, and
 the gathers G1-G3 (lsenerf_tpu_torch/ops/gather.py), held to exact
 equality, G2 at the shapes that pick each of its paths and G3 at several
 table and index shapes; K3 (lsenerf_tpu_torch/ops/march.py) at the
@@ -443,6 +445,108 @@ def test_generic_bwd_takes_an_unaligned_table_on_card(layout, dtype):
         assert torch.equal(got.view(torch.int32), dpos.view(torch.int32))
         torch.testing.assert_close(got, wdpos, rtol=1e-4, atol=1e-6 * float(wdpos.abs().max()))
         torch.testing.assert_close(gtab, wdtab, rtol=0, atol=1e-5 * float(wdtab.abs().max()))
+
+
+def _fwd_inputs(layout, cfg, n, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    p = torch.from_numpy(_positions("uniform", n, rng)).to(dev)
+    tab = torch.from_numpy(rng.standard_normal(cfg.table_shape).astype(np.float32)).to(dev, dtype)
+    return p, tab, the.levels_for(cfg, "cuda")
+
+
+def _fwd_holds(layout, got, want):
+    """K7ag the plain version's bits; K1g within its check's tolerance."""
+    if layout == "ngp":
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["blocked", "ngp"])
+def test_generic_fwd_takes_an_unaligned_table_on_card(layout, dtype):
+    """A table view that starts 1 or 2 values past an aligned boundary (off
+    the 16 bytes of K1g's and K7ag's vector loads and K7ag's pair loads)
+    goes through the kernel, at F = 4 with a narrower vector width (K7ag
+    without the pair load), at F = 1 (K7ag) without the pair load where
+    its 4 or 8 bytes are off too: the
+    launch is counted and the output is the aligned table's bits (both
+    kernels' sums take one order whatever the width)."""
+    from lsenerf_tpu_torch import gbwd_compare
+
+    dev = _card()
+    mod = combine if layout == "blocked" else ngp
+    kf = combine.K1G if layout == "blocked" else ngp.K7AG
+    for F in (1, 4):
+        cfg = _generic_cfg(layout, F)
+        p, tab, lv = _fwd_inputs(layout, cfg, 4099, dtype, dev, 15)
+        want = mod.encode_fwd(p, tab, lv)
+        _fwd_holds(layout, want, mod.encode_fwd_plain(p, tab, lv))
+        for off in (1, 2):
+            view = torch.empty(tab.numel() + off, dtype=dtype, device=dev)[off:].view(tab.shape)
+            view.copy_(tab)
+            assert view.data_ptr() % 16 != 0
+            W = cfg.blocked_row_width if layout == "blocked" else None
+            if F == 4:  # a narrower V (K7ag: no pair load)
+                assert gbwd_compare.fwd_vec_width(layout, F, view, W) < 4
+                assert not gbwd_compare.fwd_pair(F, view)
+            before = kf.launches
+            got = mod.encode_fwd(p, view, lv)
+            torch.cuda.synchronize()
+            assert kf.launches == before + 1, "not the kernel"
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (F, off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["blocked", "ngp"])
+def test_generic_fwd_at_the_staging_limit_on_card(layout, dtype, past):
+    """K1g and K7ag at L = 5 at the last F whose block output is staged in
+    shared memory (gbwd_compare.fwd_staged, tied to the C sources) and at
+    the next one, whose outputs each lane writes from registers: both
+    against the plain version (K7ag bit for bit), on uniform positions
+    and along rays."""
+    from lsenerf_tpu_torch import gbwd_compare
+
+    dev = _card()
+    mod = combine if layout == "blocked" else ngp
+    kf = combine.K1G if layout == "blocked" else ngp.K7AG
+    F = next(F for F in range(1, 1000) if not gbwd_compare.fwd_staged(layout, 5, F)) - 1 + past
+    assert F > 16 and gbwd_compare.fwd_staged(layout, 5, F) != past
+    cfg = _generic_cfg(layout, F)
+    for kind, n in (("uniform", 4099), ("rays", 4112)):
+        rng = np.random.default_rng(16)
+        p = torch.from_numpy(_positions(kind, n, rng)).to(dev)
+        tab = torch.from_numpy(rng.standard_normal(cfg.table_shape).astype(np.float32)).to(dev, dtype)
+        lv = the.levels_for(cfg, "cuda")
+        before = kf.launches
+        got = mod.encode_fwd(p, tab, lv)
+        torch.cuda.synchronize()
+        assert kf.launches == before + 1, "not the kernel"
+        _fwd_holds(layout, got, mod.encode_fwd_plain(p, tab, lv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [1, 3, 4, 8, 20])
+def test_k1g_is_its_own_order_of_sums_on_card(F, dtype):
+    """K1g rounds every product and sum on its own, in a fixed order that
+    gbwd_compare.k1g_sums repeats op by op: the same bits, at L = 5 on each
+    kind of positions and at the full-width grid's 8 levels along rays."""
+    from lsenerf_tpu_torch import gbwd_compare
+
+    dev = _card()
+    for cfg, kind, n in [(_generic_cfg("blocked", F), k, n) for k, n in GENERIC_KINDS["blocked"]] + [
+            (_generic_cfg("blocked", F, full=True), "rays", 56_192 - 7)]:
+        rng = np.random.default_rng(17)
+        p = torch.from_numpy(_positions(kind, n, rng)).to(dev)
+        tab = torch.from_numpy(rng.standard_normal(cfg.table_shape).astype(np.float32)).to(dev, dtype)
+        lv = the.levels_for(cfg, "cuda")
+        got = combine.encode_fwd(p, tab, lv)
+        want = gbwd_compare.k1g_sums(p, tab, lv)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), kind
 
 
 @pytest.mark.cuda
