@@ -24,6 +24,15 @@ second chunk is captured, then replayed; every later chunk is one replay.
 No step runs twice and none is skipped. A capture or replay that fails
 raises, naming the op of the port where it failed; nothing falls back to
 eager steps.
+
+One step of the graph, its middle one (marked_steps), carries device
+marks (engine/spans.py): an event at the step's start, after its
+background draw, at the end of each of its layers and before its
+backward, which every replay records again (each mark costs the card ~3
+us). While a profiler runs, a replay's marks are read after the next chunk
+is staged and before it replays (the host waits for them where the card
+has not yet run the marked step, while the card still holds the rest of
+the replay: the reads never leave it idle), or where the loop's run ends.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from lsenerf_tpu_torch.cameras import pose_opt
+from lsenerf_tpu_torch.engine import spans
 from lsenerf_tpu_torch.engine.trainer import tree_leaves
 from lsenerf_tpu_torch.ops import occupancy as occ_lib
 
@@ -66,10 +76,12 @@ def _where(exc: BaseException) -> str:
 
 
 class ChunkGraph:
-    """k steps of one trainer as one replayed CUDA graph (module doc)."""
+    """k steps of one trainer as one replayed CUDA graph (module doc);
+    `reason`, why its graph is captured (the first capture, or the cause of
+    a recapture), is counted at the capture."""
 
-    def __init__(self, trainer, k: int, stacked: dict):
-        self.trainer, self.k = trainer, k
+    def __init__(self, trainer, k: int, stacked: dict, reason: str = "first"):
+        self.trainer, self.k, self.reason = trainer, k, reason
         self.model_config = trainer.model_config
         dev = trainer.device
         # every region starts on 8 bytes, so that each is a view of its dtype
@@ -102,6 +114,7 @@ class ChunkGraph:
         self.names = None  # the metrics' names, in the order of `out`
         self.out = None  # the last step's metrics, then the k losses
         self.launches = None  # each kernel's launches captured in the graph
+        self.marks = []  # the graph's groups of device marks
 
     # -- inputs -----------------------------------------------------------------
 
@@ -111,7 +124,8 @@ class ChunkGraph:
         (not for the graph) before it writes the buffer again."""
         t, k = self.trainer, self.k
         if self.copied is not None:
-            self.copied.synchronize()
+            with spans.span("chunk.stage.wait"):
+                self.copied.synchronize()
         h = self.host_np
         for key, (o, dt, shape) in self.layout.items():
             v = np.asarray(stacked[key])
@@ -133,6 +147,7 @@ class ChunkGraph:
             self.dev.copy_(self.host, non_blocking=True)
             self.copied = torch.cuda.Event()
             self.copied.record()
+        spans.count("staged_bytes", self.host.numel())
 
     def refresh_occ(self) -> None:
         """The trainer's grid state into the graph's own, where it is a new
@@ -151,6 +166,10 @@ class ChunkGraph:
 
     # -- the k steps --------------------------------------------------------------
 
+    def marked_steps(self) -> tuple:
+        """The steps of the chunk that carry device marks: the middle one."""
+        return (self.k // 2,)
+
     def body(self) -> None:
         """k steps on the staged inputs, as Trainer.step runs one: the
         background draw, the loss and its backward, Adam at the step's lr.
@@ -158,22 +177,29 @@ class ChunkGraph:
         t = self.trainer
         leaves = [p for _, p in tree_leaves(t.params)]
         losses = []
+        marked = self.marked_steps()
         for j in range(self.k):
+            marks = spans.open_marks(t.device, 1) if j in marked else None
             batch = {key: v[j] for key, v in self.batch.items()}
             bg = t._draw_background(t.num_rays(batch))
             for p in leaves:
                 p.grad = None
+            spans.mark("other")
             loss, metrics = t.loss_fn(t.params, self.occ, batch, None, bg,
                                       gates=(self.gates[j, 0], self.gates[j, 1]))
-            loss.backward()
+            spans.mark("other")
+            with spans.layer("backward"):
+                loss.backward()
             if t.optimizer is not None:
-                for g, group in enumerate(t.optimizer.param_groups):
-                    if isinstance(group["lr"], torch.Tensor):
-                        group["lr"].copy_(self.lrs[j, g])
-                    else:
-                        group["lr"] = self.host_lrs[j][g]
-                t.optimizer.step()
+                with spans.layer("adam"):
+                    for g, group in enumerate(t.optimizer.param_groups):
+                        if isinstance(group["lr"], torch.Tensor):
+                            group["lr"].copy_(self.lrs[j, g])
+                        else:
+                            group["lr"] = self.host_lrs[j][g]
+                    t.optimizer.step()
             losses.append(loss.detach())
+            spans.close_marks(marks)
         metrics["loss"] = loss
         self.names = list(metrics)
         self.out = torch.stack([metrics[n].detach().float().reshape(()) for n in self.names]
@@ -181,7 +207,7 @@ class ChunkGraph:
 
     def capture(self) -> None:
         """The body recorded into one CUDA graph (nothing runs until the
-        replay), with the kernels' launches it holds."""
+        replay), with the kernels' launches and the device marks it holds."""
         t = self.trainer
         graph = torch.cuda.CUDAGraph()
         if t.model_config.background_color == "random":
@@ -192,29 +218,38 @@ class ChunkGraph:
             graph.register_generator_state(t._bg_gen)
         before = {kn.name: kn.launches for kn in path_kernels()}
         try:
-            with torch.cuda.graph(graph):
+            with spans.capture() as marks, torch.cuda.graph(graph):
                 self.body()
         except Exception as e:
             raise RuntimeError(f"capturing {self.k} train steps as one CUDA graph failed at "
                                f"{_where(e)}") from e
         self.launches = {kn.name: kn.launches - before[kn.name] for kn in path_kernels()}
-        self.graph = graph
+        self.graph, self.marks = graph, marks
+        spans.count("captures", 1, self.reason)
 
     def run(self, stacked: dict):
         """One chunk: (the last step's metrics, the k losses)."""
-        self.load(stacked)
-        self.refresh_occ()
+        with spans.span("chunk.stage"):
+            self.load(stacked)
+        with spans.span("chunk.refresh_occ"):
+            self.refresh_occ()
         if not self.warm:
+            spans.count("eager_steps", self.k, "warm-up")
             self.body()
             self.warm = True
         else:
             if self.graph is None:
-                self.capture()
+                with spans.span("chunk.capture"):
+                    self.capture()
+            # the previous replay's marks, before this replay records them again
+            spans.read_pending()
             try:
-                self.graph.replay()
+                with spans.span("chunk.launch"):
+                    self.graph.replay()
             except Exception as e:
                 raise RuntimeError(f"replaying the {self.k}-step CUDA graph failed: "
                                    f"{type(e).__name__}: {e}") from e
+            spans.replayed(self.marks, self.launches)
         vec = self.out.clone()
         n = len(self.names)
         return {name: vec[i] for i, name in enumerate(self.names)}, vec[n:]

@@ -22,7 +22,12 @@ Trainer.step a step, as before:
     whose log (s a multiple of 100) never falls on a sentinel step (s + 1
     a multiple of 256), so the port logs the probe where it fires;
   - an optional torch.profiler trace of the chunks that start in the
-    first 30 steps (LSENERF_PROFILE_DIR in the CLI).
+    first 30 steps (LSENERF_PROFILE_DIR in the CLI);
+  - while any torch profiler runs, the spans and counters of
+    engine/spans.py: the call is one run, with the spans "loop", "chunk"
+    (its children "chunk.draw" and, in ChunkGraph, "chunk.stage",
+    "chunk.refresh_occ", "chunk.capture", "chunk.launch"), "occ_update",
+    "log", "overflow_probe", "eval_batch", "eval_image" and "checkpoint".
 A render run (`is_render`) skips the occupancy updates and the
 eval-ray-batch cadence, as the JAX loop does. Under data parallelism
 (trainer.dp) the evals and the log run on rank 0 while the other ranks
@@ -44,6 +49,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from lsenerf_tpu_torch.engine import spans
 
 def _covered(first: int, every: int, k: int) -> bool:
     """Does the step range [first, first+k-1] contain a multiple of `every`?"""
@@ -115,76 +122,91 @@ def run_training_loop(
             on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir))
         prof.start()
 
-    scan_k = max(1, int(scan_steps))
-    grid_every = trainer.model_config.grid.update_interval
-    train_steps_multi = trainer.make_train_step_multi(scan_k) if scan_k > 1 else None
-    metrics = {}
-    for it in range(start, end, scan_k):
-        k_eff = min(scan_k, end - it)  # the trimmed last chunk runs as single steps
-        last = it + k_eff - 1
-        if scan_k == 1:
-            batch = dm.next_train(it)
-            metrics = trainer.step(batch, update_occ=False) if is_render else trainer.step(batch)
-        else:
-            if not is_render and _covered(it, grid_every, k_eff):
-                trainer.occ_update()
-            if k_eff == scan_k:
-                stacked = dm.next_train_stack(it, scan_k)
-                metrics = train_steps_multi(stacked)
-                batch = {k: v[-1] for k, v in stacked.items()}
+    with spans.run(), spans.span("loop"):
+        scan_k = max(1, int(scan_steps))
+        grid_every = trainer.model_config.grid.update_interval
+        train_steps_multi = trainer.make_train_step_multi(scan_k) if scan_k > 1 else None
+        metrics = {}
+        for it in range(start, end, scan_k):
+            k_eff = min(scan_k, end - it)  # the trimmed last chunk runs as single steps
+            last = it + k_eff - 1
+            if scan_k == 1:
+                with spans.span("chunk", step=it):
+                    with spans.span("chunk.draw"):
+                        batch = dm.next_train(it)
+                    spans.count("eager_steps", 1, "scan_steps 1")
+                    metrics = trainer.step(batch, update_occ=False) if is_render else trainer.step(batch)
             else:
-                for j in range(k_eff):
-                    batch = dm.next_train(it + j)
-                    metrics = trainer.step(batch, update_occ=False)
-        if prof is not None and it - start >= 30:
+                if not is_render and _covered(it, grid_every, k_eff):
+                    with spans.span("occ_update", step=it):
+                        trainer.occ_update()
+                with spans.span("chunk", step=it):
+                    if k_eff == scan_k:
+                        with spans.span("chunk.draw"):
+                            stacked = dm.next_train_stack(it, scan_k)
+                        metrics = train_steps_multi(stacked)
+                        batch = {k: v[-1] for k, v in stacked.items()}
+                    else:
+                        spans.count("eager_steps", k_eff, "trimmed chunk")
+                        for j in range(k_eff):
+                            with spans.span("chunk.draw"):
+                                batch = dm.next_train(it + j)
+                            metrics = trainer.step(batch, update_occ=False)
+            if prof is not None and it - start >= 30:
+                prof.stop()
+                prof = None
+            if _covered(it + 1, overflow_every, k_eff):
+                with spans.span("overflow_probe", step=it):
+                    overflow = trainer.overflow_count(batch)
+                metrics = dict(metrics, grad_overflow=overflow)
+                if logger is not None:
+                    logger.log(last, {"grad_overflow": float(overflow)})
+            if _covered(it, log_every, k_eff):
+                with spans.span("log", step=it):
+                    scal = {k: float(v) for k, v in metrics.items()}
+                if logger is not None:
+                    logger.log(last, scal)
+                if callback is not None:
+                    callback(last, scal)
+                if fail_fast and not math.isfinite(scal.get("loss", 0.0)):
+                    raise RuntimeError(f"non-finite loss at step {last}: {scal}")
+                if _covered(it, print_every, k_eff) and logger is not None:
+                    print(f"step {last}: " + ", ".join(f"{k}={v:.4f}" for k, v in scal.items()))
+            if eval_cams is not None and not is_render and _covered(it + 1, cfg.steps_per_eval_batch, k_eff):
+                nb = eval_batch_rays
+                vi = eval_batch_rng.integers(0, len(eval_ds), nb)
+                ys = eval_batch_rng.integers(0, eval_cams.height, nb)
+                xs = eval_batch_rng.integers(0, eval_cams.width, nb)
+                with spans.span("eval_batch", step=it):
+                    em = trainer.eval_batch(eval_cams, vi, np.stack([ys, xs], 1),
+                                            eval_ds.images[vi, ys, xs], eval_ds.appearance_ids[vi])
+                if logger is not None:
+                    logger.log(last, {k: float(v) for k, v in em.items()})
+            if eval_ds is not None and _covered(it + 1, cfg.steps_per_eval_image, k_eff):
+                vi = int(np.random.default_rng(it).integers(0, len(eval_ds)))
+                with spans.span("eval_image", step=it):
+                    out = renderer.render_image(
+                        trainer.params["model"], eval_cams, vi, trainer.occ, trainer.model_config,
+                        appearance_id=int(eval_ds.appearance_ids[vi]), chunk=eval_chunk)
+                    psnr_v = float(metric_ops.psnr(torch.as_tensor(eval_ds.images[vi]),
+                                                   torch.as_tensor(out["rgb"])))
+                if logger is not None:
+                    logger.log(last, {"eval_psnr": psnr_v})
+                print(f"[eval-image @ {last}] view {vi} psnr {psnr_v:.2f}")
+            wait_for_main(it, k_eff, cfg.steps_per_eval_image, 0 if is_render else cfg.steps_per_eval_batch)
+            if ckpt_dir is not None and _covered(it + 1, cfg.steps_per_save, k_eff):
+                with spans.span("checkpoint", step=it):
+                    ckpt_lib.save_checkpoint(ckpt_dir, last, trainer)
+            if eval_ds is not None and base_dir is not None and _covered(
+                    it + 1, cfg.steps_per_eval_all_images, k_eff):
+                means = evaluation.average_eval_metrics(
+                    trainer, eval_ds, base_dir, chunk=eval_chunk, apply_cam_opt=apply_cam_opt,
+                    evs_only=evs_only)
+                print(f"[eval @ {last}] " + ", ".join(f"{k}={v:.4f}" for k, v in means.items()))
+            wait_for_main(it, k_eff, cfg.steps_per_eval_all_images)
+        if prof is not None:
             prof.stop()
-            prof = None
-        if _covered(it + 1, overflow_every, k_eff):
-            overflow = trainer.overflow_count(batch)
-            metrics = dict(metrics, grad_overflow=overflow)
-            if logger is not None:
-                logger.log(last, {"grad_overflow": float(overflow)})
-        if _covered(it, log_every, k_eff):
-            scal = {k: float(v) for k, v in metrics.items()}
-            if logger is not None:
-                logger.log(last, scal)
-            if callback is not None:
-                callback(last, scal)
-            if fail_fast and not math.isfinite(scal.get("loss", 0.0)):
-                raise RuntimeError(f"non-finite loss at step {last}: {scal}")
-            if _covered(it, print_every, k_eff) and logger is not None:
-                print(f"step {last}: " + ", ".join(f"{k}={v:.4f}" for k, v in scal.items()))
-        if eval_cams is not None and not is_render and _covered(it + 1, cfg.steps_per_eval_batch, k_eff):
-            nb = eval_batch_rays
-            vi = eval_batch_rng.integers(0, len(eval_ds), nb)
-            ys = eval_batch_rng.integers(0, eval_cams.height, nb)
-            xs = eval_batch_rng.integers(0, eval_cams.width, nb)
-            em = trainer.eval_batch(eval_cams, vi, np.stack([ys, xs], 1), eval_ds.images[vi, ys, xs],
-                                    eval_ds.appearance_ids[vi])
-            if logger is not None:
-                logger.log(last, {k: float(v) for k, v in em.items()})
-        if eval_ds is not None and _covered(it + 1, cfg.steps_per_eval_image, k_eff):
-            vi = int(np.random.default_rng(it).integers(0, len(eval_ds)))
-            out = renderer.render_image(
-                trainer.params["model"], eval_cams, vi, trainer.occ, trainer.model_config,
-                appearance_id=int(eval_ds.appearance_ids[vi]), chunk=eval_chunk)
-            psnr_v = float(metric_ops.psnr(torch.as_tensor(eval_ds.images[vi]),
-                                           torch.as_tensor(out["rgb"])))
-            if logger is not None:
-                logger.log(last, {"eval_psnr": psnr_v})
-            print(f"[eval-image @ {last}] view {vi} psnr {psnr_v:.2f}")
-        wait_for_main(it, k_eff, cfg.steps_per_eval_image, 0 if is_render else cfg.steps_per_eval_batch)
-        if ckpt_dir is not None and _covered(it + 1, cfg.steps_per_save, k_eff):
-            ckpt_lib.save_checkpoint(ckpt_dir, last, trainer)
-        if eval_ds is not None and base_dir is not None and _covered(
-                it + 1, cfg.steps_per_eval_all_images, k_eff):
-            means = evaluation.average_eval_metrics(
-                trainer, eval_ds, base_dir, chunk=eval_chunk, apply_cam_opt=apply_cam_opt,
-                evs_only=evs_only)
-            print(f"[eval @ {last}] " + ", ".join(f"{k}={v:.4f}" for k, v in means.items()))
-        wait_for_main(it, k_eff, cfg.steps_per_eval_all_images)
-    if prof is not None:
-        prof.stop()
-    if ckpt_dir is not None:
-        ckpt_lib.save_checkpoint(ckpt_dir, end - 1, trainer)
-    return {k: float(v) for k, v in metrics.items()}
+        if ckpt_dir is not None:
+            with spans.span("checkpoint"):
+                ckpt_lib.save_checkpoint(ckpt_dir, end - 1, trainer)
+        return {k: float(v) for k, v in metrics.items()}

@@ -30,6 +30,7 @@ from lsenerf_tpu_torch import resolve_device
 from lsenerf_tpu_torch.cameras import cameras as cam_lib
 from lsenerf_tpu_torch.cameras import pose_opt
 from lsenerf_tpu_torch.data.datamanager import MultiCamDataManager
+from lsenerf_tpu_torch.engine import spans
 from lsenerf_tpu_torch.engine.schedules import exponential_decay
 from lsenerf_tpu_torch.models import field as field_lib
 from lsenerf_tpu_torch.models import lsenerf as model_lib
@@ -200,6 +201,7 @@ class Trainer:
         self.occ = None
         self.step_count = 0
         self._chunks = {}  # k -> engine.chunk_graph.ChunkGraph
+        self._recapture = None  # why the graphs were last dropped, where they were
         self.chunk_losses = None  # each step's loss of the last chunk
         self._eager_note = False
 
@@ -272,7 +274,7 @@ class Trainer:
         from it."""
         if isinstance(rng, torch.Tensor):
             rng = {"occ": rng, "bg": rng[None]}
-        self.invalidate_graphs()
+        self.invalidate_graphs("set_rng_state")
         self._gen.set_state(rng["occ"])
         if self.rank < rng["bg"].shape[0]:
             self._bg_gen.set_state(rng["bg"][self.rank].clone())
@@ -280,16 +282,19 @@ class Trainer:
     def rebuild_optimizer(self) -> None:
         """A fresh optimizer (no moments, count 0) over the current leaves,
         as after a change to the tree (the test embedding's graft)."""
-        self.invalidate_graphs()
+        self.invalidate_graphs("new optimizer")
         self.optimizer, self.schedules, self.opt_paths = build_optimizer(self.config, self.params)
         self.opt_count = 0
 
-    def invalidate_graphs(self) -> None:
+    def invalidate_graphs(self, reason: str) -> None:
         """Drop the chunks' CUDA graphs: something they read was replaced
-        (the optimizer or Adam's state, a generator's state); the next
-        chunk of each k warms up and captures anew. A graph of another
+        (`reason`: the optimizer, Adam's state in a restore, a generator's
+        state); the next chunk of each k warms up and captures anew, the
+        capture counted under the last such reason. A graph of another
         model config (model_override, a replaced grid config) is replaced
         at its next chunk (train_chunk)."""
+        if self._chunks or self._recapture:
+            self._recapture = reason
         self._chunks.clear()
 
     # -- bundles -------------------------------------------------------------
@@ -374,6 +379,8 @@ class Trainer:
             v = np.asarray(v)
             dtype = torch.long if np.issubdtype(v.dtype, np.integer) else torch.float32
             out[k] = torch.as_tensor(v, dtype=dtype).to(self.device, non_blocking=True)
+        if spans.tracing():
+            spans.count("staged_bytes", sum(v.numel() * v.element_size() for v in out.values()))
         return out
 
     def _denerf(self) -> bool:
@@ -427,33 +434,35 @@ class Trainer:
         has_col, has_evs = self._has()
         cam_params = params["camera_opt"]
         col_out = prev_out = next_out = None
-        bundles, col_batch, evs_batch = self._step_bundles(cam_params, batch, step, gates)
-        sizes = [len(b) for b in bundles]
-        big = model_lib.concat_bundles(bundles) if len(bundles) > 1 else bundles[0]
+        with spans.layer("bundles"):
+            bundles, col_batch, evs_batch = self._step_bundles(cam_params, batch, step, gates)
+            sizes = [len(b) for b in bundles]
+            big = model_lib.concat_bundles(bundles) if len(bundles) > 1 else bundles[0]
         raw = model_lib.render_bundle(params["model"], big, occ, mcfg, train=True, bg_color=bg_color)
         overflow = raw.pop("grad_overflow", None)  # one count, not sliced by bundle
         offs = np.concatenate([[0], np.cumsum(sizes)]).tolist()
         cursor = 0
-        if has_col:
-            col_out = model_lib.postprocess_outputs(
-                params["model"], model_lib.slice_outputs(raw, offs[0], offs[1]),
-                mcfg, train=True, ev_out=False,
-            )
-            cursor = 1
-        if has_evs:
-            ev_outs = [
-                model_lib.postprocess_outputs(
-                    params["model"], model_lib.slice_outputs(raw, offs[j], offs[j + 1]),
-                    mcfg, train=True, ev_out=True,
+        with spans.layer("losses"):
+            if has_col:
+                col_out = model_lib.postprocess_outputs(
+                    params["model"], model_lib.slice_outputs(raw, offs[0], offs[1]),
+                    mcfg, train=True, ev_out=False,
                 )
-                for j in range(cursor, len(bundles))
-            ]
-            prev_out, next_out = ev_outs[0], ev_outs[-1]
-        loss_dict = model_lib.compute_losses(
-            params["model"], mcfg, col_out, prev_out, next_out, col_batch, evs_batch,
-            batch_sum=None if self.dp is None else self.dp.batch_sum,
-        )
-        total = sum(loss_dict.values())
+                cursor = 1
+            if has_evs:
+                ev_outs = [
+                    model_lib.postprocess_outputs(
+                        params["model"], model_lib.slice_outputs(raw, offs[j], offs[j + 1]),
+                        mcfg, train=True, ev_out=True,
+                    )
+                    for j in range(cursor, len(bundles))
+                ]
+                prev_out, next_out = ev_outs[0], ev_outs[-1]
+            loss_dict = model_lib.compute_losses(
+                params["model"], mcfg, col_out, prev_out, next_out, col_batch, evs_batch,
+                batch_sum=None if self.dp is None else self.dp.batch_sum,
+            )
+            total = sum(loss_dict.values())
         metrics = dict(loss_dict)
         if overflow is not None:
             metrics["grad_overflow"] = overflow.float()
@@ -504,8 +513,11 @@ class Trainer:
             bg_color = self._draw_background(self.num_rays(batch))
         for _, t in tree_leaves(self.params):
             t.grad = None
+        spans.mark("other")
         loss, metrics = self.loss_fn(self.params, self.occ, batch, self.step_count, bg_color)
-        loss.backward()
+        spans.mark("other")
+        with spans.layer("backward"):
+            loss.backward()
         grads = {p: torch.zeros_like(t) if t.grad is None else t.grad
                  for p, t in tree_leaves(self.params)}
         return loss, metrics, grads
@@ -515,7 +527,10 @@ class Trainer:
         under data parallelism this rank's share). Runs the occupancy
         update first every `update_interval` steps where `update_occ`, as
         the JAX training loop does (a render run's loop does not). Returns
-        detached metric tensors, under data parallelism the ranks' mean."""
+        detached metric tensors, under data parallelism the ranks' mean.
+        On the card, while a profiler runs, the step is one group of device
+        marks (engine/spans.py)."""
+        marks = spans.open_marks(self.device, 1)
         if update_occ and self.step_count % self.model_config.grid.update_interval == 0:
             self.occ_update()
         batch = self.batch_to_device(batch)
@@ -524,12 +539,16 @@ class Trainer:
             self.dp.average_grads([t.grad for _, t in tree_leaves(self.params) if t.grad is not None])
             metrics = self.dp.average_metrics(dict(metrics, loss=loss))
             loss = metrics.pop("loss")
+        spans.mark("other")
         if self.optimizer is not None:
-            set_lrs(self.optimizer, self.schedules, self.opt_count)
-            self.optimizer.step()
+            with spans.layer("adam"):
+                set_lrs(self.optimizer, self.schedules, self.opt_count)
+                self.optimizer.step()
             self.opt_count += 1
         self.step_count += 1
         metrics["loss"] = loss
+        spans.count("steps")
+        spans.close_marks(marks)
         return {k: v.detach() for k, v in metrics.items()}
 
     def make_train_step_multi(self, k: int):
@@ -549,9 +568,12 @@ class Trainer:
         return train_steps
 
     def _eager_chunk_reason(self) -> Optional[str]:
-        """Why a chunk on the card runs as k eager steps, or None: data
-        parallelism (the gradient all-reduce runs on the host over gloo)
-        and compact_chunk (one host sync a call) cannot be captured."""
+        """Why a chunk runs as k eager steps, or None: the CPU has no CUDA
+        graphs, and on the card data parallelism (the gradient all-reduce
+        runs on the host over gloo) and compact_chunk (one host sync a
+        call) cannot be captured."""
+        if self.device.type != "cuda":
+            return "no CUDA device"
         if self.dp is not None:
             return "data parallelism averages the gradients on the host"
         if self.model_config.compact_chunk > 0:
@@ -559,15 +581,16 @@ class Trainer:
         return None
 
     def train_chunk(self, stacked: dict) -> dict:
-        """One chunk of make_train_step_multi: on the CPU, and where
-        _eager_chunk_reason names a reason (said once), k eager steps; on
-        the card one CUDA graph (engine/chunk_graph.py)."""
+        """One chunk of make_train_step_multi: where _eager_chunk_reason
+        names a reason (said once on the card), k eager steps; else one CUDA
+        graph (engine/chunk_graph.py)."""
         k = len(next(iter(stacked.values())))
-        reason = self._eager_chunk_reason() if self.device.type == "cuda" else None
-        if self.device.type != "cuda" or reason is not None:
-            if reason is not None and not self._eager_note:
+        reason = self._eager_chunk_reason()
+        if reason is not None:
+            if self.device.type == "cuda" and not self._eager_note:
                 print(f"[lsenerf-torch] scan_steps: each chunk runs as {k} eager steps ({reason})")
                 self._eager_note = True
+            spans.count("eager_steps", k, reason)
             out = [self.step({key: v[j] for key, v in stacked.items()}, update_occ=False)
                    for j in range(k)]
             self.chunk_losses = torch.stack([m["loss"] for m in out])
@@ -576,11 +599,14 @@ class Trainer:
 
         cg = self._chunks.get(k)
         if cg is None or cg.model_config is not self.model_config:
-            cg = self._chunks[k] = ChunkGraph(self, k, stacked)
+            cause = "model config" if cg is not None else (self._recapture or "first")
+            self._recapture = None
+            cg = self._chunks[k] = ChunkGraph(self, k, stacked, cause)
         metrics, self.chunk_losses = cg.run(stacked)
         if self.optimizer is not None:
             self.opt_count += k
         self.step_count += k
+        spans.count("steps", k)
         return metrics
 
     @torch.no_grad()
@@ -643,7 +669,7 @@ class Trainer:
             return False
         # a capturable Adam keeps its step count on the device
         on_dev = self.optimizer.param_groups[0]["capturable"]
-        self.invalidate_graphs()
+        self.invalidate_graphs("restore")
         for p, st in adam.items():
             t = leaves[p]
             self.optimizer.state[t] = {
@@ -676,24 +702,28 @@ class Trainer:
         of them; the others' are -inf, which the max-scatter leaves as the
         decayed grid, and an all-reduce MAX of the ranks' grids makes the
         whole update, the same on every rank."""
-        mcfg = self.model_config
-        gcfg = mcfg.grid
-        if cell_ids is None:
-            cell_ids, positions = occ_lib.sample_update_positions(
-                self._gen, gcfg, occ_lib.num_update_cells(gcfg), self.device
-            )
-        flat = positions.reshape(-1, 3)
-        lo, hi = (0, flat.shape[0]) if self.dp is None else self.dp.share(flat.shape[0])
-        field_params = self.params["model"]["field"]
-        step_size = mcfg.march_config().render_step_size
-        dens = torch.full((flat.shape[0],), float("-inf"), device=flat.device)
-        for i in range(lo, hi, OCC_CHUNK):
-            j = min(i + OCC_CHUNK, hi)
-            dens[i:j] = field_lib.density_fn(field_params, flat[i:j], mcfg.field)[:, 0] * step_size
-        occs = occ_lib.scatter_update(self.occ.occs, cell_ids, dens.reshape(cell_ids.shape), gcfg)
-        if self.dp is not None:
-            self.dp.max_(occs)
-        self.occ = occ_lib.OccGridState(occs=occs, binaries=occ_lib.binarize(occs, gcfg))
+        marks = spans.open_marks(self.device, 0)
+        with spans.layer("occupancy update"):
+            mcfg = self.model_config
+            gcfg = mcfg.grid
+            if cell_ids is None:
+                cell_ids, positions = occ_lib.sample_update_positions(
+                    self._gen, gcfg, occ_lib.num_update_cells(gcfg), self.device
+                )
+            flat = positions.reshape(-1, 3)
+            lo, hi = (0, flat.shape[0]) if self.dp is None else self.dp.share(flat.shape[0])
+            field_params = self.params["model"]["field"]
+            step_size = mcfg.march_config().render_step_size
+            dens = torch.full((flat.shape[0],), float("-inf"), device=flat.device)
+            for i in range(lo, hi, OCC_CHUNK):
+                j = min(i + OCC_CHUNK, hi)
+                dens[i:j] = field_lib.density_fn(field_params, flat[i:j], mcfg.field)[:, 0] * step_size
+            occs = occ_lib.scatter_update(self.occ.occs, cell_ids, dens.reshape(cell_ids.shape), gcfg)
+            if self.dp is not None:
+                self.dp.max_(occs)
+            self.occ = occ_lib.OccGridState(occs=occs, binaries=occ_lib.binarize(occs, gcfg))
+        spans.count("occ_updates")
+        spans.close_marks(marks)
 
 
 def _as_leaves(tree: dict, device) -> dict:

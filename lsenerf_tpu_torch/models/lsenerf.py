@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from lsenerf_tpu_torch.cameras.rays import RayBundle
+from lsenerf_tpu_torch.engine import spans
 from lsenerf_tpu_torch.models import field as field_lib
 from lsenerf_tpu_torch.models import losses as loss_lib
 from lsenerf_tpu_torch.models import mappers as mapper_lib
@@ -154,29 +155,31 @@ def render_bundle(
     (the JAX package draws them from its step rng, the caller draws them
     here), and without them the render has none, as JAX's has without an
     rng. Eval renders have no background."""
-    samples = march.march_rays(bundle, occ_state, config.grid, config.march_config(train))
+    with spans.layer("march"):
+        samples = march.march_rays(bundle, occ_state, config.grid, config.march_config(train))
     n, k = samples.mask.shape
 
     app_id = bundle.metadata.get("appearance_id")
     if app_id is None:
         app_id = bundle.camera_indices
-    # one id a ray: the field repeats each ray's code over its k samples
-    if config.compact_chunk and n * k > config.compact_chunk:
-        density, rgb = _compact_field_eval(
-            params["field"], samples.positions.reshape(-1, 3), samples.directions.reshape(-1, 3),
-            app_id.reshape(n, 1).expand(n, k).reshape(-1), samples.mask.reshape(-1), config, train)
-    elif config.field.coarse_stride > 1 and k > config.field.coarse_stride:
-        # the strided coarse-level encode lerps along each ray's samples
-        t_mid = 0.5 * (samples.t_starts + samples.t_ends)
-        density, rgb = field_lib.field_apply_strided(
-            params["field"], samples.positions, t_mid, samples.directions.reshape(-1, 3),
-            app_id.reshape(n), config.field, train=train,
-        )
-    else:
-        density, rgb = field_lib.field_apply(
-            params["field"], samples.positions.reshape(-1, 3),
-            samples.directions.reshape(-1, 3), app_id.reshape(n), config.field, train=train,
-        )
+    with spans.layer("field"):
+        # one id a ray: the field repeats each ray's code over its k samples
+        if config.compact_chunk and n * k > config.compact_chunk:
+            density, rgb = _compact_field_eval(
+                params["field"], samples.positions.reshape(-1, 3), samples.directions.reshape(-1, 3),
+                app_id.reshape(n, 1).expand(n, k).reshape(-1), samples.mask.reshape(-1), config, train)
+        elif config.field.coarse_stride > 1 and k > config.field.coarse_stride:
+            # the strided coarse-level encode lerps along each ray's samples
+            t_mid = 0.5 * (samples.t_starts + samples.t_ends)
+            density, rgb = field_lib.field_apply_strided(
+                params["field"], samples.positions, t_mid, samples.directions.reshape(-1, 3),
+                app_id.reshape(n), config.field, train=train,
+            )
+        else:
+            density, rgb = field_lib.field_apply(
+                params["field"], samples.positions.reshape(-1, 3),
+                samples.directions.reshape(-1, 3), app_id.reshape(n), config.field, train=train,
+            )
     density = density.reshape(n, k, 1)
     rgb = rgb.reshape(n, k, 3)
 
@@ -186,9 +189,10 @@ def render_bundle(
     background = config.background_color if train else "linear"
     if background == "random" and bg_color is None:
         background = "linear"
-    rgb_out, depth, acc = composite.composite(
-        density, rgb, samples, alpha_thre, config.early_stop_eps,
-        bg_color if background == "random" else None, background)
+    with spans.layer("composite"):
+        rgb_out, depth, acc = composite.composite(
+            density, rgb, samples, alpha_thre, config.early_stop_eps,
+            bg_color if background == "random" else None, background)
     out = {
         "rgb": rgb_out,
         "depth": depth,

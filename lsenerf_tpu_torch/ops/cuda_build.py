@@ -19,6 +19,8 @@ from pathlib import Path
 
 import torch
 
+from lsenerf_tpu_torch.engine import spans
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -29,7 +31,9 @@ NVCC_FLAGS = (
 
 
 class Kernel:
-    """A kernel's name and its launch count (one per launch, nowhere else)."""
+    """A kernel's name and its launch count (one per launch, nowhere else;
+    a launch outside a CUDA-graph capture is also counted in the open run of
+    engine/spans.py while a profiler runs)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -40,6 +44,7 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: cudaError {err}")
         self.launches += 1
+        spans.launched(self.name)
 
 
 def _nvcc() -> str:

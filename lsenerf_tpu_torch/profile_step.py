@@ -25,13 +25,12 @@ host ms a step: bundles (the rays), march, field, composite, losses (the
 mappers' post-processing and the losses), backward (every kernel the
 autograd backward launches, the composite's and the encode's included),
 adam, and the rest ("other": batch copies, the background, metrics); then
-one occupancy update, traced alone, and its share a step (1 in 16). For
-the trace each layer's functions run inside a torch.profiler.record_function
-range ("layer:<name>"), patched in by name for the duration, so the same
-script measures a tree that names them the same (the parent of a change,
-unpacked beside it: copy this file into it and run it there). A kernel
-counts in the outermost layer range that was open on the host when its
-launching op started.
+one occupancy update, traced alone, and its share a step (1 in 16). The
+layers are the program's own "layer:<name>" ranges (engine/spans.py),
+which it opens while a profiler runs; a kernel counts in the outermost
+layer range that was open on the host when its launching op started.
+Beside that table it prints each layer's device ms a step from the
+program's device marks, the events it records at each layer's end.
 
 With `--scan-steps k` (k > 1) the steps run as the CLI runs them, k a
 chunk through Trainer.make_train_step_multi (one replayed CUDA graph;
@@ -41,8 +40,11 @@ untraced and the next traced, each without its occupancy update. It
 prints ms a step of both, the device's busy time a step and its idle
 share over the traced chunk, the host's launches a chunk (graph launches,
 kernel launches, copies) and the kernels the replay ran (the graph's
-nodes), and the kernels by device time; the layer table needs the
-Python of each step, which a replay does not run.
+nodes), the kernels by device time, and from the program's store
+(spans.snapshot()) the replay's device ms a step by layer (the marks the
+graph records in its marked step, ChunkGraph.marked_steps), its counters
+(steps, replays, launches with the replay's, staged bytes) and the host
+ms of its spans.
 Needs a CUDA device.
 """
 
@@ -50,69 +52,12 @@ from __future__ import annotations
 
 import argparse
 import bisect
-import contextlib
-import functools
 import os
 import subprocess
 import sys
 
 LAYERS = ("bundles", "march", "field", "composite", "losses", "backward", "adam",
           "occupancy update")
-
-
-def _layer_targets(trainer) -> list:
-    """(owner, attribute, layer) of every function a layer runs, where the
-    tree has it."""
-    import torch
-
-    from lsenerf_tpu_torch.models import field as field_lib
-    from lsenerf_tpu_torch.models import lsenerf as model_lib
-    from lsenerf_tpu_torch.ops import composite, march
-
-    want = [
-        (trainer, "_make_col_bundle", "bundles"), (trainer, "_make_evs_bundles", "bundles"),
-        (model_lib, "concat_bundles", "bundles"),
-        (march, "march_rays", "march"),
-        (field_lib, "field_apply", "field"), (field_lib, "field_apply_strided", "field"),
-        (model_lib, "_compact_field_eval", "field"),
-        # this tree's one call, or the chain of four its parent made
-        (composite, "composite", "composite"), (composite, "render_weights", "composite"),
-        (composite, "render_rgb", "composite"), (composite, "render_depth", "composite"),
-        (composite, "render_accumulation", "composite"),
-        (model_lib, "postprocess_outputs", "losses"), (model_lib, "compute_losses", "losses"),
-        (torch.Tensor, "backward", "backward"),
-        (trainer.optimizer, "step", "adam"),
-        (trainer, "occ_update", "occupancy update"),
-    ]
-    return [t for t in want if t[0] is not None and hasattr(t[0], t[1])]
-
-
-@contextlib.contextmanager
-def layer_ranges(trainer):
-    """Each layer's functions inside record_function("layer:<name>") for
-    the duration; the originals back after."""
-    import torch
-
-    saved = []
-    for owner, name, layer in _layer_targets(trainer):
-        fn = getattr(owner, name)
-        had = isinstance(owner, type) or name in getattr(owner, "__dict__", {})
-
-        def wrapped(*args, _fn=fn, _layer=layer, **kw):
-            with torch.profiler.record_function(f"layer:{_layer}"):
-                return _fn(*args, **kw)
-
-        functools.update_wrapper(wrapped, fn)
-        saved.append((owner, name, fn, had))
-        setattr(owner, name, wrapped)
-    try:
-        yield
-    finally:
-        for owner, name, fn, had in reversed(saved):
-            if had:
-                setattr(owner, name, fn)
-            else:
-                delattr(owner, name)
 
 
 def layer_table(events, steps: int) -> dict:
@@ -149,6 +94,25 @@ def print_layers(title: str, table: dict) -> None:
     print(f"  {'total':17s} {tot[0]:8.1f} launches  {tot[1]:8.4f} ms device")
 
 
+def print_marks(title: str, run: dict) -> None:
+    """A run of the program's store (engine/spans.py): the device ms a
+    marked step by layer from its device marks (all of them where it marks
+    no step), its counters, and the host ms of its spans by name."""
+    c = run["counters"]
+    n = c["marked_steps"] or 1
+    dev = run["device_ms"]
+    print(f"{title}: device ms by layer from the program's marks, over {c['marked_steps']} "
+          f"marked steps ({c['steps']} steps run)")
+    for name, ms in sorted(dev.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:17s} {ms / n:8.4f} ms device")
+    print(f"  {'marked':17s} {sum(dev.values()) / n:8.4f} ms device")
+    print("  counters: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+    host = {}
+    for sp in run["spans"]:
+        host[sp["name"]] = host.get(sp["name"], 0.0) + (sp["end_ns"] - sp["start_ns"]) / 1e6
+    print("  host ms of its spans: " + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+
+
 def _busy_ms(events) -> float:
     """Union length of the device intervals (ms)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -170,6 +134,7 @@ def profile_chunk(trainer, label: str, card: str, args) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from lsenerf_tpu_torch.engine import spans
     from lsenerf_tpu_torch.engine.loop import _covered
 
     k = args.scan_steps
@@ -199,8 +164,10 @@ def profile_chunk(trainer, label: str, card: str, args) -> int:
     untraced_ms = timed(2)
     occ(3)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, spans.run():
         step_ms = timed(3)
+    replay_run, = spans.snapshot()
     events = prof.events()
     dev_events = [e for e in events if e.device_type.name == "CUDA"
                   and not getattr(e, "is_user_annotation", False)]
@@ -219,6 +186,7 @@ def profile_chunk(trainer, label: str, card: str, args) -> int:
           f"({len(dev_events) / k:.0f} a step)")
     print(f"  host calls a chunk: " + ", ".join(f"{n} {c}" for n, c in sorted(host.items())))
     print(f"  kernels captured in the graph by the wrappers: {cg.launches}")
+    print_marks(f"{label} replayed chunk", replay_run)
     kern = {}
     for e in dev_events:
         v = kern.setdefault(e.name, [0.0, 0])
@@ -256,6 +224,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from lsenerf_tpu_torch.engine import spans
     from lsenerf_tpu_torch.flagship import preset_trainer
 
     if not torch.cuda.is_available():
@@ -297,13 +266,14 @@ def main(argv=None) -> int:
         return a.elapsed_time(z) / len(steps)
 
     untraced_ms = timed(batches[args.warm : traced_from])
-    with layer_ranges(trainer), profile(activities=[ProfilerActivity.CPU,
-                                                    ProfilerActivity.CUDA]) as prof:
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, spans.run():
         step_ms = timed(batches[traced_from:])
-    with layer_ranges(trainer), profile(activities=[ProfilerActivity.CPU,
-                                                    ProfilerActivity.CUDA]) as occ_prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as occ_prof, \
+            spans.run():
         trainer.occ_update()
         torch.cuda.synchronize()
+    steps_run, occ_run = spans.snapshot()
 
     # device-side events, without the user-annotation spans (such as
     # Optimizer.step) that cover other kernels
@@ -341,8 +311,10 @@ def main(argv=None) -> int:
             print(f"  index kernel {k[:70]}: {t / args.steps:.4f} ms/step, "
                   f"{c / args.steps:.1f} launches/step")
     print_layers(f"{label} step, traced (layer ranges on)", layer_table(prof.events(), args.steps))
+    print_marks(f"{label} step", steps_run)
     occ = layer_table(occ_prof.events(), 1)
     print_layers("one occupancy update, traced alone", occ)
+    print_marks("one occupancy update", occ_run)
     n_occ, dev_occ = sum(v[0] for v in occ.values()), sum(v[1] for v in occ.values())
     print(f"  a step's share at 1 update in {interval} steps: {n_occ / interval:.1f} launches, "
           f"{dev_occ / interval:.4f} ms device")
