@@ -70,6 +70,11 @@ Phases, each fatal on failure (exit code 1):
      bound (K3's the larger of its bytes and its f32 operations,
      march_ops), K5a/K5b also beside the launch floor (an empty kernel on
      their grid), at 96 and 200 samples too;
+  3e. Adam alone on the 64 MiB f32 table of both train cells and a few small
+     leaves (check_adam): the foreach capturable update build_optimizer
+     made before against its fused capturable one, device ms a step as
+     graph replays beside the bound of one pass, host us a step, and one
+     eager step of each traced (its kernels);
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
@@ -1019,6 +1024,78 @@ def check_march_composite(dev):
     for k in (composite.K5A, composite.K5B):
         res[k.name].update(res[k.name]["shapes"].pop("step"))
     print(f"phase 3d in {time.time() - t0:.1f} s")
+    return res
+
+
+# Adam's leaves in check_adam: the 64 MiB f32 table of both train cells
+# (16 levels x 2^19 rows x F 2, the same 16.8 M values as 16 x 2^14 x 64)
+# and leaves of the MLPs' and the cameras' sizes
+ADAM_TABLE = (16 << 19, 2)
+ADAM_SMALL = ((32, 64), (64,), (64, 64), (64, 16), (16,), (200, 6))
+
+
+def check_adam(dev) -> dict:
+    """Phase 3e: Adam alone on ADAM_TABLE and ADAM_SMALL, one gradient each
+    (a quarter of the table's rows zero), the optimizer build_optimizer
+    makes (fused, capturable, the lr a device tensor) against the foreach
+    capturable one it made before: each one's device ms a step
+    (timing.device_ms: 20 steps in one CUDA graph, replayed), beside the
+    bound of one pass (parameter, gradient and both moments read, three
+    written, at HBM_BYTES_PER_S), its host us a step, and one eager step
+    traced (launches and the kernels by device time). The two updates'
+    parity is the card tests' (tests/test_torch_kernels_card.py). Returns
+    {"fused": ..., "foreach": ...}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lsenerf_tpu_torch.engine.trainer import TrainerConfig, build_optimizer, set_lrs
+    from lsenerf_tpu_torch.timing import device_ms, host_us
+
+    t0 = time.time()
+    g = torch.Generator(device=dev).manual_seed(22)
+    shapes = {"table": ADAM_TABLE, **{f"small{i}": s for i, s in enumerate(ADAM_SMALL)}}
+    init = {k: torch.randn(s, generator=g, device=dev) * 1e-2 for k, s in shapes.items()}
+    grads = {k: torch.randn(s, generator=g, device=dev) for k, s in shapes.items()}
+    grads["table"][torch.rand(ADAM_TABLE[0], generator=g, device=dev) < 0.25] = 0.0
+    nbytes = 7 * sum(v.numel() * v.element_size() for v in init.values())
+    b_ms, b_by = bound(nbytes, 0)
+
+    res = {}
+    for kind in ("foreach", "fused"):
+        params = {"model": {k: v.clone() for k, v in init.items()}, "camera_opt": {}}
+        opt, schedules, _ = build_optimizer(TrainerConfig(), params)
+        if kind == "foreach":
+            groups = [{k: v for k, v in grp.items() if k in ("params", "lr", "eps", "name")}
+                      for grp in opt.param_groups]
+            opt = torch.optim.Adam(groups, betas=(0.9, 0.999), capturable=True, foreach=True)
+            opt._warned_capturable_if_run_uncaptured = True
+        for k, t in params["model"].items():
+            t.grad = grads[k]
+        set_lrs(opt, schedules, 0)
+        group = opt.param_groups[0]
+        r = res[kind] = dict(fused=bool(group["fused"]), capturable=bool(group["capturable"]),
+                             device_ms=device_ms(opt.step), host_us=host_us(opt.step, calls=100),
+                             bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            opt.step()
+            torch.cuda.synchronize()
+        kern = {}
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                k = kern.setdefault(e.name, [0.0, 0])
+                k[0] += (e.time_range.end - e.time_range.start) / 1e3
+                k[1] += 1
+        r["launches"] = sum(n for _, n in kern.values())
+        r["kernels"] = sorted(((name[:90], ms, n) for name, (ms, n) in kern.items()),
+                              key=lambda x: -x[1])[:8]
+        print(f"Adam {kind} capturable on the 64 MiB table and {len(ADAM_SMALL)} small leaves: "
+              f"{r['device_ms']:.5f} ms on the device a step (graph replay), {r['host_us']:.1f} us "
+              f"of host a step; bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes); one eager step "
+              f"traced: {r['launches']} launches")
+        for name, ms, n in r["kernels"]:
+            print(f"    {ms:8.5f} ms {n:4d}x  {name}")
+    print(f"phase 3e in {time.time() - t0:.1f} s")
     return res
 
 
@@ -2423,6 +2500,7 @@ def main() -> int:
     res.update(check_ngp(dev))
     res.update(check_generic(dev))
     res.update(check_march_composite(dev))
+    check_adam(dev)
     so3 = CameraOptConfig(mode="SO3xR3")
     check_small_step(dev, "ns SO3xR3", so3, so3)
     check_small_step(dev, "spline + deblur, SE3 event deltas",

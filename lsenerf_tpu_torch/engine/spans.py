@@ -28,10 +28,12 @@ marked steps of a chunk's graph, whose events each replay records again (a
 replay's group is read before the next replay: `read_pending`), or an eager
 step or occupancy update on the card. A group's first mark starts it.
 
-Counters, a run's: "steps" (train steps run), "marked_steps" (steps whose
-device marks were read), "replays", "captures" and "eager_steps" (by
-reason), "occ_updates", "staged_bytes" (host to device), "launches" (each
-kernel's launches, a replay's counted as the kernels its graph holds).
+Counters, a run's: "steps" (train steps run), "adam_fused_steps" (Adam
+updates run, each torch's fused one, the only one build_optimizer makes; a
+replay's counted as its k steps), "marked_steps" (steps whose device marks
+were read), "replays", "captures" and "eager_steps" (by reason),
+"occ_updates", "staged_bytes" (host to device), "launches" (each kernel's
+launches, a replay's counted as the kernels its graph holds).
 
 The store is process-wide and bounded (MAX_RUNS runs, MAX_SPANS spans a
 run; what does not fit is counted as dropped), so it outlives the Trainer:
@@ -89,8 +91,9 @@ class _Record:
     def __init__(self, run_id: int):
         self.id, self.spans, self.dropped_spans, self.step = run_id, [], 0, None
         self.device_ms = {}
-        self.counters = {"steps": 0, "marked_steps": 0, "replays": 0, "captures": {},
-                         "eager_steps": {}, "occ_updates": 0, "staged_bytes": 0, "launches": {}}
+        self.counters = {"steps": 0, "adam_fused_steps": 0, "marked_steps": 0, "replays": 0,
+                         "captures": {}, "eager_steps": {}, "occ_updates": 0, "staged_bytes": 0,
+                         "launches": {}}
 
 
 def _record():

@@ -127,15 +127,23 @@ def build_optimizer(config: TrainerConfig, params: dict):
     per-group schedules, per-group leaf paths), the optimizer None where
     nothing trains; the caller sets each group's lr to schedule(count)
     before the update (set_lrs), count = updates this optimizer has made,
-    the count optax passes to its schedule. On CUDA the optimizer is
-    capturable, with each group's lr a device tensor, so that a CUDA graph
-    can hold its steps; eager steps there take the same arithmetic."""
+    the count optax passes to its schedule. The update is torch's fused
+    one, one pass over each leaf's parameter, gradient and moments, on the
+    card and on the CPU alike; a trained leaf has to be a dense float
+    tensor (ValueError names one that is not). On CUDA the optimizer is
+    also capturable, with each group's lr a device tensor, so that a CUDA
+    graph can hold its steps; eager steps there take the same arithmetic."""
     groups, schedules, paths = [], [], []
     capturable = False
     for name, g in (("model", config.fields_optimizer), ("camera_opt", config.camera_optimizer)):
         leaves = [(p, t) for p, t in tree_leaves(params[name], name) if trainable(config.mode, p)]
         if not leaves:
             continue
+        for p, t in leaves:
+            if not (t.is_floating_point() and t.is_contiguous()):
+                raise ValueError(f"Adam's fused update takes dense float leaves; {p} is a "
+                                 f"{t.dtype} tensor of strides {t.stride()} and shape "
+                                 f"{tuple(t.shape)}: make it contiguous where it is created")
         capturable = leaves[0][1].is_cuda
         lr = torch.tensor(g.lr, dtype=torch.float32, device=leaves[0][1].device) if capturable else g.lr
         groups.append({"params": [t for _, t in leaves], "lr": lr, "eps": g.eps, "name": name})
@@ -143,7 +151,7 @@ def build_optimizer(config: TrainerConfig, params: dict):
         paths.append([p for p, _ in leaves])
     optimizer = None
     if groups:
-        optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999), capturable=capturable)
+        optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999), capturable=capturable, fused=True)
         # eager steps of a capturable Adam are meant here: no warning for them
         optimizer._warned_capturable_if_run_uncaptured = True
     return optimizer, schedules, paths
@@ -544,6 +552,7 @@ class Trainer:
             with spans.layer("adam"):
                 set_lrs(self.optimizer, self.schedules, self.opt_count)
                 self.optimizer.step()
+                spans.count("adam_fused_steps")
             self.opt_count += 1
         self.step_count += 1
         metrics["loss"] = loss
@@ -605,6 +614,7 @@ class Trainer:
         metrics, self.chunk_losses = cg.run(stacked)
         if self.optimizer is not None:
             self.opt_count += k
+            spans.count("adam_fused_steps", k)
         self.step_count += k
         spans.count("steps", k)
         return metrics
@@ -667,13 +677,14 @@ class Trainer:
         if set(adam) - set(leaves) or any(
                 adam[p]["exp_avg"].shape != leaves[p].shape for p in adam):
             return False
-        # a capturable Adam keeps its step count on the device
-        on_dev = self.optimizer.param_groups[0]["capturable"]
+        # the fused Adam reads each leaf's step count on the leaf's device, in
+        # f32; a checkpoint may hold it on the CPU or in f64
         self.invalidate_graphs("restore")
         for p, st in adam.items():
             t = leaves[p]
             self.optimizer.state[t] = {
-                k: v.to(t.device) if k != "step" or on_dev else v.clone() for k, v in st.items()}
+                k: v.to(t.device, torch.float32, copy=True) if k == "step" else v.to(t.device)
+                for k, v in st.items()}
         self.opt_count = int(count)
         return True
 

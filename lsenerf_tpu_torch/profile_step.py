@@ -24,7 +24,8 @@ It also prints, for each layer of the step, its launches, device ms and
 host ms a step: bundles (the rays), march, field, composite, losses (the
 mappers' post-processing and the losses), backward (every kernel the
 autograd backward launches, the composite's and the encode's included),
-adam, and the rest ("other": batch copies, the background, metrics); then
+adam, and the rest ("other": batch copies, the background, metrics), each
+with its top kernels by device time; then
 one occupancy update, traced alone, and its share a step (1 in 16). The
 layers are the program's own "layer:<name>" ranges (engine/spans.py),
 which it opens while a profiler runs; a kernel counts in the outermost
@@ -60,10 +61,11 @@ LAYERS = ("bundles", "march", "field", "composite", "losses", "backward", "adam"
           "occupancy update")
 
 
-def layer_table(events, steps: int) -> dict:
-    """{layer: (launches, device ms, host ms) a step} of a trace's events:
-    each device kernel counts in the outermost "layer:" range open on the
-    host when the op that launched it started ("other" where none was)."""
+def _by_layer(events):
+    """(outermost "layer:" ranges as (start, end, name), [(layer, op)] for
+    each op that launched device kernels): an op counts in the outermost
+    "layer:" range open on the host when it started ("other" where none
+    was)."""
     ranges = sorted(
         (e.time_range.start, e.time_range.end, e.name[len("layer:"):]) for e in events
         if e.name.startswith("layer:") and e.device_type.name == "CPU")
@@ -73,23 +75,49 @@ def layer_table(events, steps: int) -> dict:
             outer.append(r)
             end = r[1]
     starts = [r[0] for r in outer]
-    table = {name: [0, 0.0, 0.0] for name in LAYERS + ("other",)}
-    for a, b, name in outer:
-        table[name][2] += (b - a) / 1e3
+    ops = []
     for e in events:
         if e.device_type.name != "CPU" or not e.kernels:
             continue
         i = bisect.bisect_right(starts, e.time_range.start) - 1
-        name = outer[i][2] if i >= 0 and e.time_range.start < outer[i][1] else "other"
+        ops.append((outer[i][2] if i >= 0 and e.time_range.start < outer[i][1] else "other", e))
+    return outer, ops
+
+
+def layer_table(events, steps: int) -> dict:
+    """{layer: (launches, device ms, host ms) a step} of a trace's events:
+    each device kernel counts in the outermost "layer:" range open on the
+    host when the op that launched it started ("other" where none was)."""
+    outer, ops = _by_layer(events)
+    table = {name: [0, 0.0, 0.0] for name in LAYERS + ("other",)}
+    for a, b, name in outer:
+        table[name][2] += (b - a) / 1e3
+    for name, e in ops:
         table[name][0] += len(e.kernels)
         table[name][1] += sum(k.duration for k in e.kernels) / 1e3
     return {k: (v[0] / steps, v[1] / steps, v[2] / steps) for k, v in table.items()}
 
 
-def print_layers(title: str, table: dict) -> None:
+def layer_kernels(events, steps: int, top: int = 4) -> dict:
+    """{layer: its `top` kernels by device time, each (name, device ms,
+    launches) a step}, kernels assigned to layers as layer_table does."""
+    by = {}
+    for name, e in _by_layer(events)[1]:
+        for k in e.kernels:
+            v = by.setdefault(name, {}).setdefault(k.name, [0.0, 0])
+            v[0] += k.duration / 1e3
+            v[1] += 1
+    return {layer: [(k, ms / steps, n / steps) for k, (ms, n) in
+                    sorted(ks.items(), key=lambda kv: -kv[1][0])[:top]]
+            for layer, ks in by.items()}
+
+
+def print_layers(title: str, table: dict, kernels: dict = None) -> None:
     print(f"{title}: launches, device ms and host ms a step by layer")
     for name, (n, dev, host) in table.items():
         print(f"  {name:17s} {n:8.1f} launches  {dev:8.4f} ms device  {host:8.3f} ms host")
+        for kname, ms, kn in (kernels or {}).get(name, []):
+            print(f"      {ms:8.4f} ms {kn:6.1f}x  {kname[:90]}")
     tot = [sum(v[i] for v in table.values()) for i in range(2)]
     print(f"  {'total':17s} {tot[0]:8.1f} launches  {tot[1]:8.4f} ms device")
 
@@ -102,7 +130,8 @@ def print_marks(title: str, run: dict) -> None:
     n = c["marked_steps"] or 1
     dev = run["device_ms"]
     print(f"{title}: device ms by layer from the program's marks, over {c['marked_steps']} "
-          f"marked steps ({c['steps']} steps run)")
+          f"marked steps ({c['steps']} steps run, {c.get('adam_fused_steps', 0)} of them "
+          "through the fused Adam)")
     for name, ms in sorted(dev.items(), key=lambda kv: -kv[1]):
         print(f"  {name:17s} {ms / n:8.4f} ms device")
     print(f"  {'marked':17s} {sum(dev.values()) / n:8.4f} ms device")
@@ -310,7 +339,8 @@ def main(argv=None) -> int:
         if "index" in k.lower():
             print(f"  index kernel {k[:70]}: {t / args.steps:.4f} ms/step, "
                   f"{c / args.steps:.1f} launches/step")
-    print_layers(f"{label} step, traced (layer ranges on)", layer_table(prof.events(), args.steps))
+    print_layers(f"{label} step, traced (layer ranges on)", layer_table(prof.events(), args.steps),
+                 layer_kernels(prof.events(), args.steps))
     print_marks(f"{label} step", steps_run)
     occ = layer_table(occ_prof.events(), 1)
     print_layers("one occupancy update, traced alone", occ)

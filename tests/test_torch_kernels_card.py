@@ -14,8 +14,12 @@ table and index shapes; K3 (lsenerf_tpu_torch/ops/march.py) at the
 flagship's widths on three grids and past its static layout (96 slots and
 coarse segments, 4096 candidates), its selection bit for bit, and K5a/K5b
 (lsenerf_tpu_torch/ops/composite.py) at 1 to 200 samples a ray for every
-background; and scan_steps' chunk graph (lsenerf_tpu_torch/engine/
-chunk_graph.py) against eager steps, and a capture that fails.
+background; scan_steps' chunk graph (lsenerf_tpu_torch/engine/
+chunk_graph.py) against eager steps, and a capture that fails; and the
+fused capturable Adam (engine/trainer.py::build_optimizer) on the 64 MiB
+table: 16 replayed steps bit for bit its eager steps, within f32 rounding
+of the foreach Adam it replaced, and a checkpoint of that foreach Adam
+loading into it.
 
 This file imports neither JAX nor the JAX package, so a machine with the
 card and without JAX runs it on its own, skipping the JAX conftest:
@@ -30,6 +34,7 @@ import torch
 
 from lsenerf_tpu_torch.ops import combine, gather, ngp
 from lsenerf_tpu_torch.ops import hash_encoding as the
+from test_torch_adam import _foreach_adam
 
 # 5 levels, res 4..64: levels 0-2 dense, 3-4 hashed (2^10 rows)
 T_CFG = the.HashEncodingConfig(num_levels=5, base_res=4, max_res=64, layout="blocked",
@@ -981,3 +986,155 @@ def test_chunk_graph_capture_error_propagates(monkeypatch):
     with pytest.raises(RuntimeError, match="capturing 2 train steps as one CUDA graph failed at"):
         fn(tr.dm.next_train_stack(2, 2))
     assert tr.step_count == 2
+
+
+# -- Adam (lsenerf_tpu_torch/engine/trainer.py::build_optimizer) -----------------
+
+ADAM_TABLE = (16 << 19, 2)  # the 64 MiB f32 table of both benchmark train cells
+ADAM_SMALL = {"model/w0": (32, 64), "model/b0": (64,), "model/w1": (64, 64),
+              "camera_opt/pose": (200, 6)}
+
+
+def _adam_inputs(dev, steps):
+    """Starting values of the table and the small leaves, and `steps`
+    gradients of each (a quarter of the table's rows zero, as rows no
+    sample touched)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    shapes = {"model/table": ADAM_TABLE, **ADAM_SMALL}
+    init = {p: torch.randn(s, generator=g, device=dev) * 1e-2 for p, s in shapes.items()}
+    grads = []
+    for _ in range(steps):
+        step = {p: torch.randn(s, generator=g, device=dev) for p, s in shapes.items()}
+        step["model/table"][torch.rand(ADAM_TABLE[0], generator=g, device=dev) < 0.25] = 0.0
+        grads.append(step)
+    return init, grads
+
+
+def _adam(init, foreach=False):
+    """build_optimizer's Adam over copies of `init` ({path: tensor}), or the
+    foreach one it replaced: (optimizer, schedules, {path: leaf})."""
+    from lsenerf_tpu_torch.engine import trainer as ttr
+
+    params = {"model": {}, "camera_opt": {}}
+    for p, v in init.items():
+        top, name = p.split("/")
+        params[top][name] = v.clone()
+    opt, schedules, _ = ttr.build_optimizer(ttr.TrainerConfig(), params)
+    return _foreach_adam(opt) if foreach else opt, schedules, dict(ttr.tree_leaves(params))
+
+
+def _adam_steps(opt, schedules, leaves, grads):
+    from lsenerf_tpu_torch.engine import trainer as ttr
+
+    for j, step in enumerate(grads):
+        for p, t in leaves.items():
+            t.grad = step[p]
+        ttr.set_lrs(opt, schedules, j)
+        opt.step()
+
+
+@pytest.mark.cuda
+def test_fused_adam_replayed_is_its_eager_steps_on_card():
+    """16 steps of build_optimizer's Adam (fused, capturable, each group's lr
+    a device tensor) on the 64 MiB table and small leaves, captured in one
+    CUDA graph (each step's gradients and lrs copied in, as ChunkGraph
+    does) and replayed, equal 16 eager steps bit for bit: parameters,
+    moments and counts. The capture follows one eager step that builds the
+    moments, after which the state goes back to its start in place, as the
+    benchmark's restart does."""
+    from lsenerf_tpu_torch.engine import trainer as ttr
+
+    dev = _card()
+    k = 16
+    init, grads = _adam_inputs(dev, k)
+    opt, schedules, eager = _adam(init)
+    group = opt.param_groups[0]
+    assert group["fused"] and group["capturable"] and group["lr"].is_cuda
+    _adam_steps(opt, schedules, eager, grads)
+
+    gopt, _, leaves = _adam(init)
+    static = {p: torch.zeros_like(t) for p, t in leaves.items()}
+    for p, t in leaves.items():
+        t.grad = static[p]
+    lrs = torch.tensor([[s(j) for s in schedules] for j in range(k)], dtype=torch.float32,
+                       device=dev)
+    gopt.step()
+    with torch.no_grad():
+        for p, t in leaves.items():
+            t.copy_(init[p])
+        for st in gopt.state.values():
+            for v in st.values():
+                v.zero_()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for j in range(k):
+            for p in static:
+                static[p].copy_(grads[j][p])
+            for gi, grp in enumerate(gopt.param_groups):
+                grp["lr"].copy_(lrs[j, gi])
+            gopt.step()
+    graph.replay()
+    torch.cuda.synchronize()
+    for p, t in eager.items():
+        assert torch.equal(leaves[p], t), p
+        for key, v in opt.state[t].items():
+            assert torch.equal(gopt.state[leaves[p]][key], v), (p, key)
+    assert float(gopt.state[leaves["model/table"]]["step"]) == k
+
+
+@pytest.mark.cuda
+def test_fused_adam_is_foreach_adam_to_rounding_on_card():
+    """16 eager steps of the fused capturable Adam and of the foreach
+    capturable one it replaced, on the same gradients: per leaf, the gap
+    between the two parameters over the foreach change, both by norm,
+    stays at f32 rounding (the largest is printed). The gap is mostly the
+    foreach path's bias correction: it takes 1 - 0.999^t in f32, where
+    0.999 is 1.3e-5 of 1 - 0.999 off (6.4e-6 after the square root); the
+    fused kernel takes it in double, as the benchmark's reference does."""
+    dev = _card()
+    init, grads = _adam_inputs(dev, 16)
+    gaps = {}
+    fused, schedules, a = _adam(init)
+    _adam_steps(fused, schedules, a, grads)
+    foreach, schedules, b = _adam(init, foreach=True)
+    _adam_steps(foreach, schedules, b, grads)
+    for p in a:
+        gaps[p] = float((a[p] - b[p]).norm() / (b[p] - init[p]).norm())
+    worst = max(gaps, key=gaps.get)
+    print(f"fused against foreach capturable Adam after 16 steps: largest gap {gaps[worst]:.3e} "
+          f"({worst})")
+    assert gaps[worst] < 1e-5, gaps
+
+
+@pytest.mark.cuda
+def test_a_foreach_checkpoint_loads_into_the_fused_adam_on_card(tmp_path):
+    """A checkpoint of a trainer whose Adam was the foreach capturable one
+    (its counts on the card, saved to the CPU) loads into a fresh trainer:
+    every count beside its leaf on the card in f32, and the next two steps'
+    losses within rtol 1e-3 of the foreach run's (K2's atomics add in no
+    fixed order; test_chunk_graph_matches_eager_steps_on_card's rule)."""
+    from lsenerf_tpu_torch.engine import checkpoints as ckpt
+    from lsenerf_tpu_torch.engine import trainer as ttr
+
+    dev = _card()
+    old = _scan_trainer(dev)
+    old.optimizer = _foreach_adam(old.optimizer)
+    batches = [old.dm.next_train(i) for i in range(6)]
+    for b in batches[:4]:
+        old.step(b)
+    d = str(tmp_path / "ckpts")
+    ckpt.save_checkpoint(d, 3, old)
+    step, params, occ, opt, rng = ckpt.load_checkpoint_full(d)
+    new = _scan_trainer(dev)
+    assert ckpt.restore_into_state(new, params, occ, step, opt=opt, rng=rng)
+    assert all(g["fused"] for g in new.optimizer.param_groups)
+    for _, t in ttr.tree_leaves(new.params):
+        st = new.optimizer.state.get(t)
+        if st is not None:
+            assert st["step"].is_cuda and st["step"].dtype == torch.float32
+            assert float(st["step"]) == 4.0
+    for b in batches[4:]:
+        want, got = old.step(b)["loss"], new.step(b)["loss"]
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=0.0)
+    assert new.opt_count == old.opt_count == 6
