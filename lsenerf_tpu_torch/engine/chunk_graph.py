@@ -28,11 +28,13 @@ eager steps.
 One step of the graph, its middle one (marked_steps), carries device
 marks (engine/spans.py): an event at the step's start, after its
 background draw, at the end of each of its layers and before its
-backward, which every replay records again (each mark costs the card ~3
-us). While a profiler runs, a replay's marks are read after the next chunk
-is staged and before it replays (the host waits for them where the card
-has not yet run the marked step, while the card still holds the rest of
-the replay: the reads never leave it idle), or where the loop's run ends.
+backward, and the march's tally of live samples (one reduction), which
+every replay records again (each mark costs the card ~3 us). While a
+profiler runs, a replay's marks are read after the next chunk is staged
+and before it replays (the host waits for them where the card has not yet
+run the marked step, while the card still holds the rest of the replay:
+the reads never leave it idle), or where the loop's run ends; the tally is
+added on the card into the run's total, read where the run ends.
 """
 
 from __future__ import annotations

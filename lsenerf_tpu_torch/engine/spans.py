@@ -28,12 +28,26 @@ marked steps of a chunk's graph, whose events each replay records again (a
 replay's group is read before the next replay: `read_pending`), or an eager
 step or occupancy update on the card. A group's first mark starts it.
 
+Tallies. `tally(mask)` counts the march's slots (`mask`'s elements) and
+its live samples (`mask`'s true elements) of a train step that carries a
+group of marks: a chunk's marked step, replayed or eager, or a traced
+eager step. The live count is a reduction on the device (in a graph a
+node of it, which every replay runs again) that the group keeps; where the
+group is handed to its run (a traced replay, an eager group's close) it is
+added on the current stream into the run's device total, which is read
+once, where the run ends, so that no read holds the host or the card
+between steps. On the CPU, which has no marks, a tally counts every traced
+train step.
+
 Counters, a run's: "steps" (train steps run), "adam_fused_steps" (Adam
 updates run, each torch's fused one, the only one build_optimizer makes; a
 replay's counted as its k steps), "marked_steps" (steps whose device marks
 were read), "replays", "captures" and "eager_steps" (by reason),
 "occ_updates", "staged_bytes" (host to device), "launches" (each kernel's
-launches, a replay's counted as the kernels its graph holds).
+launches, a replay's counted as the kernels its graph holds); the tallies
+"sample_slots" (the march's slots, rays x slots a ray) and "live_samples"
+(the slots the march kept for the field; on the card read where the run
+ends).
 
 The store is process-wide and bounded (MAX_RUNS runs, MAX_SPANS spans a
 run; what does not fit is counted as dropped), so it outlives the Trainer:
@@ -86,14 +100,15 @@ _NULL = _Null()
 
 
 class _Record:
-    __slots__ = ("id", "spans", "dropped_spans", "device_ms", "counters", "step")
+    __slots__ = ("id", "spans", "dropped_spans", "device_ms", "counters", "step", "live")
 
     def __init__(self, run_id: int):
         self.id, self.spans, self.dropped_spans, self.step = run_id, [], 0, None
+        self.live = None  # the device's total of the live samples tallied
         self.device_ms = {}
         self.counters = {"steps": 0, "adam_fused_steps": 0, "marked_steps": 0, "replays": 0,
                          "captures": {}, "eager_steps": {}, "occ_updates": 0, "staged_bytes": 0,
-                         "launches": {}}
+                         "launches": {}, "sample_slots": 0, "live_samples": 0}
 
 
 def _record():
@@ -127,6 +142,9 @@ class run:
         try:
             if _pending:
                 read_pending(wait=True)
+            rec = _runs.get(_run_id)
+            if rec is not None:
+                _read_live(rec)
         finally:
             _run_id = self.outer
         return False
@@ -209,10 +227,11 @@ def layer(name: str):
 
 
 class _Group:
-    __slots__ = ("marks", "steps", "reused")
+    __slots__ = ("marks", "steps", "reused", "live", "slots")
 
     def __init__(self, steps: int, reused: bool):
         self.marks, self.steps, self.reused = [], steps, reused
+        self.live, self.slots = [], 0  # the tallies' device sums, their slots
 
     def add(self, name) -> None:
         ev = torch.cuda.Event(enable_timing=True, external=self.reused)
@@ -241,6 +260,36 @@ def mark(name: str) -> None:
         _group.add(name)
 
 
+def tally(mask: torch.Tensor) -> None:
+    """The march's `mask` of a train step: its true elements to
+    "live_samples", all of them to "sample_slots" (module doc)."""
+    if _group is not None:
+        _group.live.append(mask.sum())
+        _group.slots += mask.numel()
+    elif _capturing is None and mask.device.type == "cpu" and _enabled():
+        count("live_samples", int(mask.sum()))
+        count("sample_slots", mask.numel())
+
+
+def _read_live(rec) -> None:
+    """The run's device total of live samples into its counter (a wait
+    for the card)."""
+    if rec.live is not None:
+        rec.counters["live_samples"] += int(rec.live)
+        rec.live = None
+
+
+def _hand(rec, g) -> None:
+    """Group `g` to be read into run `rec`, its tallies added to the run's."""
+    _pending.append((rec, g))
+    if g.live:
+        rec.counters["sample_slots"] += g.slots
+        if rec.live is None:
+            rec.live = torch.zeros((), dtype=torch.int64, device=g.live[0].device)
+        for v in g.live:
+            rec.live.add_(v)
+
+
 def close_marks(group) -> None:
     """Close a group from open_marks: in a capture it is kept for the
     graph's replays (`capture`), else it is read once its work is done."""
@@ -253,7 +302,7 @@ def close_marks(group) -> None:
     else:
         rec = _record()
         if rec is not None:
-            _pending.append((rec, group))
+            _hand(rec, group)
 
 
 class capture:
@@ -286,7 +335,7 @@ def replayed(groups, launches) -> None:
     for name, n in (launches or {}).items():
         c["launches"][name] = c["launches"].get(name, 0) + n
     for g in groups:
-        _pending.append((rec, g))
+        _hand(rec, g)
 
 
 def read_pending(wait: bool = False) -> None:
@@ -342,11 +391,12 @@ def snapshot() -> list:
     """The store, the runs oldest first, each a dict: "id", "spans" (each
     {"name", "start_ns", "end_ns", "parent" (index in the run's spans, or
     None), "step"}), "dropped_spans", "device_ms" ({layer or "other": ms}
-    of the marks read) and "counters"; pending marks are read first,
-    waiting for the card."""
+    of the marks read) and "counters"; pending marks and the tallies'
+    totals are read first, waiting for the card."""
     read_pending(wait=True)
     out = []
     for rec in _runs.values():
+        _read_live(rec)
         out.append({
             "id": rec.id,
             "spans": [{"name": e[0], "start_ns": e[1], "end_ns": e[2], "parent": e[3],

@@ -157,6 +157,8 @@ def render_bundle(
     rng. Eval renders have no background."""
     with spans.layer("march"):
         samples = march.march_rays(bundle, occ_state, config.grid, config.march_config(train))
+    if train:
+        spans.tally(samples.mask)
     n, k = samples.mask.shape
 
     app_id = bundle.metadata.get("appearance_id")

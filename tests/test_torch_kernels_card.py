@@ -15,7 +15,10 @@ flagship's widths on three grids and past its static layout (96 slots and
 coarse segments, 4096 candidates), its selection bit for bit, and K5a/K5b
 (lsenerf_tpu_torch/ops/composite.py) at 1 to 200 samples a ray for every
 background; scan_steps' chunk graph (lsenerf_tpu_torch/engine/
-chunk_graph.py) against eager steps, and a capture that fails; and the
+chunk_graph.py) against eager steps, a capture that fails, the march's
+live-sample tally (engine/spans.py) replayed in lsenerf_emb's chunk as
+its eager twin counts it, and a traced replay's read that leaves the card
+busy; and the
 fused capturable Adam (engine/trainer.py::build_optimizer) on the 64 MiB
 table: 16 replayed steps bit for bit its eager steps, within f32 rounding
 of the foreach Adam it replaced, and a checkpoint of that foreach Adam
@@ -986,6 +989,118 @@ def test_chunk_graph_capture_error_propagates(monkeypatch):
     with pytest.raises(RuntimeError, match="capturing 2 train steps as one CUDA graph failed at"):
         fn(tr.dm.next_train_stack(2, 2))
     assert tr.step_count == 2
+
+
+def _emb_trainer(dev):
+    """The lsenerf_emb preset's model and ray budget (evs_emb, no proposal:
+    48 slots a ray, 3510 rays) on preset_trainer's small scene, both
+    cameras fixed, so that the march's masks depend on the grid and the
+    batch alone and not on Adam's rounding."""
+    import dataclasses
+
+    from lsenerf_tpu_torch import flagship
+    from lsenerf_tpu_torch.data import datamanager as tdm
+    from lsenerf_tpu_torch.data import synthetic as tsyn
+    from lsenerf_tpu_torch.engine import trainer as ttr
+
+    cfg, mcfg, dmc = flagship.preset_configs("lsenerf_emb")
+    off = ttr.CameraOptConfig(mode="off")
+    cfg = dataclasses.replace(cfg, col_cam_opt=off, evs_cam_opt=off)
+    col, evs = tsyn.make_synthetic_scene(n_cams=12, h=64, w=64, focal=60.0)
+    tr = ttr.Trainer(cfg, mcfg, tdm.MultiCamDataManager(dmc, col, evs, seed=3), device=dev)
+    tr.setup()
+    return tr
+
+
+@pytest.mark.cuda
+def test_replayed_live_samples_are_the_eager_twins_masks_on_card(monkeypatch):
+    """Three chunks of 4 steps of lsenerf_emb's model (the eager warm-up,
+    the capture and its replay, a replay) under a profiler: each chunk's
+    live_samples and sample_slots (engine/spans.py), tallied in its marked
+    step, are the mask sum and the slots of the same step of an eager twin
+    built the same way; the three differ, so a tally frozen at the capture
+    would fail."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lsenerf_tpu_torch.engine import spans
+    from lsenerf_tpu_torch.models import lsenerf as tmodel
+
+    dev = _card()
+    k = 4
+    eager, chunked = _emb_trainer(dev), _emb_trainer(dev)
+    stacked = eager.dm.next_train_stack(0, 3 * k)
+    chunked.dm.next_train_stack(0, 3 * k)
+    for t in (eager, chunked):
+        t.occ_update()
+    masks, real = [], tmodel.march.march_rays
+
+    def watched(*a, **kw):
+        out = real(*a, **kw)
+        masks.append((int(out.mask.sum()), out.mask.numel()))
+        return out
+
+    monkeypatch.setattr(tmodel.march, "march_rays", watched)
+    for j in range(3 * k):
+        eager.step({key: v[j] for key, v in stacked.items()}, update_occ=False)
+    monkeypatch.undo()
+    assert all(n == 3510 * 48 for _, n in masks)
+
+    fn = chunked.make_train_step_multi(k)
+    spans.reset()
+    got = []
+    for c in range(3):
+        with profile(activities=[ProfilerActivity.CPU]), spans.run():
+            fn({key: v[c * k:(c + 1) * k] for key, v in stacked.items()})
+        run = spans.snapshot()[-1]["counters"]
+        assert run["marked_steps"] == 1, run
+        got.append((run["live_samples"], run["sample_slots"]))
+    spans.reset()
+    marked = chunked._chunks[k].marked_steps()[0]
+    want = [masks[c * k + marked] for c in range(3)]
+    assert got == want
+    assert len({live for live, _ in want}) == 3, want
+
+
+@pytest.mark.cuda
+def test_a_traced_replays_read_leaves_the_card_busy_on_card(monkeypatch):
+    """Under a profiler, the read of a replay's marks and tally before the
+    next replay (engine/spans.py::read_pending) waits for the replay's
+    marked step alone: when it returns the card still holds the replay's
+    later steps, so the next replay queues behind them and the card is not
+    left idle. Four chunks of 16 steps of lsenerf_emb's model (the eager
+    warm-up, the capture and its replay, two replays); the run's tallies
+    count the four marked steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lsenerf_tpu_torch.engine import spans
+
+    dev = _card()
+    k = 16
+    t = _emb_trainer(dev)
+    stacked = t.dm.next_train_stack(0, 4 * k)
+    t.occ_update()
+    fn = t.make_train_step_multi(k)
+    busy, real = [], spans.read_pending
+
+    def read(wait=False):
+        replays = any(g.reused for _, g in spans._pending)
+        real(wait)
+        if replays and not wait:
+            busy.append(not torch.cuda.current_stream(dev).query())
+
+    monkeypatch.setattr(spans, "read_pending", read)
+    spans.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]), spans.run():
+            for c in range(4):
+                fn({key: v[c * k:(c + 1) * k] for key, v in stacked.items()})
+        run = spans.snapshot()[-1]["counters"]
+    finally:
+        spans.reset()
+    assert busy == [True, True]
+    assert run["replays"] == 3 and run["marked_steps"] == 4, run
+    assert run["sample_slots"] == 4 * 3510 * 48
+    assert 0 < run["live_samples"] < run["sample_slots"]
 
 
 # -- Adam (lsenerf_tpu_torch/engine/trainer.py::build_optimizer) -----------------

@@ -1,6 +1,6 @@
 """The port's own tracing (lsenerf_tpu_torch/engine/spans.py) and the
 benchmark's readers of it (perfbench/metrics/*_device_ms.train.py,
-stage_host_ms.train.py):
+stage_host_ms.train.py, live_sample_share.train.py):
   - with no profiler running nothing is recorded, and a call site gets one
     shared object (it allocates nothing);
   - spans nest, each with its parent, the step its chunk starts at and one
@@ -46,7 +46,8 @@ LAYERS = ["layer:bundles", "layer:march", "layer:field", "layer:composite", "lay
           "layer:backward", "layer:adam"]
 READERS = ["bundles_device_ms.train", "march_device_ms.train", "field_device_ms.train",
            "composite_device_ms.train", "losses_device_ms.train", "backward_device_ms.train",
-           "adam_device_ms.train", "occ_update_device_ms.train", "stage_host_ms.train"]
+           "adam_device_ms.train", "occ_update_device_ms.train", "stage_host_ms.train",
+           "live_sample_share.train"]
 
 
 @pytest.fixture(autouse=True)
@@ -272,15 +273,23 @@ def test_reader_is_none_on_an_empty_store(name):
 @pytest.mark.parametrize("name", READERS)
 def test_reader_of_a_cpu_loop(name):
     """On the CPU the store holds spans and counters but no device marks:
-    the host's staging reads, the device readers give None."""
+    the host's staging and the march's tallies (a plain sum every traced
+    step) read, the device readers give None."""
     tr = _trainer()
     with _cpu_profile():
         run_training_loop(tr, num_steps=6, scan_steps=3)
     got = _reader(name).read(None)
+    run, = spans.snapshot()
     if name == "stage_host_ms.train":
-        run, = spans.snapshot()
         draws = [s for s in run["spans"] if s["name"] == "chunk.draw"]
         assert got == pytest.approx(sum(s["end_ns"] - s["start_ns"] for s in draws) / 1e6 / 6)
+    elif name == "live_sample_share.train":
+        c = run["counters"]
+        # 6 steps of all the batch's rays (RGB, prev and next event) x 16 slots
+        rays = tr.num_rays(tr.batch_to_device(tr.dm.next_train(0)))
+        assert c["sample_slots"] == 6 * rays * 16
+        assert 0 < c["live_samples"] <= c["sample_slots"]
+        assert got == pytest.approx(100.0 * c["live_samples"] / c["sample_slots"])
     else:
         assert got is None
 
