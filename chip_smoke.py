@@ -75,6 +75,10 @@ Phases, each fatal on failure (exit code 1):
      made before against its fused capturable one, device ms a step as
      graph replays beside the bound of one pass, host us a step, and one
      eager step of each traced (its kernels);
+  3f. K8a (rays_fwd) and K8b (rays_bwd), the camera rays of a step and
+     their backward, at one step's inputs of each train cell's preset,
+     against the plain version on the card and timed alone beside it
+     (check_bundles);
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
@@ -154,7 +158,7 @@ Phases, each fatal on failure (exit code 1):
      process's steps on the whole batches (data_parallel's docstring has
      the tolerances); the ranks' grids after step 0's sharded occupancy
      update equal bit for bit; then one step under NCCL at world size 1;
-  5. a `kernels` JSON line (K1/K2/K1g/K2g/K7a/K7b/K7ag/K7bg/K3/K5a/K5b
+  5. a `kernels` JSON line (K1/K2/K1g/K2g/K7a/K7b/K7ag/K7bg/K3/K5a/K5b/K8a/K8b
      launches summed over phases 4 to 4k, the ranks' included; G1-G3's
      from 3c; each kernel's `status`, ported or redesigned),
      the card line, and the result line {"ok": true, "device": {...}} last.
@@ -1099,6 +1103,147 @@ def check_adam(dev) -> dict:
     return res
 
 
+# 3f's cells: (label, preset, field) of the three train cells' presets
+BUNDLE_PRESETS = (("lsenerf", "lsenerf", {}), ("lsenerf_emb", "lsenerf_emb", {}),
+                  ("badnerf ngp f32", "badnerf", dict(hash_layout="ngp", compute_dtype="float32")))
+
+
+def kernels_of(fn) -> tuple:
+    """(the device kernels one traced call of fn launches, the sum of their
+    device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    return len(kern), sum(e.time_range.end - e.time_range.start for e in kern) / 1e3
+
+
+def check_bundles(dev) -> dict:
+    """Phase 3f: K8a (rays_fwd) and K8b (rays_bwd), the camera rays of a
+    step and their backward (ops/bundles.py), at one step's inputs of each
+    train cell's preset (its camera leaves moved off their start): the
+    rays and the camera leaves' gradients under a fixed linear loss on the
+    origins and directions against the plain version on the card (rtol 1e-5 / 2e-4 on the rays, the gradients
+    within 2e-5 of their largest element), then timed alone: K8a (the
+    forward, no autograd) and K8b (the backward of one K8a call: its two
+    passes) as ms, device_ms (graph replay) and host_us, and the
+    plain version's forward and forward + backward on the card as ms;
+    beside each, the kernels one traced call launches and the sum of
+    their device ms, and the bound (inputs and outputs once at
+    HBM_BYTES_PER_S). Returns {"rays_fwd": ..., "rays_bwd": ...} of the first
+    preset, the others under "shapes"."""
+    import numpy as np
+    import torch
+
+    from lsenerf_tpu_torch.engine.trainer import tree_leaves
+    from lsenerf_tpu_torch.flagship import preset_trainer
+    from lsenerf_tpu_torch.ops import bundles
+    from lsenerf_tpu_torch.timing import device_ms, host_us, time_ms
+
+    t0 = time.time()
+    res = {}
+    rng = np.random.default_rng(24)
+    for label, preset, field in BUNDLE_PRESETS:
+        tr = preset_trainer(preset, device=dev, **field)
+        cp = tr.params["camera_opt"]
+        leaves = [t for _, t in tree_leaves(cp)]
+        with torch.no_grad():  # knots ~0.03 rad and 3 cm off, deltas ~0.1
+            for path, t in tree_leaves(cp):
+                scale = 0.03 if path.endswith("ctrl_tangents") else 0.1
+                t += torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32)
+                                      * scale).to(dev)
+        parts, batch = tr._parts(), tr.batch_to_device(tr.dm.next_train(0))
+        spline, rgb_ts, ne = tr.col_spline_static, tr.rgb_ts, tr.dm.num_embd
+        gates = (torch.ones((), device=dev), torch.ones((), device=dev))
+        args = (parts, cp, batch, gates, spline, rgb_ts, ne)
+        n = sum(batch[p.rows].shape[0] * p.rep for p in parts)
+        cots = [torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+                for _ in range(2)]
+
+        def grads(big):
+            loss = (big.origins * cots[0]).sum() + (big.directions * cots[1]).sum()
+            return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+        big, _ = bundles.step_rays(*args)
+        got = grads(big)
+        want_big = bundles.step_rays_plain(*args)
+        want = grads(want_big)
+        for name, rtol in (("origins", 1e-5), ("directions", 1e-5), ("pixel_area", 2e-4)):
+            if not torch.allclose(getattr(big, name), getattr(want_big, name), rtol=rtol,
+                                  atol=1e-6 if rtol < 1e-4 else 1e-9):
+                fail(f"3f {label}: K8a's {name} differ from the plain version's")
+        for name in ("camera_indices", "times"):
+            if not torch.equal(getattr(big, name), getattr(want_big, name)):
+                fail(f"3f {label}: K8a's {name} differ from the plain version's")
+        for g, w in zip(got, want):
+            if (g is None) != (w is None):
+                fail(f"3f {label}: K8b's gradients reach other leaves than the plain version's")
+            if w is not None and not torch.allclose(g, w, rtol=1e-4,
+                                                    atol=2e-5 * float(w.abs().max())):
+                fail(f"3f {label}: K8b's gradients differ from the plain version's: "
+                     f"{float((g - w).abs().max())} of {float(w.abs().max())}")
+
+        sizes = [batch[p.rows].shape[0] * p.rep for p in parts]
+        call = bundles._Call(parts, cp, batch, gates, spline, rgb_ts, ne, sizes,
+                             batch[parts[0].rows].device)
+        call.forward()
+        wanted = [True] * len(call.leaves)
+
+        def fwd():
+            with torch.no_grad():
+                bundles.step_rays(*args)
+
+        def bwd():
+            call.backward(cots[0], cots[1], None, wanted)
+
+        def plain_fwd():
+            with torch.no_grad():
+                bundles.step_rays_plain(*args)
+
+        def plain_both():
+            grads(bundles.step_rays_plain(*args))
+
+        # bytes: the index rows, appearance ids, camera tables and leaves
+        # read once, the rays written once (origins, directions, area,
+        # camera, time, appearance id: 44 bytes); K8b reads the inputs
+        # again and two cotangents, writes and reads its terms (56 bytes a
+        # ray) and writes the gradients
+        ins = sum(batch[p.rows].numel() * 8 + batch[p.app].numel() * 8 for p in parts)
+        ins += sum(c.numel() * 4 for c in {id(p.cams.camera_to_worlds): p.cams.camera_to_worlds
+                                           for p in parts}.values())
+        leaf_bytes = sum(t.numel() * 4 for t in call.leaves)
+        f_ms, f_by = bound(ins + leaf_bytes + 44 * n, 0)
+        b_ms, b_by = bound(ins + 2 * leaf_bytes + (24 + 2 * 56) * n, 0)
+        # the plain version's device time is the sum of its kernels' in one
+        # traced call (an autograd backward on the timing's side stream
+        # cannot be captured beside the leaves' default-stream nodes)
+        res_pairs = []
+        for fn, plain, b in ((fwd, plain_fwd, (f_ms, f_by)), (bwd, plain_both, (b_ms, b_by))):
+            (nk, kms), (npk, pkms) = kernels_of(fn), kernels_of(plain)
+            res_pairs.append(dict(ms=time_ms(fn, 20), device_ms=device_ms(fn), host_us=host_us(fn),
+                                  kernel_ms=kms, launches_a_call=nk, plain_ms=time_ms(plain, 5),
+                                  plain_kernel_ms=pkms, plain_launches_a_call=npk,
+                                  bound_ms=b[0], bound_by=b[1], rays=n))
+        r_f, r_b = res_pairs
+        for name, r in (("K8a rays_fwd", r_f), ("K8b rays_bwd, two passes", r_b)):
+            print(f"3f {label} ({n} rays): {name} {r['ms']:.4f} ms per call, "
+                  f"{r['device_ms']:.5f} ms on the device, {r['host_us']:.1f} us of host, "
+                  f"{r['launches_a_call']} kernels a call ({r['kernel_ms']:.5f} ms); plain "
+                  f"{'forward' if r is r_f else 'forward + backward'} {r['plain_ms']:.4f} ms, "
+                  f"{r['plain_launches_a_call']} kernels a call ({r['plain_kernel_ms']:.5f} ms "
+                  f"of kernels); bound {r['bound_ms']:.6f} ms by {r['bound_by']}")
+        if not res:
+            res = {"rays_fwd": dict(r_f, shapes={}), "rays_bwd": dict(r_b, shapes={})}
+        res["rays_fwd"]["shapes"][label] = r_f
+        res["rays_bwd"]["shapes"][label] = r_b
+    print(f"phase 3f in {time.time() - t0:.1f} s")
+    return res
+
+
 def bound(nbytes, ops):
     """The least time for the work: the larger of bytes over the memory rate
     and f32 operations over the peak f32 rate, in ms, and which bounds it."""
@@ -1341,8 +1486,8 @@ RENDER_KERNELS = ("march_ts", "composite_fwd", "composite_bwd")
 
 
 def path_kernels():
-    """K1, K2, K1g, K2g, K7a, K7b, K7ag, K7bg, K3, K5a and K5b (their launch
-    counters)."""
+    """K1, K2, K1g, K2g, K7a, K7b, K7ag, K7bg, K3, K5a, K5b, K8a and K8b
+    (their launch counters)."""
     from lsenerf_tpu_torch.engine import chunk_graph
 
     return chunk_graph.path_kernels()
@@ -2460,6 +2605,8 @@ STATUS = {
     "row_gather": "ported",
     "take_along": "redesigned",
     "gather_sum": "ported (a shared-memory redesign was measured and dropped)",
+    "rays_fwd": "ported",
+    "rays_bwd": "ported",
 }
 
 
@@ -2471,7 +2618,7 @@ def main() -> int:
         fail("no CUDA device is available")
     sys.path.insert(0, ROOT)
     try:
-        from lsenerf_tpu_torch.ops import combine, composite, cuda_build
+        from lsenerf_tpu_torch.ops import bundles, combine, composite, cuda_build
         from lsenerf_tpu_torch.ops import gather, march, ngp
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}: {e}")
@@ -2501,6 +2648,7 @@ def main() -> int:
     res.update(check_generic(dev))
     res.update(check_march_composite(dev))
     check_adam(dev)
+    res.update(check_bundles(dev))
     so3 = CameraOptConfig(mode="SO3xR3")
     check_small_step(dev, "ns SO3xR3", so3, so3)
     check_small_step(dev, "spline + deblur, SE3 event deltas",
@@ -2589,6 +2737,18 @@ def main() -> int:
         kernels.append(dict(
             name=k.name, route="cuda", source=f"lsenerf_tpu_torch/csrc/{src}", replaces=first,
             also_replaces=rest, launches=launches[k.name], **res[k.name],
+        ))
+    # K8a/K8b stand in for the chain of ops that makes a step's rays (no
+    # Pallas kernel): the spline, the deltas, the rays and the concatenation
+    bundle_chain = ["lsenerf_tpu/cameras/pose_opt.py:169", "lsenerf_tpu/cameras/pose_opt.py:180",
+                    "lsenerf_tpu/cameras/pose_opt.py:193", "lsenerf_tpu/cameras/pose_opt.py:57",
+                    "lsenerf_tpu/ops/interp.py:86", "lsenerf_tpu/ops/interp.py:101",
+                    "lsenerf_tpu/cameras/cameras.py:161", "lsenerf_tpu/models/lsenerf.py:420"]
+    for k in (bundles.K8A, bundles.K8B):
+        kernels.append(dict(
+            name=k.name, route="cuda", source="lsenerf_tpu_torch/csrc/bundles.cu",
+            replaces="lsenerf_tpu/cameras/cameras.py:95", also_replaces=bundle_chain,
+            launches=launches[k.name], **res[k.name],
         ))
     # each gather kernel replaces several probe kernels; `replaces` names the
     # first of them and `also_replaces` the rest

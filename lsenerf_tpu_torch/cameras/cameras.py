@@ -2,7 +2,8 @@
 lsenerf_tpu/cameras/cameras.py: no half-pixel offset, one shared
 intrinsic, OpenGL directions (x-cx)/fx, -(y-cy)/fy, -1, pixel_area from
 +1-pixel offset rays, and the Newton undistort of OpenCV's radial and
-tangential distortion where a camera has distortion parameters."""
+tangential distortion where a camera has distortion parameters. On the
+card the rays are K8a's (ops/bundles.py)."""
 
 from __future__ import annotations
 
@@ -85,7 +86,23 @@ def generate_rays(
     c2w: Optional[torch.Tensor] = None,
 ) -> RayBundle:
     """World-space rays for (camera, pixel) pairs; pixel_coords (n, 2) are
-    [row y, col x]."""
+    [row y, col x]. On the card K8a at fixed poses (ops/bundles.py::
+    fixed_rays), with no backward; on the CPU generate_rays_plain."""
+    if cams.camera_to_worlds.is_cuda:
+        from lsenerf_tpu_torch.ops import bundles
+
+        return bundles.fixed_rays(cams, camera_indices, pixel_coords, c2w)
+    return generate_rays_plain(cams, camera_indices, pixel_coords, c2w)
+
+
+def generate_rays_plain(
+    cams: Cameras,
+    camera_indices: torch.Tensor,
+    pixel_coords: torch.Tensor,
+    c2w: Optional[torch.Tensor] = None,
+) -> RayBundle:
+    """generate_rays by torch ops, differentiable in c2w: K8a's plain
+    version."""
     if c2w is None:
         c2w = cams.camera_to_worlds[camera_indices]
     y = pixel_coords[..., 0].float()

@@ -13,7 +13,7 @@ A ChunkGraph holds, for one trainer, one k and one model config:
   - a grid state of its own (occs, binaries and the supergrids the march
     reads), into which each new OccGridState of the trainer is copied
     before the chunk; a state's own tensors are never written;
-  - the graph: bundles, the march (K3), the field (K1/K2 or K7a/K7b), the
+  - the graph: bundles (K8a/K8b), the march (K3), the field (K1/K2 or K7a/K7b), the
     composite (K5a/K5b), the losses, the backward and Adam of k steps, with
     the background generator registered, so that its draws are the eager
     draws and its state after a replay is the eager state.
@@ -52,10 +52,10 @@ from lsenerf_tpu_torch.ops import occupancy as occ_lib
 
 def path_kernels():
     """The launch counters of the train step's kernels: K1, K2, K1g, K2g,
-    K7a, K7b, K7ag, K7bg, K3, K5a and K5b."""
-    from lsenerf_tpu_torch.ops import combine, composite, march, ngp
+    K7a, K7b, K7ag, K7bg, K3, K5a, K5b, K8a and K8b."""
+    from lsenerf_tpu_torch.ops import bundles, combine, composite, march, ngp
 
-    return combine.KERNELS + ngp.KERNELS + march.KERNELS + composite.KERNELS
+    return combine.KERNELS + ngp.KERNELS + march.KERNELS + composite.KERNELS + bundles.KERNELS
 
 
 def _where(exc: BaseException) -> str:

@@ -34,7 +34,7 @@ from lsenerf_tpu_torch.engine import spans
 from lsenerf_tpu_torch.engine.schedules import exponential_decay
 from lsenerf_tpu_torch.models import field as field_lib
 from lsenerf_tpu_torch.models import lsenerf as model_lib
-from lsenerf_tpu_torch.ops import interp
+from lsenerf_tpu_torch.ops import bundles
 from lsenerf_tpu_torch.ops import occupancy as occ_lib
 
 OCC_CHUNK = 131072  # positions per density chunk of the occupancy update
@@ -212,6 +212,7 @@ class Trainer:
         self._recapture = None  # why the graphs were last dropped, where they were
         self.chunk_losses = None  # each step's loss of the last chunk
         self._eager_note = False
+        self._part_cache = {}  # (deblur, denerf) -> the step's bundles (_parts)
 
     # -- init ----------------------------------------------------------------
 
@@ -307,71 +308,52 @@ class Trainer:
 
     # -- bundles -------------------------------------------------------------
 
-    def _make_col_bundle(self, cam_params, batch, gate):
-        """RGB rays; under deblur 4 a pixel, the 4 of a pixel together, on
-        the spline's exposure poses or else on the pixel's one pose."""
-        cfg = self.config.col_cam_opt
-        cams = self.col_cams
-        idx = batch["col_indices"][:, 0]
-        coords = batch["col_indices"][:, 1:].float()
-        deblur = self.model_config.rgb_loss_type == "deblur"
-        if deblur:
-            idx_r, coords_r = idx.repeat_interleave(4), coords.repeat_interleave(4, dim=0)
-        else:
-            idx_r, coords_r = idx, coords
-        if cfg.optim_type == "spline":
-            times = cams.times[idx]
-            static = self.col_spline_static
-            if deblur:
-                c2w = pose_opt.spline_deblur_c2w(cam_params["col"], static, times[:, None], gate)
-            else:
-                c2w = pose_opt.spline_rgb_c2w(cam_params["col"], static, times, gate)
-            bundle = cam_lib.generate_rays(cams, idx_r, coords_r, c2w=c2w)
-        else:
-            bundle = cam_lib.generate_rays(cams, idx_r, coords_r)
-            if cfg.mode != "off":
-                bundle = pose_opt.apply_pose_deltas_to_bundle(cam_params["col"], bundle, gate, cfg.mode)
-        app = batch["col_app_id"]
-        if deblur:
-            # the exposure rays take the neighbouring appearance ids
-            delta = torch.arange(4, device=app.device) - 2
-            app = torch.clamp(app[:, None] + delta[None], 0, self.dm.num_embd - 1).reshape(-1)
-        return bundle.replace(metadata={"appearance_id": app})
+    def _parts(self) -> tuple:
+        """The bundles one step renders as ops.bundles.Part, in order: the
+        RGB rays (under deblur 4 a pixel, on the spline's exposure poses or
+        on the pixel's one pose) and the prev and next event rays (the
+        dataset's prev_cameras[i] and next_cameras[i] where it has them,
+        else cameras i and i + 1, on the spline through dM when the event
+        cameras use it; no next under denerf), for the current model
+        config."""
+        key = (self.model_config.rgb_loss_type == "deblur", self._denerf())
+        parts = self._part_cache.get(key)
+        if parts is None:
+            parts = self._part_cache[key] = self._make_parts(*key)
+        return parts
 
-    def _make_evs_bundles(self, cam_params, batch, gate):
-        """Frame i spans prev_cameras[i] and next_cameras[i] where the
-        dataset has them, else cameras i and i+1 (on the spline through dM
-        when the event cameras use it)."""
-        cfg = self.config.evs_cam_opt
-        idx = batch["evs_indices"][:, 0]
-        coords = batch["evs_indices"][:, 1:].float()
-        if self.prev_cams is not None:
-            prev = cam_lib.generate_rays(self.prev_cams, idx, coords)
-            nxt = cam_lib.generate_rays(self.next_cams, idx, coords)
-            if cfg.optim_type == "prevnext" and cfg.mode != "off":
-                prev, nxt = pose_opt.apply_prevnext_to_bundles(cam_params["evs"], prev, nxt, gate, cfg.mode)
-        elif cfg.optim_type == "spline":
-            cams, static = self.evs_cams, self.col_spline_static
-            c2w_p = pose_opt.spline_evs_c2w(cam_params["col"], static, cams.times[idx], gate)
-            c2w_n = pose_opt.spline_evs_c2w(cam_params["col"], static, cams.times[idx + 1], gate)
-            prev = cam_lib.generate_rays(cams, idx, coords, c2w=c2w_p)
-            nxt = cam_lib.generate_rays(cams, idx + 1, coords, c2w=c2w_n)
-        else:
-            prev = cam_lib.generate_rays(self.evs_cams, idx, coords)
-            nxt = cam_lib.generate_rays(self.evs_cams, idx + 1, coords)
-            if cfg.mode != "off":
-                prev = pose_opt.apply_pose_deltas_to_bundle(cam_params["evs"], prev, gate, cfg.mode)
-                nxt = pose_opt.apply_pose_deltas_to_bundle(cam_params["evs"], nxt, gate, cfg.mode)
-        app = batch["evs_app_id"]
-        out = []
-        for b in (prev, nxt):
-            b = b.replace(metadata={"appearance_id": app})
-            # CameraIdxFixer: snap event times to the nearest RGB camera
-            if self.rgb_ts is not None and b.times is not None:
-                fixed = interp.find_closest_idxs(self.rgb_ts, b.times[:, 0])
-                b = b.replace(camera_indices=fixed[:, None].int())
-            out.append(b)
-        return out[0], out[1]
+    def _make_parts(self, deblur: bool, denerf: bool) -> tuple:
+        cc, ec = self.config.col_cam_opt, self.config.evs_cam_opt
+        has_col, has_evs = self._has()
+        parts = []
+        if has_col:
+            if cc.optim_type == "spline":
+                pose, table = bundles.SPLINE, ("col",)
+            elif cc.mode != "off":
+                pose, table = bundles.DELTA_POSES[cc.mode], ("col",)
+            else:
+                pose, table = bundles.FIXED, ()
+            parts.append(bundles.Part(self.col_cams, pose, "col_indices", "col_app_id",
+                                      rep=4 if deblur else 1, table=table, gate=0,
+                                      app_deblur=deblur))
+        if has_evs:
+            # CameraIdxFixer: event times snap to the nearest RGB camera
+            ev = dict(rows="evs_indices", app="evs_app_id", gate=1, snap=self.rgb_ts is not None)
+            if self.prev_cams is not None:
+                deltas = ec.optim_type == "prevnext" and ec.mode != "off"
+                pose = bundles.DELTA_POSES[ec.mode] if deltas else bundles.FIXED
+                pair = [bundles.Part(cams, pose, table=("evs", sub) if deltas else (), **ev)
+                        for cams, sub in ((self.prev_cams, "prev"), (self.next_cams, "next"))]
+            elif ec.optim_type == "spline":
+                pair = [bundles.Part(self.evs_cams, bundles.SPLINE_EVS, cam_offset=off,
+                                     table=("col",), **ev) for off in (0, 1)]
+            else:
+                deltas = ec.mode != "off"
+                pose = bundles.DELTA_POSES[ec.mode] if deltas else bundles.FIXED
+                pair = [bundles.Part(self.evs_cams, pose, cam_offset=off,
+                                     table=("evs",) if deltas else (), **ev) for off in (0, 1)]
+            parts += pair[:1] if denerf else pair
+        return tuple(parts)
 
     # -- the step ------------------------------------------------------------
 
@@ -412,8 +394,9 @@ class Trainer:
         return sum(self.bundle_sizes(batch))
 
     def _step_bundles(self, cam_params: dict, batch: dict, step: int, gates=None):
-        """The bundles one step renders, in order (RGB, prev and next event;
-        no next under denerf), and the RGB and event targets (None where
+        """The rays one step renders as one bundle (its bundles, _parts,
+        concatenated in order by ops.bundles.step_rays: K8a/K8b on the
+        card), the rays of each, and the RGB and event targets (None where
         the batch has no such rays). The cameras' delayed-activation gates
         are step's, or `gates` (RGB, event), device values a CUDA graph
         reads at each replay."""
@@ -422,16 +405,11 @@ class Trainer:
         if gates is None:
             gates = (pose_opt.activation_gate(step, tcfg.col_cam_opt.scheme, tcfg.col_cam_opt.delay_cnt),
                      pose_opt.activation_gate(step, tcfg.evs_cam_opt.scheme, tcfg.evs_cam_opt.delay_cnt))
-        col_gate, evs_gate = gates
-        bundles, col_batch, evs_batch = [], None, None
-        if has_col:
-            bundles.append(self._make_col_bundle(cam_params, batch, col_gate))
-            col_batch = {"image": batch["col_rgb"]}
-        if has_evs:
-            prev_b, next_b = self._make_evs_bundles(cam_params, batch, evs_gate)
-            bundles.extend([prev_b] if self._denerf() else [prev_b, next_b])
-            evs_batch = {"image": batch["evs_values"], "e_thresh": batch["e_thresh"]}
-        return bundles, col_batch, evs_batch
+        col_batch = {"image": batch["col_rgb"]} if has_col else None
+        evs_batch = {"image": batch["evs_values"], "e_thresh": batch["e_thresh"]} if has_evs else None
+        big, sizes = bundles.step_rays(self._parts(), cam_params, batch, gates,
+                                       self.col_spline_static, self.rgb_ts, self.dm.num_embd)
+        return big, sizes, col_batch, evs_batch
 
     def loss_fn(self, params: dict, occ, batch: dict, step: int, bg_color=None, gates=None):
         """(params, occ, batch, step, background) -> (loss, metrics): one
@@ -443,9 +421,9 @@ class Trainer:
         cam_params = params["camera_opt"]
         col_out = prev_out = next_out = None
         with spans.layer("bundles"):
-            bundles, col_batch, evs_batch = self._step_bundles(cam_params, batch, step, gates)
-            sizes = [len(b) for b in bundles]
-            big = model_lib.concat_bundles(bundles) if len(bundles) > 1 else bundles[0]
+            big, sizes, col_batch, evs_batch = self._step_bundles(cam_params, batch, step, gates)
+            if gates is None:  # an eager step; a chunk's are counted by train_chunk
+                spans.count("bundle_kernel_steps")
         raw = model_lib.render_bundle(params["model"], big, occ, mcfg, train=True, bg_color=bg_color)
         overflow = raw.pop("grad_overflow", None)  # one count, not sliced by bundle
         offs = np.concatenate([[0], np.cumsum(sizes)]).tolist()
@@ -463,7 +441,7 @@ class Trainer:
                         params["model"], model_lib.slice_outputs(raw, offs[j], offs[j + 1]),
                         mcfg, train=True, ev_out=True,
                     )
-                    for j in range(cursor, len(bundles))
+                    for j in range(cursor, len(sizes))
                 ]
                 prev_out, next_out = ev_outs[0], ev_outs[-1]
             loss_dict = model_lib.compute_losses(
@@ -615,6 +593,7 @@ class Trainer:
         if self.optimizer is not None:
             self.opt_count += k
             spans.count("adam_fused_steps", k)
+        spans.count("bundle_kernel_steps", k)
         self.step_count += k
         spans.count("steps", k)
         return metrics
@@ -645,9 +624,8 @@ class Trainer:
             return None
         from lsenerf_tpu_torch.ops import march
 
-        bundles, _, _ = self._step_bundles(self.params["camera_opt"], self.batch_to_device(batch),
-                                           self.step_count)
-        big = model_lib.concat_bundles(bundles) if len(bundles) > 1 else bundles[0]
+        big, _, _, _ = self._step_bundles(self.params["camera_opt"], self.batch_to_device(batch),
+                                          self.step_count)
         samples = march.march_rays(big, self.occ, mcfg.grid, mcfg.march_config())
         return model_lib.overflow_count(samples.positions.reshape(-1, 3), mcfg)
 

@@ -31,7 +31,9 @@ layers are the program's own "layer:<name>" ranges (engine/spans.py),
 which it opens while a profiler runs; a kernel counts in the outermost
 layer range that was open on the host when its launching op started.
 Beside that table it prints each layer's device ms a step from the
-program's device marks, the events it records at each layer's end.
+program's device marks, the events it records at each layer's end, and
+the backward's launches and device ms split by the forward layer whose
+ops made each autograd node (backward_split).
 
 With `--scan-steps k` (k > 1) the steps run as the CLI runs them, k a
 chunk through Trainer.make_train_step_multi (one replayed CUDA graph;
@@ -112,6 +114,58 @@ def layer_kernels(events, steps: int, top: int = 4) -> dict:
             for layer, ks in by.items()}
 
 
+def backward_split(events, steps: int, top: int = 4) -> dict:
+    """{forward layer: (launches, device ms, its `top` kernels as (name, device
+    ms, launches)) a step} of the backward's kernels: a kernel belongs to the
+    autograd node whose range ("...Backward...") encloses the op that
+    launched it, and the node to the layer of the forward op that made it
+    (the same thread and sequence number: autograd's own link of a
+    backward range to its forward op; ops that make no node record the
+    number the next node will take, so the last forward op with a number is
+    the one that made its node). Nodes with no forward op (AccumulateGrad)
+    count as "accumulate grad", ops in no node's range as "no node"."""
+    outer, ops = _by_layer(events)
+    starts = [r[0] for r in outer]
+    made = {}  # (thread, sequence number) -> the layer of the forward op
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if e.device_type.name != "CPU" or e.sequence_nr < 0 or "Backward" in e.name:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < outer[i][1] and outer[i][2] != "backward":
+            made[(e.thread, e.sequence_nr)] = outer[i][2]
+    table = {}
+    for layer, e in ops:
+        if layer != "backward":
+            continue
+        node, p = None, e
+        while p is not None and node is None:
+            if "Backward" in p.name and p.sequence_nr >= 0:
+                node = made.get((p.fwd_thread, p.sequence_nr), "no forward op")
+            elif "AccumulateGrad" in p.name:
+                node = "accumulate grad"
+            p = p.cpu_parent
+        v = table.setdefault(node or "no node", [0, 0.0, {}])
+        v[0] += len(e.kernels)
+        for k in e.kernels:
+            v[1] += k.duration / 1e3
+            kv = v[2].setdefault(k.name, [0.0, 0])
+            kv[0] += k.duration / 1e3
+            kv[1] += 1
+    return {name: (n / steps, ms / steps,
+                   [(k, kms / steps, kn / steps) for k, (kms, kn) in
+                    sorted(ks.items(), key=lambda kv: -kv[1][0])[:top]])
+            for name, (n, ms, ks) in sorted(table.items(), key=lambda kv: -kv[1][1])}
+
+
+def print_backward_split(title: str, split: dict) -> None:
+    print(f"{title}: the backward's launches and device ms a step by the forward layer "
+          "whose ops made each autograd node")
+    for name, (n, dev, kernels) in split.items():
+        print(f"  {name:17s} {n:8.1f} launches  {dev:8.4f} ms device")
+        for kname, ms, kn in kernels:
+            print(f"      {ms:8.4f} ms {kn:6.1f}x  {kname[:90]}")
+
+
 def print_layers(title: str, table: dict, kernels: dict = None) -> None:
     print(f"{title}: launches, device ms and host ms a step by layer")
     for name, (n, dev, host) in table.items():
@@ -131,7 +185,8 @@ def print_marks(title: str, run: dict) -> None:
     dev = run["device_ms"]
     print(f"{title}: device ms by layer from the program's marks, over {c['marked_steps']} "
           f"marked steps ({c['steps']} steps run, {c.get('adam_fused_steps', 0)} of them "
-          "through the fused Adam)")
+          f"through the fused Adam, {c.get('bundle_kernel_steps', 0)} with their rays from "
+          "K8a/K8b)")
     for name, ms in sorted(dev.items(), key=lambda kv: -kv[1]):
         print(f"  {name:17s} {ms / n:8.4f} ms device")
     print(f"  {'marked':17s} {sum(dev.values()) / n:8.4f} ms device")
@@ -328,7 +383,8 @@ def main(argv=None) -> int:
           f"{len(dev_events) / args.steps:.0f} device events/step")
     names = {"encode_fwd_kernel": "K1", "encode_bwd_kernel": "K2", "ngp_fwd_kernel": "K7a",
              "ngp_bwd_kernel": "K7b", "march_kernel": "K3", "composite_fwd_kernel": "K5a",
-             "composite_bwd_kernel": "K5b"}
+             "composite_bwd_kernel": "K5b", "rays_fwd_kernel": "K8a", "rays_bwd_kernel": "K8b",
+             "rays_sum_kernel": "K8b's sums"}
     for k, (t, c) in kern.items():
         for key, short in names.items():
             if key in k:
@@ -341,6 +397,7 @@ def main(argv=None) -> int:
                   f"{c / args.steps:.1f} launches/step")
     print_layers(f"{label} step, traced (layer ranges on)", layer_table(prof.events(), args.steps),
                  layer_kernels(prof.events(), args.steps))
+    print_backward_split(f"{label} step's backward", backward_split(prof.events(), args.steps))
     print_marks(f"{label} step", steps_run)
     occ = layer_table(occ_prof.events(), 1)
     print_layers("one occupancy update, traced alone", occ)

@@ -22,7 +22,12 @@ busy; and the
 fused capturable Adam (engine/trainer.py::build_optimizer) on the 64 MiB
 table: 16 replayed steps bit for bit its eager steps, within f32 rounding
 of the foreach Adam it replaced, and a checkpoint of that foreach Adam
-loading into it.
+loading into it; and K8a/K8b, the bundles layer's rays of a step and
+their backward (lsenerf_tpu_torch/ops/bundles.py), against their plain
+version on the CPU at the three train cells' presets and for every
+camera-pose source, with query times outside the knots, the slerp's lerp
+branch, zero rotations, a batch on one knot and one camera, a captured
+graph's replay and the render path's forward at fixed poses.
 
 This file imports neither JAX nor the JAX package, so a machine with the
 card and without JAX runs it on its own, skipping the JAX conftest:
@@ -1253,3 +1258,232 @@ def test_a_foreach_checkpoint_loads_into_the_fused_adam_on_card(tmp_path):
         want, got = old.step(b)["loss"], new.step(b)["loss"]
         torch.testing.assert_close(got, want, rtol=1e-3, atol=0.0)
     assert new.opt_count == old.opt_count == 6
+
+
+# -- K8a/K8b: the camera rays of a step -------------------------------------------
+
+
+def _bundles_card_vs_cpu(tr, dev, gates=(1.0, 1.0), edit=None, tensor_gates=False):
+    """One step's rays and camera-leaf gradients by K8a/K8b on the card and
+    by the plain version on the CPU, from the same inputs (`edit` changes
+    them first); returns (card bundle, card grads, cpu bundle, cpu grads,
+    the card's K8a and K8b launches)."""
+    import torch_bundle_cases as cases
+    from lsenerf_tpu_torch.ops import bundles
+
+    inputs = cases.step_inputs(tr)
+    if edit is not None:
+        edit(inputs)
+    out = []
+    launches = (bundles.K8A.launches, bundles.K8B.launches)
+    for where in (dev, torch.device("cpu")):
+        parts, cp, batch, spline, rgb_ts, ne = cases.on_device(inputs, where)
+        g = tuple(torch.tensor(x, device=where) for x in gates) if tensor_gates else gates
+        big, sizes = bundles.step_rays(parts, cp, batch, g, spline, rgb_ts, ne)
+        assert sum(sizes) == len(big)
+        loss = cases.loss_of(big, cases.cotangents(len(big)))
+        if loss.requires_grad:
+            loss.backward()
+        out += [big, cases.leaf_grads(cp)]
+        if where == dev:
+            launches = (bundles.K8A.launches - launches[0], bundles.K8B.launches - launches[1])
+    return (*out, launches)
+
+
+def _same_rays(got, want):
+    torch.testing.assert_close(got.origins.cpu(), want.origins, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got.directions.cpu(), want.directions, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got.pixel_area.cpu(), want.pixel_area, rtol=2e-4, atol=1e-9)
+    for name in ("camera_indices", "times"):
+        torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name), rtol=0, atol=0)
+    torch.testing.assert_close(got.metadata["appearance_id"].cpu(),
+                               want.metadata["appearance_id"], rtol=0, atol=0)
+
+
+def _same_grads(got, want):
+    assert got.keys() == want.keys()
+    for path, w in want.items():
+        if w is None:
+            assert got[path] is None, path
+            continue
+        # the f32 sums into a knot or a camera add in another order
+        torch.testing.assert_close(got[path], w, rtol=1e-4,
+                                   atol=2e-5 * max(float(w.abs().max()), 1e-6), msg=path)
+
+
+def parts_rep(tr) -> int:
+    return tr._parts()[0].rep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["lsenerf", "lsenerf_emb", "badnerf_ngp_f32"])
+def test_bundles_match_plain_at_the_cells_on_card(preset):
+    """K8a/K8b at the train cells' presets and batch shapes (RGB spline +
+    deblur x4; the event presets' two SO3xR3 bundles), with the first and
+    last frames' exposures reaching past the knots, the gates as device
+    values: the rays and every camera leaf's gradient within f32 rounding
+    of the plain version on the CPU; one launch each."""
+    import torch_bundle_cases as cases
+    from lsenerf_tpu_torch.flagship import preset_trainer
+
+    dev = _card()
+    field = dict(hash_layout="ngp", compute_dtype="float32") if preset.startswith("badnerf") else {}
+    tr = preset_trainer(preset.split("_ngp")[0], device=dev, **field)
+    cases.move_leaves(tr.params["camera_opt"], 1)
+    n = len(tr.col_cams)
+
+    def ends(inputs):
+        rows = inputs[2]["col_indices"]
+        rows[:8, 0], rows[8:16, 0] = 0, n - 1
+
+    got, g_got, want, g_want, launches = _bundles_card_vs_cpu(tr, dev, edit=ends,
+                                                              tensor_gates=True)
+    _same_rays(got, want)
+    _same_grads(g_got, g_want)
+    assert launches == (1, 1)
+    # the first 16 pixels' rays (4 a pixel) are on the first and last frames
+    ts = tr.col_spline_static.ctrl_ts
+    q = got.times[:16 * parts_rep(tr)].cpu()[:, 0]
+    assert float(q.min()) == float(ts[0]) and float(q.max()) == float(ts[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [1.0, 0.0])
+@pytest.mark.parametrize("case", ["spline", "spline_deblur", "event_spline", "so3xr3", "se3",
+                                  "prevnext", "none"])
+def test_bundles_match_plain_for_each_pose_source_on_card(case, gate):
+    import torch_bundle_cases as cases
+
+    dev = _card()
+    tr = cases.case_trainer(case, device=dev, n_cams=12, size=64, rays=1024)
+    got, g_got, want, g_want, launches = _bundles_card_vs_cpu(tr, dev, gates=(gate, gate))
+    _same_rays(got, want)
+    _same_grads(g_got, g_want)
+    assert launches == (1, 0 if case == "none" else 1)
+    if gate == 0.0:
+        assert not any(g is not None and g.any() for g in g_got.values())
+
+
+@pytest.mark.cuda
+def test_bundles_lerp_branch_zero_rotations_and_one_knot_on_card():
+    """200 frames (neighbouring knots a degree apart: the slerp's lerp
+    branch), knots and delta rows with no rotation at all, and every ray of
+    the batch on one camera (so on one knot and one delta row: K8b's sums
+    of 2,316 + 1,194 rays into one row)."""
+    import torch_bundle_cases as cases
+    from lsenerf_tpu_torch.ops import lie
+
+    dev = _card()
+    tr = cases.case_trainer("prevnext", device=dev, n_cams=200, size=64, rays=3510)
+    cp = tr.params["camera_opt"]
+    ct = cp["col"]["ctrl_tangents"]
+    with torch.no_grad():
+        # knots near the trajectory, a fraction of the knots' spacing off it
+        noise = torch.randn(ct.shape, generator=torch.Generator().manual_seed(2)) * 3e-3
+        ct.copy_(tr.col_spline_params["ctrl_tangents"] + noise.to(dev))
+        ct[3:8, 3:] = 0.0
+        cp["evs"]["prev"]["pose_adjustment"][:, 3:] = 0.0
+    q = lie.exp_map_to_quat(cp["col"]["ctrl_tangents"][:, 3:].detach().cpu())
+    q = q / q.norm(dim=1, keepdim=True)
+    assert float(((q[1:] * q[:-1]).sum(1).abs() > 0.9995).float().mean()) > 0.9
+    for cam in (None, 5):
+        def one(inputs, cam=cam):
+            if cam is not None:
+                inputs[2]["col_indices"][:, 0] = cam
+                inputs[2]["evs_indices"][:, 0] = cam
+
+        got, g_got, want, g_want, _ = _bundles_card_vs_cpu(tr, dev, edit=one)
+        _same_rays(got, want)
+        _same_grads(g_got, g_want)
+        for path in ("col/ctrl_tangents", "evs/prev/pose_adjustment"):
+            assert g_got[path].abs().sum() > 0, path
+
+
+@pytest.mark.cuda
+def test_bundles_graph_replay_matches_eager_on_card():
+    """A step's rays and backward captured as a CUDA graph (its gates
+    device values): a replay with the gates at 1 gives the eager call's
+    rays and gradients bit for bit (K8b sums in a fixed order, no
+    atomics); at 0 the same rays and zero gradients."""
+    import torch_bundle_cases as cases
+    from lsenerf_tpu_torch.engine.trainer import tree_leaves
+    from lsenerf_tpu_torch.ops import bundles
+
+    dev = _card()
+    tr = cases.case_trainer("event_spline", device=dev, n_cams=12, size=64, rays=1024)
+    parts, cp, batch, spline, rgb_ts, ne = cases.on_device(cases.step_inputs(tr), dev)
+    leaves = [t for _, t in tree_leaves(cp)]
+    gates = torch.ones(2, device=dev)
+    n = sum(batch[p.rows].shape[0] * p.rep for p in parts)
+    cots = [c.to(dev) for c in cases.cotangents(n)]
+
+    def body():
+        for t in leaves:
+            t.grad = None
+        big, _ = bundles.step_rays(parts, cp, batch, (gates[0], gates[1]), spline, rgb_ts, ne)
+        cases.loss_of(big, cots).backward()
+        return big
+
+    eager = body()
+    want = {p: t.grad.clone() for p, t in tree_leaves(cp)}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = body()
+    gates.fill_(0.0)
+    graph.replay()
+    torch.testing.assert_close(static.origins, eager.origins, rtol=0, atol=0)
+    assert not any(t.grad.any() for t in leaves)
+    gates.fill_(1.0)
+    graph.replay()
+    for name in ("origins", "directions", "pixel_area", "camera_indices", "times"):
+        torch.testing.assert_close(getattr(static, name), getattr(eager, name), rtol=0, atol=0)
+    for p, t in tree_leaves(cp):
+        torch.testing.assert_close(t.grad, want[p], rtol=0, atol=0, msg=p)
+
+
+@pytest.mark.cuda
+def test_render_rays_forward_only_on_card():
+    """generate_rays on the card (eval batches, render_image, render.py,
+    the viewer) is K8a at fixed poses with no backward: the cameras' own
+    poses, one override pose expanded over the rays, a pose a ray, and
+    OpenCV distortion, each within f32 rounding of the plain version on
+    the CPU; a pose that needs a gradient is refused."""
+    import dataclasses
+
+    import torch_bundle_cases as cases
+    from lsenerf_tpu_torch.cameras import cameras as tcams
+    from lsenerf_tpu_torch.ops import bundles
+
+    dev = _card()
+    tr = cases.case_trainer("none", device=dev, n_cams=12, size=64)
+    cams = tr.col_cams
+    g = torch.Generator().manual_seed(0)
+    n = 4096
+    idx = torch.randint(0, len(cams), (n,), generator=g)
+    coords = torch.rand((n, 2), generator=g) * 64
+    pose = cams.camera_to_worlds[3:4].cpu() + 0.01
+    dist = torch.tensor([0.05, -0.01, 0.002, 0.0, 0.001, -0.002])
+    cases_ = [(cams, None), (cams, pose.expand(n, 3, 4)),
+              (cams, cams.camera_to_worlds.cpu()[idx] * 1.01),
+              (dataclasses.replace(cams, distortion_params=dist.to(dev)), None)]
+    for c, c2w in cases_:
+        before = (bundles.K8A.launches, bundles.K8B.launches)
+        got = tcams.generate_rays(c, idx.to(dev), coords.to(dev),
+                                  None if c2w is None else c2w.to(dev))
+        assert (bundles.K8A.launches - before[0], bundles.K8B.launches - before[1]) == (1, 0)
+        want = tcams.generate_rays(c.to("cpu"), idx, coords, c2w)
+        for name in ("origins", "directions"):
+            torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name), rtol=1e-5,
+                                       atol=1e-6, msg=name)
+        torch.testing.assert_close(got.pixel_area.cpu(), want.pixel_area, rtol=2e-4, atol=1e-9)
+        for name in ("camera_indices", "times"):
+            torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name), rtol=0,
+                                       atol=0)
+    with pytest.raises(ValueError, match="gradient"):
+        tcams.generate_rays(cams, idx.to(dev), coords.to(dev),
+                            pose.to(dev).requires_grad_(True).expand(n, 3, 4))

@@ -102,7 +102,7 @@ def test_compact_equals_dense(compact_pair):
     for path in gd:
         np.testing.assert_allclose(gc[path].numpy(), gd[path].numpy(), atol=1e-5, err_msg=path)
     # the rendered outputs themselves, in eval mode
-    bundle = tt._make_col_bundle(tt.params["camera_opt"], tb, 1.0)
+    bundle = tt._step_bundles(tt.params["camera_opt"], tb, 0)[0]
     outs = []
     for chunk in (64, 0):
         with tt.model_override(compact_chunk=chunk):
@@ -119,7 +119,7 @@ def test_compact_with_no_valid_sample():
     _, _, tt = torch_parity.trainers(model=dict(compact_chunk=64))
     tt.occ.binaries.zero_()
     tb = tt.batch_to_device(tt.dm.next_train(0))
-    bundle = tt._make_col_bundle(tt.params["camera_opt"], tb, 1.0)
+    bundle = tt._step_bundles(tt.params["camera_opt"], tb, 0)[0]
     out = tmodel.render_bundle(tt.params["model"], bundle, tt.occ, tt.model_config, train=False)
     assert float(out["accumulation"].abs().max()) == 0.0
 

@@ -206,17 +206,19 @@ def _ways(monkeypatch, tr, way):
         _graphs_on_the_cpu(monkeypatch, tr)
         st = tr.dm.next_train_stack(0, 3)
         nbytes = chunk_graph.ChunkGraph(tr, 3, st).host.numel()
-        return 12, 3, dict(steps=12, adam_fused_steps=12, eager_steps={"warm-up": 3},
-                           captures={"first": 1}, replays=3, occ_updates=3), nbytes * 4
+        return 12, 3, dict(steps=12, adam_fused_steps=12, bundle_kernel_steps=12,
+                           eager_steps={"warm-up": 3}, captures={"first": 1}, replays=3,
+                           occ_updates=3), nbytes * 4
     if way == "eager chunks":
-        return 6, 3, dict(steps=6, adam_fused_steps=6, eager_steps={"no CUDA device": 6},
-                          captures={}, replays=0, occ_updates=2), None
+        return 6, 3, dict(steps=6, adam_fused_steps=6, bundle_kernel_steps=6,
+                          eager_steps={"no CUDA device": 6}, captures={}, replays=0,
+                          occ_updates=2), None
     if way == "trimmed":
-        return 5, 3, dict(steps=5, adam_fused_steps=5,
+        return 5, 3, dict(steps=5, adam_fused_steps=5, bundle_kernel_steps=5,
                           eager_steps={"no CUDA device": 3, "trimmed chunk": 2},
                           captures={}, replays=0, occ_updates=2), None
-    return 5, 1, dict(steps=5, adam_fused_steps=5, eager_steps={"scan_steps 1": 5}, captures={},
-                      replays=0, occ_updates=2), None
+    return 5, 1, dict(steps=5, adam_fused_steps=5, bundle_kernel_steps=5,
+                      eager_steps={"scan_steps 1": 5}, captures={}, replays=0, occ_updates=2), None
 
 
 @pytest.mark.parametrize("way", ["graph", "eager chunks", "trimmed", "scan_steps 1"])
