@@ -39,9 +39,9 @@ Phases, each fatal on failure (exit code 1):
      uniform positions, 8 levels; K7ag bit for bit), and at F = 4 on one
      real step of each 4v path, each timed warm, with a cold L2 and beside
      its bound, K2g and K7bg beside their L2 atomic requests a launch as
-     gbwd_compare.requests works them out from the designs, K1g and K7ag
+     encode_requests.requests works them out from the designs, K1g and K7ag
      beside their table loads' L1 wavefronts and L2 sector requests
-     (gbwd_compare.fwd_requests);
+     (encode_requests.fwd_requests);
      and two more small steps (3b), 8 levels of F = 4 in each layout;
   3d. K3 (march_ts, csrc/march.cu) against march_ts_plain at the flagship
      trainer's real march inputs (flagship.march_composite_calls: step
@@ -627,7 +627,7 @@ def check_generic_encode(name, layout, pos, table, gfeat, lv):
     result}."""
     import torch
 
-    from lsenerf_tpu_torch import gbwd_compare
+    from lsenerf_tpu_torch import encode_requests
     from lsenerf_tpu_torch.ops import combine, ngp
     from lsenerf_tpu_torch.timing import cold_ms
 
@@ -677,13 +677,13 @@ def check_generic_encode(name, layout, pos, table, gfeat, lv):
               f"{distinct} distinct {'rows' if layout == 'blocked' else 'entries'} "
               f"({table.dtype}) at n={pos.shape[0]}, L={lv.num}, F={F}")
     # a model, not a measurement: printed only, kept out of the kernels line
-    scalar, new = gbwd_compare.requests(layout, pos, table, gfeat, lv)
+    scalar, new = encode_requests.requests(layout, pos, table, gfeat, lv)
     ms, m = res[kb.name]["device_ms"], pos.shape[0] * lv.num
     print(f"{kb.name} L2 atomic requests a launch at {name}, worked out from the designs (not "
           f"measured): {new} ({new / m:.2f} a sample-level; the first design's scalar atomics "
           f"{scalar}, {scalar / m:.2f}): {new / ms / 1e6:.1f} G requests/s at "
           f"{ms:.5f} ms on the device")
-    (w0, s0), (w1, s1) = gbwd_compare.fwd_requests(layout, pos, table, lv)
+    (w0, s0), (w1, s1) = encode_requests.fwd_requests(layout, pos, table, lv)
     ms = res[kf.name]["device_ms"]
     print(f"{kf.name} table loads a launch at {name}, worked out from the designs (not measured): "
           f"a thread a sample-level, {w0} L1 wavefronts and {s0} L2 sector requests ({s0 / m:.2f} "

@@ -1,58 +1,25 @@
-"""The generic encode kernels against other builds of their C entries on
-the card, in one process: K2g and K7bg, the backwards, and K1g and K7ag,
-the forwards; and the models of their memory requests and of K1g's sums.
-
-    python -m lsenerf_tpu_torch.gbwd_compare OTHER.cu [OTHER.cu ...] [--only fwd|bwd] [--out DIR]
-
-Each OTHER.cu is a source of csrc/blocked_encode.cu (it defines
-`blocked_encode_bwd_f`, K2g's C entry, and `blocked_encode_fwd_f`, K1g's)
-or of csrc/ngp_encode.cu (`ngp_encode_bwd_f`, K7bg's, and
-`ngp_encode_fwd_f`, K7ag's): an earlier commit's, for instance, written
-out by `git show <commit>:lsenerf_tpu_torch/csrc/blocked_encode.cu` into a
-directory that .gitignore lists. Each is built with cuda_build's flags into
-a library of its own and called through the package's wrappers
-(combine.encode_fwd / encode_bwd, ngp.encode_fwd / encode_bwd) in place of
-the package's library; a source without a forward entry takes part in the
-backwards only.
-
-At F = 1, 3, 4, 6, 8 and 16 on flagship.generic_encode_uniform's 56,192
-uniform samples x 8 levels (blocked: bf16 table; ngp: f32), and at F = 4
-on one real step's inputs of each flagship.FEATURES_4 path, every build
-must hold the plain version. Backwards: dpos rtol 1e-4, atol 1e-6 of its
-largest element; the table gradient within 1e-5 of its largest element;
-blocked pad columns untouched; dpos the same bits on a second call and the
-same bits as every other build of its layout. Forwards: K7ag the plain
-version's bits, K1g rtol 1e-5 / atol 1e-6. Then each build is timed warm
-(`timing.device_ms`) and with a cold L2 (`timing.cold_ms`) in turns
-(ABBA), beside the models of this design's requests and of the first
-design's (`requests`: the backwards' L2 atomic requests; `fwd_requests`:
-the forwards' L1 wavefronts and L2 sector requests; an OTHER's rate is
-printed with the first design's count). Last, the host's microseconds a
-call of each wrapper over the package's library and over the first OTHER
-of each layout, in turns, at F = 4. `--only` takes the forwards or the
-backwards alone. Prints the card's name and power limit and writes
-DIR/gbwd_compare.json (default outputs/gbwd_compare). Needs a CUDA card.
+"""Models of the generic encode kernels' memory requests and of K1g's
+sums, worked out on any device from the plain versions' keys, not
+measured: `requests`, the L2 atomic requests of one launch of K2g (blocked)
+or K7bg (ngp); `fwd_requests`, the L1 wavefronts and L2 sector requests of
+the table loads of one launch of K1g or K7ag; `vec_width`, `fwd_vec_width`,
+`fwd_pair` and `fwd_staged`, the choices the kernels' C entries make from F,
+the levels and the pointers' alignment; and `k1g_sums`, K1g's output by its
+own order of f32 operations. chip_smoke.py prints the models beside the
+kernels' times, and the tests hold them to the C sources and to a
+brute-force walk of each design's warps.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import sys
-from pathlib import Path
-
 import torch
 
-from lsenerf_tpu_torch import flagship, kernel_compare
 from lsenerf_tpu_torch.ops import combine, ngp
 
-FEATURES = (1, 3, 4, 6, 8, 16)
 K2G_CHUNK = 8  # csrc/blocked_encode.cu kGenChunk: a corner's features a K2g entry holds
 K7AG_SAMPLES = 64  # csrc/ngp_encode.cu kGenFwdSamples: K7ag's samples a block
 K7AG_GROUP = 2  # csrc/ngp_encode.cu kGenFwdGroup: K7ag's levels a block, at most
 FWD_STAGE = 48 * 1024  # kGenFwdStage of both: the most bytes a block stages its output in
-ENTRIES = {"blocked": "blocked_encode_bwd_f", "ngp": "ngp_encode_bwd_f"}
-FWD_ENTRIES = {"blocked": "blocked_encode_fwd_f", "ngp": "ngp_encode_fwd_f"}
 
 
 # ---------------------------------------------------------------------------
@@ -269,150 +236,3 @@ def k1g_sums(positions, table, levels) -> torch.Tensor:
             t[a, b] = w0 * flat[r].float() + w1 * flat[r + F].float()
     out = (t[0, 0] + t[0, 1]) + (t[1, 0] + t[1, 1])
     return out.permute(1, 0, 2).reshape(n, L * F)
-
-
-# ---------------------------------------------------------------------------
-# the comparison on the card
-# ---------------------------------------------------------------------------
-
-
-def through(mod, lib, name: str):
-    """mod.<name> (mod: combine or ngp; name: encode_fwd or encode_bwd)
-    launching lib's entries in place of the package's library."""
-    def call(*args):
-        real = mod._library
-        mod._library = lambda: lib
-        try:
-            return getattr(mod, name)(*args)
-        finally:
-            mod._library = real
-    return call
-
-
-def builds(others) -> dict:
-    """{"fwd" or "bwd": {layout: {label: wrapper}}}: the package's ("this")
-    and each OTHER's build (its file name), by the C entries it defines."""
-    mods = {"blocked": combine, "ngp": ngp}
-    fns = {d: {layout: {"this": getattr(mod, f"encode_{d}")} for layout, mod in mods.items()}
-           for d in ("fwd", "bwd")}
-    for label, lib in kernel_compare.build({p.name: p for p in others}).items():
-        layout = next((k for k, e in ENTRIES.items() if hasattr(lib, e)), None)
-        if layout is None:
-            raise SystemExit(f"gbwd_compare: {label} defines neither of {list(ENTRIES.values())}")
-        mod = mods[layout]
-        lib = mod.bind(lib)
-        fns["bwd"][layout][label] = through(mod, lib, "encode_bwd")
-        if hasattr(lib, FWD_ENTRIES[layout]):
-            fns["fwd"][layout][label] = through(mod, lib, "encode_fwd")
-    return fns
-
-
-def holds_fwd(layout, fns: dict, args, where) -> None:
-    """Every build of K7ag gives the plain version's bits; of K1g, holds it
-    at rtol 1e-5 / atol 1e-6."""
-    mod = combine if layout == "blocked" else ngp
-    want = mod.encode_fwd_plain(*args)
-    for label, fn in fns.items():
-        got = fn(*args)
-        torch.cuda.synchronize()
-        if layout == "blocked":
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-        elif not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise SystemExit(f"gbwd_compare: K7ag {label} at {where}: not the plain version's bits "
-                             f"(max abs err {float((got - want).abs().max()):.3e})")
-
-
-def holds(layout, fns: dict, args, where) -> None:
-    """Every build holds the plain version, gives dpos the same bits twice
-    and the same bits as every other build."""
-    mod = combine if layout == "blocked" else ngp
-    wdpos, wdtab = mod.encode_bwd_plain(*args)
-    first = None
-    for label, fn in fns.items():
-        dpos, dtab = fn(*args)
-        again, _ = fn(*args)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(dpos, wdpos, rtol=1e-4, atol=1e-6 * float(wdpos.abs().max()))
-        torch.testing.assert_close(dtab, wdtab, rtol=0, atol=1e-5 * float(wdtab.abs().max()))
-        if layout == "blocked" and dtab[:, 27 * args[3].F:].any():
-            raise SystemExit(f"gbwd_compare: {label} at {where}: the pad columns moved")
-        if not torch.equal(dpos.view(torch.int32), again.view(torch.int32)):
-            raise SystemExit(f"gbwd_compare: {label} at {where}: dpos differs between two calls")
-        if first is not None and not torch.equal(dpos.view(torch.int32), first.view(torch.int32)):
-            raise SystemExit(f"gbwd_compare: {label} at {where}: dpos is not the bits of "
-                             f"{next(iter(fns))}")
-        if first is None:
-            first = dpos
-
-
-def shapes(dev) -> dict:
-    """{layout: {shape name: (positions, table, cotangent, levels)}}."""
-    out = {"blocked": {}, "ngp": {}}
-    for layout, F, *args in flagship.generic_encode_uniform(FEATURES, dev):
-        out[layout][f"uniform F={F}"] = tuple(args)
-    for layout, args in flagship.generic_encode_steps(dev).items():
-        out[layout]["one 4v step, F=4"] = args
-    return out
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("others", nargs="+", help="sources of blocked_encode.cu or ngp_encode.cu")
-    ap.add_argument("--only", choices=("fwd", "bwd"), help="the forwards or the backwards alone")
-    ap.add_argument("--out", default="outputs/gbwd_compare")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("gbwd_compare: no CUDA device", file=sys.stderr)
-        return 1
-    card = kernel_compare.card_line()
-    print(f"card: {card}")
-    dev = torch.device("cuda")
-    fns = builds([Path(p).resolve() for p in args.others])
-    inputs = shapes(dev)
-    res, model, host = {}, {}, {}
-    kernels = (("fwd", "blocked", "K1g"), ("fwd", "ngp", "K7ag"), ("bwd", "blocked", "K2g"),
-               ("bwd", "ngp", "K7bg"))
-    for d, layout, kernel in kernels:
-        if args.only not in (None, d):
-            continue
-        fn = fns[d][layout]
-        # a forward takes (positions, table, levels)
-        at = {k: (a[0], a[1], a[3]) if d == "fwd" else a for k, a in inputs[layout].items()}
-        for name, a in at.items():
-            (holds_fwd if d == "fwd" else holds)(layout, fn, a, name)
-        print(f"gbwd_compare: {kernel} builds {list(fn)} hold the plain version" +
-              (" and each other's dpos bits" if d == "bwd" else "") + f" at {list(at)}")
-        res[kernel] = kernel_compare.abba(
-            fn, at, card,
-            lambda label, name, a, kernel=kernel: f"{kernel} {label} at {name} (n={a[0].shape[0]}, "
-                                                  f"{a[1].dtype})")
-        model[kernel] = {}
-        for name, a in inputs[layout].items():
-            warm = {label: min(t["warm"]) for label, t in res[kernel][name].items()}
-            m = a[0].shape[0] * a[3].num
-            if d == "bwd":
-                first, this = requests(layout, *a)
-                what = "L2 atomic requests"
-            else:
-                (_, first), (_, this) = fwd_requests(layout, a[0], a[1], a[3])
-                what = "L2 sector requests of its table loads"
-            model[kernel][name] = {"first": first, "this": this}
-            print(f"{kernel} {what} a launch at {name}, worked out from the designs (not "
-                  f"measured): the first design's {first} ({first / m:.2f} a sample-level), this "
-                  f"one's {this} ({this / m:.2f}); this one's over this build's warm time, the "
-                  f"first's over each other's: " + ", ".join(
-                      f"{label} {t:.5f} ms, {(this if label == 'this' else first) / t / 1e6:.1f} "
-                      f"G/s" for label, t in warm.items()) + f"; {card}")
-        others = [label for label in fn if label != "this"]
-        if others:
-            f4 = {k: at[k] for k in ("uniform F=4", "one 4v step, F=4")}
-            host[kernel] = kernel_compare.host_turns(fn["this"], fn[others[0]], f4, card, kernel)
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "gbwd_compare.json").write_text(json.dumps(
-        {"card": card, "results": res, "requests": model, "host_us": host}, indent=1))
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

@@ -46,7 +46,6 @@ import torch
 
 from lsenerf_tpu_torch.cameras import pose_opt
 from lsenerf_tpu_torch.engine import spans
-from lsenerf_tpu_torch.engine.trainer import tree_leaves
 from lsenerf_tpu_torch.ops import occupancy as occ_lib
 
 
@@ -173,33 +172,20 @@ class ChunkGraph:
         return (self.k // 2,)
 
     def body(self) -> None:
-        """k steps on the staged inputs, as Trainer.step runs one: the
-        background draw, the loss and its backward, Adam at the step's lr.
-        Writes the last step's metrics and the k losses into `out`."""
+        """k steps on the staged inputs, each Trainer.update on the step's
+        batch, gates and lrs and the graph's grid (the step's background
+        drawn in it). Writes the last step's metrics and the k losses into
+        `out`."""
         t = self.trainer
-        leaves = [p for _, p in tree_leaves(t.params)]
+        # the lrs as floats where the optimizer takes floats (the CPU)
+        lrs = self.host_lrs if self.dev is self.host else self.lrs
         losses = []
         marked = self.marked_steps()
         for j in range(self.k):
             marks = spans.open_marks(t.device, 1) if j in marked else None
             batch = {key: v[j] for key, v in self.batch.items()}
-            bg = t._draw_background(t.num_rays(batch))
-            for p in leaves:
-                p.grad = None
-            spans.mark("other")
-            loss, metrics = t.loss_fn(t.params, self.occ, batch, None, bg,
-                                      gates=(self.gates[j, 0], self.gates[j, 1]))
-            spans.mark("other")
-            with spans.layer("backward"):
-                loss.backward()
-            if t.optimizer is not None:
-                with spans.layer("adam"):
-                    for g, group in enumerate(t.optimizer.param_groups):
-                        if isinstance(group["lr"], torch.Tensor):
-                            group["lr"].copy_(self.lrs[j, g])
-                        else:
-                            group["lr"] = self.host_lrs[j][g]
-                    t.optimizer.step()
+            loss, metrics = t.update(batch, gates=(self.gates[j, 0], self.gates[j, 1]),
+                                     lrs=None if t.optimizer is None else lrs[j], occ=self.occ)
             losses.append(loss.detach())
             spans.close_marks(marks)
         metrics["loss"] = loss

@@ -39,15 +39,11 @@ once, where the run ends, so that no read holds the host or the card
 between steps. On the CPU, which has no marks, a tally counts every traced
 train step.
 
-Counters, a run's: "steps" (train steps run), "adam_fused_steps" (Adam
-updates run, each torch's fused one, the only one build_optimizer makes; a
-replay's counted as its k steps), "bundle_kernel_steps" (steps whose rays
-came from one call of ops/bundles.py's step_rays: K8a/K8b on the card;
-counted in layer:bundles of an eager step, a chunk's as its k steps),
-"marked_steps" (steps whose device marks
-were read), "replays", "captures" and "eager_steps" (by reason),
-"occ_updates", "staged_bytes" (host to device), "launches" (each kernel's
-launches, a replay's counted as the kernels its graph holds); the tallies
+Counters, a run's: "steps" (train steps run; a replay's counted as its k
+steps), "marked_steps" (steps whose device marks were read), "replays",
+"captures" and "eager_steps" (by reason), "occ_updates", "staged_bytes"
+(host to device), "launches" (each kernel's launches, a replay's counted
+as the kernels its graph holds); the tallies
 "sample_slots" (the march's slots, rays x slots a ray) and "live_samples"
 (the slots the march kept for the field; on the card read where the run
 ends).
@@ -109,9 +105,8 @@ class _Record:
         self.id, self.spans, self.dropped_spans, self.step = run_id, [], 0, None
         self.live = None  # the device's total of the live samples tallied
         self.device_ms = {}
-        self.counters = {"steps": 0, "adam_fused_steps": 0, "bundle_kernel_steps": 0,
-                         "marked_steps": 0, "replays": 0,
-                         "captures": {}, "eager_steps": {}, "occ_updates": 0, "staged_bytes": 0,
+        self.counters = {"steps": 0, "marked_steps": 0, "replays": 0, "captures": {},
+                         "eager_steps": {}, "occ_updates": 0, "staged_bytes": 0,
                          "launches": {}, "sample_slots": 0, "live_samples": 0}
 
 

@@ -126,7 +126,7 @@ def build_optimizer(config: TrainerConfig, params: dict):
     groups; the JAX package zeroes their updates). Returns (optimizer,
     per-group schedules, per-group leaf paths), the optimizer None where
     nothing trains; the caller sets each group's lr to schedule(count)
-    before the update (set_lrs), count = updates this optimizer has made,
+    before the update (write_lrs), count = updates this optimizer has made,
     the count optax passes to its schedule. The update is torch's fused
     one, one pass over each leaf's parameter, gradient and moments, on the
     card and on the CPU alike; a trained leaf has to be a dense float
@@ -157,14 +157,22 @@ def build_optimizer(config: TrainerConfig, params: dict):
     return optimizer, schedules, paths
 
 
-def set_lrs(optimizer, schedules, count: int) -> None:
-    """Each group's lr to its schedule at `count`: a float, or written into
-    the group's device tensor where the optimizer is capturable."""
-    for group, sched in zip(optimizer.param_groups, schedules):
-        if isinstance(group["lr"], torch.Tensor):
-            group["lr"].fill_(sched(count))
+def write_lrs(optimizer, lrs) -> None:
+    """Each group's lr to its entry of `lrs`, a float or a 0-dim device
+    value: written into the group's device tensor where the optimizer is
+    capturable, else set as a float."""
+    for group, lr in zip(optimizer.param_groups, lrs):
+        if not isinstance(group["lr"], torch.Tensor):
+            group["lr"] = float(lr)
+        elif isinstance(lr, torch.Tensor):
+            group["lr"].copy_(lr)
         else:
-            group["lr"] = sched(count)
+            group["lr"].fill_(lr)
+
+
+def set_lrs(optimizer, schedules, count: int) -> None:
+    """Each group's lr to its schedule at `count` (write_lrs)."""
+    write_lrs(optimizer, [sched(count) for sched in schedules])
 
 
 class Trainer:
@@ -422,8 +430,6 @@ class Trainer:
         col_out = prev_out = next_out = None
         with spans.layer("bundles"):
             big, sizes, col_batch, evs_batch = self._step_bundles(cam_params, batch, step, gates)
-            if gates is None:  # an eager step; a chunk's are counted by train_chunk
-                spans.count("bundle_kernel_steps")
         raw = model_lib.render_bundle(params["model"], big, occ, mcfg, train=True, bg_color=bg_color)
         overflow = raw.pop("grad_overflow", None)  # one count, not sliced by bundle
         offs = np.concatenate([[0], np.cumsum(sizes)]).tolist()
@@ -488,6 +494,24 @@ class Trainer:
             return None
         return torch.rand((n, 3), generator=self._bg_gen, device=self.device)
 
+    def _loss_backward(self, batch: dict, bg_color=None, gates=None, occ=None):
+        """The first half of an update: the background drawn where
+        `bg_color` is None, the grads cleared, then one step's loss on
+        `batch` at the current parameters and on grid `occ` (the
+        trainer's by default) between two "other" marks, and its backward.
+        Returns (loss, metrics)."""
+        if bg_color is None:
+            bg_color = self._draw_background(self.num_rays(batch))
+        for _, t in tree_leaves(self.params):
+            t.grad = None
+        spans.mark("other")
+        loss, metrics = self.loss_fn(self.params, self.occ if occ is None else occ, batch,
+                                     self.step_count, bg_color, gates=gates)
+        spans.mark("other")
+        with spans.layer("backward"):
+            loss.backward()
+        return loss, metrics
+
     def grads(self, batch: dict, bg_color=None):
         """Loss, metrics and the gradients (a dict path -> tensor) of one
         step's loss at the current parameters; nothing is updated. A leaf
@@ -495,18 +519,32 @@ class Trainer:
         cameras are not on the spline, rgb_to_one when the event branch
         does not read it) gets zeros, as JAX gives it; its .grad stays
         None, so Adam leaves it as it is."""
-        if bg_color is None:
-            bg_color = self._draw_background(self.num_rays(batch))
-        for _, t in tree_leaves(self.params):
-            t.grad = None
-        spans.mark("other")
-        loss, metrics = self.loss_fn(self.params, self.occ, batch, self.step_count, bg_color)
-        spans.mark("other")
-        with spans.layer("backward"):
-            loss.backward()
+        loss, metrics = self._loss_backward(batch, bg_color)
         grads = {p: torch.zeros_like(t) if t.grad is None else t.grad
                  for p, t in tree_leaves(self.params)}
         return loss, metrics, grads
+
+    def update(self, batch: dict, bg_color=None, gates=None, lrs=None, occ=None):
+        """One update on device-side inputs, the body of Trainer.step and
+        of each step of a chunk's graph (engine/chunk_graph.py): the loss
+        and its backward (_loss_backward; `gates`, where given, stand for
+        the step's camera gates, as in loss_fn), under data parallelism the
+        gradients and metrics averaged over the ranks (then an "other"
+        mark), and Adam with each group's lr from `lrs` (floats or 0-dim
+        device values; by default the schedules at opt_count). Counts
+        nothing. Returns (loss, metrics)."""
+        loss, metrics = self._loss_backward(batch, bg_color, gates, occ)
+        if self.dp is not None:
+            self.dp.average_grads([t.grad for _, t in tree_leaves(self.params) if t.grad is not None])
+            metrics = self.dp.average_metrics(dict(metrics, loss=loss))
+            loss = metrics.pop("loss")
+            spans.mark("other")
+        if self.optimizer is not None:
+            with spans.layer("adam"):
+                write_lrs(self.optimizer, [sched(self.opt_count) for sched in self.schedules]
+                          if lrs is None else lrs)
+                self.optimizer.step()
+        return loss, metrics
 
     def step(self, batch: dict, bg_color=None, update_occ: bool = True) -> dict:
         """One training step on a data-manager batch (numpy or tensors;
@@ -519,18 +557,8 @@ class Trainer:
         marks = spans.open_marks(self.device, 1)
         if update_occ and self.step_count % self.model_config.grid.update_interval == 0:
             self.occ_update()
-        batch = self.batch_to_device(batch)
-        loss, metrics, _ = self.grads(batch, bg_color)
-        if self.dp is not None:
-            self.dp.average_grads([t.grad for _, t in tree_leaves(self.params) if t.grad is not None])
-            metrics = self.dp.average_metrics(dict(metrics, loss=loss))
-            loss = metrics.pop("loss")
-        spans.mark("other")
+        loss, metrics = self.update(self.batch_to_device(batch), bg_color)
         if self.optimizer is not None:
-            with spans.layer("adam"):
-                set_lrs(self.optimizer, self.schedules, self.opt_count)
-                self.optimizer.step()
-                spans.count("adam_fused_steps")
             self.opt_count += 1
         self.step_count += 1
         metrics["loss"] = loss
@@ -592,8 +620,6 @@ class Trainer:
         metrics, self.chunk_losses = cg.run(stacked)
         if self.optimizer is not None:
             self.opt_count += k
-            spans.count("adam_fused_steps", k)
-        spans.count("bundle_kernel_steps", k)
         self.step_count += k
         spans.count("steps", k)
         return metrics

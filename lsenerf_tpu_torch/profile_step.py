@@ -184,9 +184,7 @@ def print_marks(title: str, run: dict) -> None:
     n = c["marked_steps"] or 1
     dev = run["device_ms"]
     print(f"{title}: device ms by layer from the program's marks, over {c['marked_steps']} "
-          f"marked steps ({c['steps']} steps run, {c.get('adam_fused_steps', 0)} of them "
-          f"through the fused Adam, {c.get('bundle_kernel_steps', 0)} with their rays from "
-          "K8a/K8b)")
+          f"marked steps ({c['steps']} steps run)")
     for name, ms in sorted(dev.items(), key=lambda kv: -kv[1]):
         print(f"  {name:17s} {ms / n:8.4f} ms device")
     print(f"  {'marked':17s} {sum(dev.values()) / n:8.4f} ms device")

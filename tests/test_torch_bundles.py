@@ -5,8 +5,8 @@ dM and its scale, SO3xR3 and SE3 deltas, prevnext's two delta sets, none)
 and both values of the delayed-activation gate, the step's rays and the
 gradient of every camera leaf equal those of the composition the trainer
 had (tests/torch_bundle_cases.today); the parts a trainer builds for each
-optimizer; the wrapper's refusals; and the run's counter of steps whose
-rays came from the wrapper."""
+optimizer; the wrapper's refusals; and one call of the wrapper a train
+step."""
 
 import ctypes
 import re
@@ -180,16 +180,23 @@ def test_the_structs_mirror_the_kernel():
 
 
 @pytest.mark.parametrize("scan_steps", [1, 3])
-def test_bundle_kernel_steps_counts_every_step(scan_steps):
-    """While traced, every train step's rays came from one call of
-    step_rays: bundle_kernel_steps equals steps (eager steps, and chunks of
-    eager steps on the CPU)."""
+def test_bundle_kernel_steps_counts_every_step(monkeypatch, scan_steps):
+    """Every train step's rays come from one call of step_rays (eager
+    steps, and chunks of eager steps on the CPU), which on the CPU runs
+    its plain version and launches no kernel."""
     tr = cases.case_trainer("spline_deblur")
+    calls, real = [], bundles.step_rays
+
+    def counted(*a, **kw):
+        calls.append(tr.step_count)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(bundles, "step_rays", counted)
     spans.reset()
     with profile(activities=[ProfilerActivity.CPU]):
         run_training_loop(tr, num_steps=6, scan_steps=scan_steps)
     run, = spans.snapshot()
     spans.reset()
     c = run["counters"]
-    assert c["steps"] == 6 and c["bundle_kernel_steps"] == c["steps"]
+    assert c["steps"] == 6 and calls == list(range(6))
     assert not c["launches"].get("rays_fwd") and not c["launches"].get("rays_bwd")

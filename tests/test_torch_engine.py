@@ -288,7 +288,7 @@ def test_loop_cadences_fire_on_jax_steps(monkeypatch):
 
     tr.step = step
     tr.occ_update = lambda *a, **k: ev["occ"].append(tr.step_count)
-    tr.grads = lambda batch, bg_color=None: (torch.zeros(()), {}, {})
+    tr._loss_backward = lambda batch, *a, **k: (torch.zeros(()), {})
     tr.eval_batch = lambda *a: (ev["eval_batch"].append(ev["_cur"]), {})[1]
     monkeypatch.setattr(tren, "render_image", lambda *a, **k: (
         ev["eval_image"].append(ev["_cur"]), {"rgb": np.ones((16, 16, 3), np.float32)})[1])
@@ -332,7 +332,7 @@ def test_loop_cadences_fire_on_jax_steps_in_chunks(monkeypatch, scan_steps):
 
     tr.step = step
     tr.occ_update = lambda *a, **k: ev["occ"].append(tr.step_count)
-    tr.grads = lambda batch, bg_color=None: (torch.zeros(()), {}, {})
+    tr._loss_backward = lambda batch, *a, **k: (torch.zeros(()), {})
     tr.eval_batch = lambda *a: (ev["eval_batch"].append(ev["_cur"]), {})[1]
     monkeypatch.setattr(tren, "render_image", lambda *a, **k: (
         ev["eval_image"].append(ev["_cur"]), {"rgb": np.ones((16, 16, 3), np.float32)})[1])
@@ -360,14 +360,15 @@ class _Logger:
 
 
 def _hooked_trainer(loss=0.0):
-    """_tiny_trainer at the resumed start with CADENCE, its gradient, the
-    occupancy update and the evals stubbed, each step's loss `loss`."""
+    """_tiny_trainer at the resumed start with CADENCE, its loss and
+    backward (Trainer._loss_backward), the occupancy update and the evals
+    stubbed, each step's loss `loss`."""
     tr = _tiny_trainer()
     for k, v in CADENCE.items():
         setattr(tr.config, k, v)
     tr.step_count = START
     tr.occ_update = lambda *a, **k: None
-    tr.grads = lambda batch, bg_color=None: (torch.tensor(float(loss)), {}, {})
+    tr._loss_backward = lambda batch, *a, **k: (torch.tensor(float(loss)), {})
     tr.eval_batch = lambda *a: {}
     return tr
 

@@ -7,7 +7,7 @@ tensors.
   values, table gradient and position gradient against JAX's `hash_encode`
   and `jax.grad` (the blocked layout with the Pallas combine P1/P2 in
   interpret mode, which take F as a parameter);
-- K1g's own order of sums (`gbwd_compare.k1g_sums`, which the card test
+- K1g's own order of sums (`encode_requests.k1g_sums`, which the card test
   holds K1g to bit for bit) against JAX's values at F in {1, 4, 8};
 - the configuration's shapes (row width, table shape, out_dim) against
   JAX's, `convert`'s ngp table mapping both ways and the blocked layout's
@@ -136,13 +136,13 @@ def test_encode_matches_jax(layout, F, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("F", [1, 4, 8])
 def test_k1g_order_of_sums_matches_jax(F, dtype):
-    """K1g's own order of operations (gbwd_compare.k1g_sums: each lane of
+    """K1g's own order of operations (encode_requests.k1g_sums: each lane of
     a group of 4 weighs its z-pair, the shuffles add the lanes' terms
     pairwise, every product and sum rounded) against JAX's
     hash_encode(layout="blocked") (the Pallas combine in interpret mode)
     and the plain version, within K1g's tolerance on the card, rtol 1e-5 /
     atol 1e-6, on the table the kernel reads (bf16 with a bf16 gather)."""
-    from lsenerf_tpu_torch import gbwd_compare
+    from lsenerf_tpu_torch import encode_requests
 
     jcfg, tcfg = torch_parity.hash_configs(dtype, "blocked", features_per_level=F)
     pos, table, _ = _inputs(jcfg, tcfg, seed=F)
@@ -151,7 +151,7 @@ def test_k1g_order_of_sums_matches_jax(F, dtype):
     if dtype == "bfloat16":
         t = t.to(torch.bfloat16)
     lv = the.levels_for(tcfg, "cpu")
-    got = gbwd_compare.k1g_sums(torch.from_numpy(pos), t, lv)
+    got = encode_requests.k1g_sums(torch.from_numpy(pos), t, lv)
     assert got.shape == (pos.shape[0], tcfg.out_dim)
     np.testing.assert_allclose(got.numpy(), jout, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got, combine.encode_fwd_plain(torch.from_numpy(pos), t, lv),

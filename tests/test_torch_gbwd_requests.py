@@ -1,5 +1,5 @@
-"""gbwd_compare.requests, the model of K2g's and K7bg's L2 atomic requests
-a launch (lsenerf_tpu_torch/gbwd_compare.py), against a brute-force loop
+"""encode_requests.requests, the model of K2g's and K7bg's L2 atomic requests
+a launch (lsenerf_tpu_torch/encode_requests.py), against a brute-force loop
 that walks each design's warps, instructions and lanes as the kernels in
 csrc/blocked_encode.cu and csrc/ngp_encode.cu do, on a few hundred samples
 at two levels, for F = 1, 4, 6 and 12 (two of K2g's feature chunks). Some
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from lsenerf_tpu_torch import gbwd_compare
+from lsenerf_tpu_torch import encode_requests
 from lsenerf_tpu_torch.ops import combine, ngp
 from lsenerf_tpu_torch.ops import hash_encoding as the
 
@@ -58,8 +58,8 @@ def _brute_blocked(pos, gfeat, lv):
                                 if upd(l, i0 + k, c, f) != 0})
             # this design: the warp's entries of 8 fc values a chunk of the
             # features, lane by lane as the kernel steps through them
-            for f0 in range(0, F, gbwd_compare.K2G_CHUNK):
-                fc = min(gbwd_compare.K2G_CHUNK, F - f0)
+            for f0 in range(0, F, encode_requests.K2G_CHUNK):
+                fc = min(encode_requests.K2G_CHUNK, F - f0)
                 E, sectors = 8 * fc, {}
                 for lane in range(32):
                     k, j, it = lane // E, lane % E, 0
@@ -76,7 +76,7 @@ def _brute_blocked(pos, gfeat, lv):
 
 def _brute_ngp(pos, table, lv):
     n, L, F = pos.shape[0], lv.num, table.shape[1]
-    V = gbwd_compare.vec_width(F, table)
+    V = encode_requests.vec_width(F, table)
     keys, wts, _ = ngp.corners(pos, lv)
     keys, wts = keys.tolist(), wts.tolist()
     old = new = 0
@@ -96,11 +96,11 @@ def _brute_ngp(pos, table, lv):
 @pytest.mark.parametrize("layout", ["blocked", "ngp"])
 def test_request_model_matches_a_brute_force_loop(layout, F):
     pos, table, g, lv = _inputs(layout, F)
-    got = gbwd_compare.requests(layout, pos, table, g, lv)
+    got = encode_requests.requests(layout, pos, table, g, lv)
     want = _brute_blocked(pos, g, lv) if layout == "blocked" else _brute_ngp(pos, table, lv)
     assert got == want
     old, new = got
-    V = gbwd_compare.vec_width(F, table)
+    V = encode_requests.vec_width(F, table)
     assert V == {1: 1, 4: 4, 6: 2, 12: 4}[F]
     # the new designs merge a sector's lanes (K2g) or V values (K7bg)
     assert 0 < new < old if layout == "blocked" or V > 1 else new == old
@@ -110,12 +110,12 @@ def test_vec_width_follows_the_tables_alignment():
     """K7bg's V drops where a view of the table starts off a V-value
     boundary, as the C entry's choice does."""
     base = torch.zeros(4 * 16 + 4)
-    assert gbwd_compare.vec_width(4, base[:64].view(16, 4)) == 4
-    assert gbwd_compare.vec_width(4, base[2:66].view(16, 4)) == 2
-    assert gbwd_compare.vec_width(4, base[1:65].view(16, 4)) == 1
+    assert encode_requests.vec_width(4, base[:64].view(16, 4)) == 4
+    assert encode_requests.vec_width(4, base[2:66].view(16, 4)) == 2
+    assert encode_requests.vec_width(4, base[1:65].view(16, 4)) == 1
     half = torch.zeros(70, dtype=torch.bfloat16)
-    assert gbwd_compare.vec_width(8, half[4:68].view(8, 8)) == 4
-    assert gbwd_compare.vec_width(8, half[1:65].view(8, 8)) == 1
+    assert encode_requests.vec_width(8, half[4:68].view(8, 8)) == 4
+    assert encode_requests.vec_width(8, half[1:65].view(8, 8)) == 1
 
 
 def test_model_follows_the_kernels_source():
@@ -125,10 +125,10 @@ def test_model_follows_the_kernels_source():
     must reach the model too."""
     from pathlib import Path
 
-    csrc = Path(gbwd_compare.__file__).parent / "csrc"
+    csrc = Path(encode_requests.__file__).parent / "csrc"
     blocked = (csrc / "blocked_encode.cu").read_text()
     chunk = re.search(r"constexpr int kGenChunk = (\d+);", blocked)
-    assert chunk and int(chunk.group(1)) == gbwd_compare.K2G_CHUNK
+    assert chunk and int(chunk.group(1)) == encode_requests.K2G_CHUNK
     entry = (csrc / "ngp_encode.cu").read_text().split("int ngp_encode_bwd_f(")[1]
     assert re.search(r"int V = 4;\s*while \(V > 1 && \(F % V \|\| at % \(V \* elt\) \|\| "
                      r"ad % \(V \* 4\)\)\) V /= 2;", entry)

@@ -1,11 +1,11 @@
-"""gbwd_compare.fwd_requests, the model of K1g's and K7ag's table loads a
+"""encode_requests.fwd_requests, the model of K1g's and K7ag's table loads a
 launch (L1 wavefronts and L2 sector requests, lsenerf_tpu_torch/
-gbwd_compare.py), against a brute-force loop that walks each design's
+encode_requests.py), against a brute-force loop that walks each design's
 warps, load instructions and lanes as the kernels in csrc/blocked_encode.cu
 and csrc/ngp_encode.cu do, on a few hundred samples at two levels, for
 F = 1, 4, 6 and 12 with an f32 and a bf16 table (K7ag takes its pair
 loads at F = 1 and at bf16 F = 4); the forwards' launch choices (vector width, pair
-load, staging) as their C sources make them; and gbwd_compare.k1g_sums,
+load, staging) as their C sources make them; and encode_requests.k1g_sums,
 K1g's order of operations, against the plain version."""
 
 import re
@@ -15,11 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from lsenerf_tpu_torch import gbwd_compare
+from lsenerf_tpu_torch import encode_requests
 from lsenerf_tpu_torch.ops import combine, ngp
 from lsenerf_tpu_torch.ops import hash_encoding as the
 
-CSRC = Path(gbwd_compare.__file__).parent / "csrc"
+CSRC = Path(encode_requests.__file__).parent / "csrc"
 
 
 def _inputs(layout, F, dtype, n=300):
@@ -47,7 +47,7 @@ def _count(instructions, elt, base):
 def _brute_blocked(pos, table, lv):
     n, L, F, W = pos.shape[0], lv.num, lv.F, lv.row_width
     elt, base = table.element_size(), table.data_ptr() % 128
-    V = gbwd_compare.fwd_vec_width("blocked", F, table, W)
+    V = encode_requests.fwd_vec_width("blocked", F, table, W)
     keys, o, _ = combine.keys_fracs(pos, lv)
     keys, o = keys.tolist(), [x.tolist() for x in o]
 
@@ -86,8 +86,8 @@ def _brute_blocked(pos, table, lv):
 def _brute_ngp(pos, table, lv):
     n, L, F = pos.shape[0], lv.num, table.shape[1]
     elt, base = table.element_size(), table.data_ptr() % 128
-    V = gbwd_compare.fwd_vec_width("ngp", F, table)
-    pair = gbwd_compare.fwd_pair(F, table)
+    V = encode_requests.fwd_vec_width("ngp", F, table)
+    pair = encode_requests.fwd_pair(F, table)
     keys = ngp.corners(pos, lv)[0].tolist()  # (8, L, n)
     bx = torch.floor(pos[None, :, 0] * lv.scale[:, None]).long().tolist()  # (L, n)
     old = []
@@ -120,7 +120,7 @@ def _brute_ngp(pos, table, lv):
 @pytest.mark.parametrize("layout", ["blocked", "ngp"])
 def test_fwd_request_model_matches_a_brute_force_loop(layout, F, dtype):
     pos, table, lv = _inputs(layout, F, dtype)
-    got = gbwd_compare.fwd_requests(layout, pos, table, lv)
+    got = encode_requests.fwd_requests(layout, pos, table, lv)
     want = (_brute_blocked if layout == "blocked" else _brute_ngp)(pos, table, lv)
     assert got == want
     (w0, s0), (w1, s1) = got
@@ -136,30 +136,31 @@ def test_fwd_choices_follow_the_tables_alignment():
     f32 = torch.zeros(4 * 64 + 4)
     bf = torch.zeros(8 * 64 + 8, dtype=torch.bfloat16)
     for layout, W in (("ngp", None), ("blocked", 128)):
-        assert gbwd_compare.fwd_vec_width(layout, 4, f32[:256].view(64, 4), W) == 4
-        assert gbwd_compare.fwd_vec_width(layout, 4, f32[2:258].view(64, 4), W) == 2
-        assert gbwd_compare.fwd_vec_width(layout, 4, f32[1:257].view(64, 4), W) == 1
-        assert gbwd_compare.fwd_vec_width(layout, 4, bf[4:260].view(64, 4), W) == 4
-        assert gbwd_compare.fwd_vec_width(layout, 4, bf[2:258].view(64, 4), W) == 2
+        assert encode_requests.fwd_vec_width(layout, 4, f32[:256].view(64, 4), W) == 4
+        assert encode_requests.fwd_vec_width(layout, 4, f32[2:258].view(64, 4), W) == 2
+        assert encode_requests.fwd_vec_width(layout, 4, f32[1:257].view(64, 4), W) == 1
+        assert encode_requests.fwd_vec_width(layout, 4, bf[4:260].view(64, 4), W) == 4
+        assert encode_requests.fwd_vec_width(layout, 4, bf[2:258].view(64, 4), W) == 2
     # a row width that is not a multiple of V
-    assert gbwd_compare.fwd_vec_width("blocked", 4, f32[:256].view(64, 4), 110) == 2
-    assert not gbwd_compare.fwd_pair(4, f32[:256].view(64, 4))  # 32 bytes
-    assert gbwd_compare.fwd_pair(4, bf[:256].view(64, 4))  # 16 bytes
-    assert not gbwd_compare.fwd_pair(4, bf[4:260].view(64, 4))  # 8 bytes off
-    assert not gbwd_compare.fwd_pair(4, bf[2:258].view(64, 4))  # V = 2
-    assert gbwd_compare.fwd_pair(1, f32[:256].view(-1, 1))
-    assert gbwd_compare.fwd_pair(1, f32[2:258].view(-1, 1))  # 8 bytes, aligned
-    assert not gbwd_compare.fwd_pair(1, f32[1:257].view(-1, 1))
-    assert not gbwd_compare.fwd_pair(3, bf[:192].view(64, 3))
+    assert encode_requests.fwd_vec_width("blocked", 4, f32[:256].view(64, 4), 110) == 2
+    assert not encode_requests.fwd_pair(4, f32[:256].view(64, 4))  # 32 bytes
+    assert encode_requests.fwd_pair(4, bf[:256].view(64, 4))  # 16 bytes
+    assert not encode_requests.fwd_pair(4, bf[4:260].view(64, 4))  # 8 bytes off
+    assert not encode_requests.fwd_pair(4, bf[2:258].view(64, 4))  # V = 2
+    assert encode_requests.fwd_pair(1, f32[:256].view(-1, 1))
+    assert encode_requests.fwd_pair(1, f32[2:258].view(-1, 1))  # 8 bytes, aligned
+    assert not encode_requests.fwd_pair(1, f32[1:257].view(-1, 1))
+    assert not encode_requests.fwd_pair(3, bf[:192].view(64, 3))
 
 
 def test_fwd_staging_limit():
     """Where a block's output stops fitting in shared memory: K7ag at 2
     levels a block past F = 94 (at 1 level past 189), K1g past L F = 381."""
-    assert gbwd_compare.fwd_staged("ngp", 5, 94) and not gbwd_compare.fwd_staged("ngp", 5, 95)
-    assert gbwd_compare.fwd_staged("ngp", 1, 189) and not gbwd_compare.fwd_staged("ngp", 1, 190)
-    assert gbwd_compare.fwd_staged("blocked", 5, 76) and not gbwd_compare.fwd_staged("blocked", 5, 77)
-    assert gbwd_compare.fwd_staged("blocked", 8, 16)
+    staged = encode_requests.fwd_staged
+    assert staged("ngp", 5, 94) and not staged("ngp", 5, 95)
+    assert staged("ngp", 1, 189) and not staged("ngp", 1, 190)
+    assert staged("blocked", 5, 76) and not staged("blocked", 5, 77)
+    assert staged("blocked", 8, 16)
 
 
 def test_fwd_model_follows_the_kernels_source():
@@ -175,9 +176,10 @@ def test_fwd_model_follows_the_kernels_source():
         assert m, name
         return eval(m.group(1))  # noqa: S307 (a literal product)
 
-    assert const(ngp_src, "kGenFwdSamples") == gbwd_compare.K7AG_SAMPLES
-    assert const(ngp_src, "kGenFwdGroup") == gbwd_compare.K7AG_GROUP
-    assert const(ngp_src, "kGenFwdStage") == const(blocked, "kGenFwdStage") == gbwd_compare.FWD_STAGE
+    assert const(ngp_src, "kGenFwdSamples") == encode_requests.K7AG_SAMPLES
+    assert const(ngp_src, "kGenFwdGroup") == encode_requests.K7AG_GROUP
+    assert (const(ngp_src, "kGenFwdStage") == const(blocked, "kGenFwdStage")
+            == encode_requests.FWD_STAGE)
     entry = ngp_src.split("int ngp_encode_fwd_f(")[1].split("\n}\n")[0]
     assert re.search(r"int V = 4;\s*while \(V > 1 && \(F % V \|\| at % \(V \* elt\) \|\| "
                      r"ao % \(V \* 4\)\)\) V /= 2;", entry)
@@ -203,7 +205,7 @@ def test_k1g_sums_hold_the_plain_version(F, dtype):
     lv = the.levels_for(cfg, "cpu")
     table = torch.from_numpy(np.random.default_rng(F).standard_normal(cfg.table_shape)
                              .astype(np.float32)).to(dtype)
-    got = gbwd_compare.k1g_sums(pos, table, lv)
+    got = encode_requests.k1g_sums(pos, table, lv)
     want = combine.encode_fwd_plain(pos, table, lv)
     assert got.shape == want.shape == (257, 5 * F)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

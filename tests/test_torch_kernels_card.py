@@ -486,7 +486,7 @@ def test_generic_fwd_takes_an_unaligned_table_on_card(layout, dtype):
     its 4 or 8 bytes are off too: the
     launch is counted and the output is the aligned table's bits (both
     kernels' sums take one order whatever the width)."""
-    from lsenerf_tpu_torch import gbwd_compare
+    from lsenerf_tpu_torch import encode_requests
 
     dev = _card()
     mod = combine if layout == "blocked" else ngp
@@ -502,8 +502,8 @@ def test_generic_fwd_takes_an_unaligned_table_on_card(layout, dtype):
             assert view.data_ptr() % 16 != 0
             W = cfg.blocked_row_width if layout == "blocked" else None
             if F == 4:  # a narrower V (K7ag: no pair load)
-                assert gbwd_compare.fwd_vec_width(layout, F, view, W) < 4
-                assert not gbwd_compare.fwd_pair(F, view)
+                assert encode_requests.fwd_vec_width(layout, F, view, W) < 4
+                assert not encode_requests.fwd_pair(F, view)
             before = kf.launches
             got = mod.encode_fwd(p, view, lv)
             torch.cuda.synchronize()
@@ -517,17 +517,17 @@ def test_generic_fwd_takes_an_unaligned_table_on_card(layout, dtype):
 @pytest.mark.parametrize("layout", ["blocked", "ngp"])
 def test_generic_fwd_at_the_staging_limit_on_card(layout, dtype, past):
     """K1g and K7ag at L = 5 at the last F whose block output is staged in
-    shared memory (gbwd_compare.fwd_staged, tied to the C sources) and at
+    shared memory (encode_requests.fwd_staged, tied to the C sources) and at
     the next one, whose outputs each lane writes from registers: both
     against the plain version (K7ag bit for bit), on uniform positions
     and along rays."""
-    from lsenerf_tpu_torch import gbwd_compare
+    from lsenerf_tpu_torch import encode_requests
 
     dev = _card()
     mod = combine if layout == "blocked" else ngp
     kf = combine.K1G if layout == "blocked" else ngp.K7AG
-    F = next(F for F in range(1, 1000) if not gbwd_compare.fwd_staged(layout, 5, F)) - 1 + past
-    assert F > 16 and gbwd_compare.fwd_staged(layout, 5, F) != past
+    F = next(F for F in range(1, 1000) if not encode_requests.fwd_staged(layout, 5, F)) - 1 + past
+    assert F > 16 and encode_requests.fwd_staged(layout, 5, F) != past
     cfg = _generic_cfg(layout, F)
     for kind, n in (("uniform", 4099), ("rays", 4112)):
         rng = np.random.default_rng(16)
@@ -546,9 +546,9 @@ def test_generic_fwd_at_the_staging_limit_on_card(layout, dtype, past):
 @pytest.mark.parametrize("F", [1, 3, 4, 8, 20])
 def test_k1g_is_its_own_order_of_sums_on_card(F, dtype):
     """K1g rounds every product and sum on its own, in a fixed order that
-    gbwd_compare.k1g_sums repeats op by op: the same bits, at L = 5 on each
+    encode_requests.k1g_sums repeats op by op: the same bits, at L = 5 on each
     kind of positions and at the full-width grid's 8 levels along rays."""
-    from lsenerf_tpu_torch import gbwd_compare
+    from lsenerf_tpu_torch import encode_requests
 
     dev = _card()
     for cfg, kind, n in [(_generic_cfg("blocked", F), k, n) for k, n in GENERIC_KINDS["blocked"]] + [
@@ -558,7 +558,7 @@ def test_k1g_is_its_own_order_of_sums_on_card(F, dtype):
         tab = torch.from_numpy(rng.standard_normal(cfg.table_shape).astype(np.float32)).to(dev, dtype)
         lv = the.levels_for(cfg, "cuda")
         got = combine.encode_fwd(p, tab, lv)
-        want = gbwd_compare.k1g_sums(p, tab, lv)
+        want = encode_requests.k1g_sums(p, tab, lv)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), kind
 
 

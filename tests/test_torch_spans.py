@@ -5,8 +5,8 @@ stage_host_ms.train.py, live_sample_share.train.py):
     shared object (it allocates nothing);
   - spans nest, each with its parent, the step its chunk starts at and one
     run a call of the training loop;
-  - every span is also a torch.profiler range of the same name, nesting
-    and times (on the profiler's clock) as the store has them;
+  - every span is also a torch.profiler range of the same name and
+    nesting, each span inside its range on one clock;
   - a loop of a tiny trainer at scan_steps 3, its chunks through
     ChunkGraph's body on the CPU (a stand-in for the CUDA graph runs the
     body at the capture and at each replay): the layer ranges in order in
@@ -26,6 +26,7 @@ runs it alone:
 import contextlib
 import importlib.util
 import os
+import statistics
 
 import pytest
 import torch
@@ -151,8 +152,15 @@ def test_spans_nest_with_parents_steps_and_one_run_a_loop():
 
 
 def test_spans_are_profiler_ranges_on_its_clock():
-    """Each span is a profiler range of its name: the same nesting, and
-    start (from the loop's) and duration within 50 us of the store's."""
+    """Each span is a profiler range of its name: the same names in the
+    same order and nesting, and each span inside its own range on one
+    clock. The two clocks count from other epochs, so one offset c (the
+    store's time less the profiler's) has to put every span inside its
+    range: c at most each start's offset and at least each end's, up to a
+    margin the test measures, the median of what a range holds beyond its
+    span (the range's own entry and exit). A host preemption only widens a
+    range around its span, so it cannot fail the test; another clock, whose
+    offset drifts over the run, does."""
     tr = _trainer()
     with _cpu_profile() as prof:
         # a profiler's first range pays its own set-up
@@ -164,14 +172,15 @@ def test_spans_are_profiler_ranges_on_its_clock():
     events = sorted((e for e in prof.events() if e.name in names and e.device_type.name == "CPU"),
                     key=lambda e: (e.time_range.start, -e.time_range.end))
     assert [e.name for e in events] == [s["name"] for s in run["spans"]]
-    e0, s0 = events[0].time_range.start, run["spans"][0]["start_ns"]
-    for e, s in zip(events, run["spans"]):
-        assert abs((e.time_range.start - e0) - (s["start_ns"] - s0) / 1e3) < 50, s["name"]
-        assert abs(e.time_range.elapsed_us() - (s["end_ns"] - s["start_ns"]) / 1e3) < 50, s["name"]
     for e, s in zip(events, run["spans"]):
         if s["parent"] is not None:
             p = events[s["parent"]]
             assert p.time_range.start <= e.time_range.start and e.time_range.end <= p.time_range.end
+    # the offsets in us: c <= starts[i] and c >= ends[i] for every span i
+    starts = [s["start_ns"] / 1e3 - e.time_range.start for e, s in zip(events, run["spans"])]
+    ends = [s["end_ns"] / 1e3 - e.time_range.end for e, s in zip(events, run["spans"])]
+    margin = statistics.median(a - b for a, b in zip(starts, ends))
+    assert max(ends) - min(starts) <= margin, (max(ends) - min(starts), margin)
 
 
 def test_chunk_graph_loop_on_the_cpu_records_layers_and_chunks(monkeypatch):
@@ -206,19 +215,16 @@ def _ways(monkeypatch, tr, way):
         _graphs_on_the_cpu(monkeypatch, tr)
         st = tr.dm.next_train_stack(0, 3)
         nbytes = chunk_graph.ChunkGraph(tr, 3, st).host.numel()
-        return 12, 3, dict(steps=12, adam_fused_steps=12, bundle_kernel_steps=12,
-                           eager_steps={"warm-up": 3}, captures={"first": 1}, replays=3,
+        return 12, 3, dict(steps=12, eager_steps={"warm-up": 3}, captures={"first": 1}, replays=3,
                            occ_updates=3), nbytes * 4
     if way == "eager chunks":
-        return 6, 3, dict(steps=6, adam_fused_steps=6, bundle_kernel_steps=6,
-                          eager_steps={"no CUDA device": 6}, captures={}, replays=0,
+        return 6, 3, dict(steps=6, eager_steps={"no CUDA device": 6}, captures={}, replays=0,
                           occ_updates=2), None
     if way == "trimmed":
-        return 5, 3, dict(steps=5, adam_fused_steps=5, bundle_kernel_steps=5,
-                          eager_steps={"no CUDA device": 3, "trimmed chunk": 2},
+        return 5, 3, dict(steps=5, eager_steps={"no CUDA device": 3, "trimmed chunk": 2},
                           captures={}, replays=0, occ_updates=2), None
-    return 5, 1, dict(steps=5, adam_fused_steps=5, bundle_kernel_steps=5,
-                      eager_steps={"scan_steps 1": 5}, captures={}, replays=0, occ_updates=2), None
+    return 5, 1, dict(steps=5, eager_steps={"scan_steps 1": 5}, captures={}, replays=0,
+                      occ_updates=2), None
 
 
 @pytest.mark.parametrize("way", ["graph", "eager chunks", "trimmed", "scan_steps 1"])
