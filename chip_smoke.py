@@ -79,6 +79,11 @@ Phases, each fatal on failure (exit code 1):
      their backward, at one step's inputs of each train cell's preset,
      against the plain version on the card and timed alone beside it
      (check_bundles);
+  3g. K9a (head_fwd) and K9b (head_bwd), the field's MLP head, at the
+     three train cells' shapes, the occupancy update's density chunk and
+     widths of no preset, against the plain version on the card, the same
+     bits twice, timed alone beside its FMA bound and the plain head, and
+     the plain head with TF32 products refused by the limits (check_head);
   3c. the gather probe (lsenerf_tpu_torch/gather_probe.py: every case of
      scripts/pallas_probe*.py) on the card, with the gather kernels' launch
      counters set to 0 just before and read just after; then G1 (row_gather),
@@ -1244,6 +1249,129 @@ def check_bundles(dev) -> dict:
     return res
 
 
+def head_work(a, backward: bool) -> tuple:
+    """(bytes, f32 operations) of one K9a (or K9b) call on head_fwd's
+    arguments a: the multiply-adds of the base and colour MLPs at their
+    widths, each 2 operations, a sample (the density alone without
+    directions); K9b the input cotangents and the weight gradients, 2x as
+    many. Bytes: the features, directions,
+    selector and codes read and density and rgb written once (K9b: the
+    cotangents read, the features', directions' and codes' gradients and
+    the weights' written)."""
+    base, color, feats, sel, dirs, codes = a[:6]
+    n, D = feats.shape
+    macs = D * 64 + 64 * 16
+    nbytes = feats.numel() * 4 + n + n * 4
+    if dirs is not None:
+        E = 0 if codes is None else codes.shape[1]
+        macs += (31 + E) * 64 + 64 * 64 + 64 * 3
+        nbytes += n * (12 + 12) + (0 if codes is None else codes.shape[0] * E * 4)
+    weights = sum(t.numel() * 4 for t in list(base.values()) + list((color or {}).values()))
+    nbytes += weights
+    if backward:
+        macs *= 2
+        nbytes += n * 16 + feats.numel() * 4 + n * 12 + weights + n * 832
+    return nbytes, 2 * macs * n
+
+
+def check_head(dev) -> dict:
+    """Phase 3g: K9a (head_fwd) and K9b (head_bwd), the field's MLP head
+    (ops/field_head.py), at flagship.head_shapes (the three train cells'
+    steps: 56,160 bf16 samples with one code, 168,480 bf16 with a code a
+    ray of 48, 56,192 f32 with one code; the occupancy update's 131,072
+    density-only samples, K9a alone; 56,160 bf16 samples of 64 features
+    and 16-wide codes, which no preset's compiled widths take): against the
+    plain version on the card (field_head.off_plain: each output's error
+    printed beside its limit), the same bits on a second call, then timed:
+    ms, device_ms (graph replay), cold_ms and host_us (K9b: the backward of
+    one prepared call, field_head.Call, that saved its activations), the
+    plain version's forward (and forward + backward) ms and its kernels in
+    one traced call, beside the bound (head_work: f32 FMA at F32_FLOPS).
+    Then the control: the plain version with TF32 products against itself
+    in f32 must be off the limits at every train shape. Returns
+    {"head_fwd": ..., "head_bwd": ...} of the first shape, the others
+    under "shapes"."""
+    import torch
+
+    from lsenerf_tpu_torch.flagship import head_shapes
+    from lsenerf_tpu_torch.models import field as field_lib
+    from lsenerf_tpu_torch.ops import field_head as fh
+    from lsenerf_tpu_torch.timing import cold_ms, device_ms, host_us, time_ms
+
+    t0 = time.time()
+    res = {}
+    plain_fn = field_lib.head_plain
+    for label, a in head_shapes(dev).items():
+        fa = a[:8]
+        for backward in (False, True):
+            if backward and a[4] is None:
+                continue
+            args = a if backward else fa
+            name = "K9b" if backward else "K9a"
+            got, again = fh.run(*args), fh.run(*args)
+            want = fh.run(*args, plain=plain_fn)
+            errs = fh.errors(got, want, fh.GRADIENTS if backward else fh.OUTPUTS)
+            off = fh.off_plain(got, want, a[7], backward)
+            if off:
+                fail(f"3g {label}: {name} is off the plain version: {off}")
+            if not all((g is None and h is None) or same_bits(g, h) for g, h in zip(got, again)):
+                fail(f"3g {label}: {name} gave other bits on a second call")
+            if backward:
+                # K9b alone: the backward of one prepared call that saved its activations
+                prepared = fh.Call(*fa)
+                prepared.forward(save=True)
+                wanted = [True] * (3 + len(prepared.weights))
+
+                def call(p=prepared, w=wanted):
+                    p.backward(a[8], a[9], w)
+            else:
+                def call(args=fa):
+                    fh.run(*args)
+
+            def plain_call(args=args):
+                fh.run(*args, plain=plain_fn)
+
+            nbytes, ops = head_work(fa, backward)
+            b_ms, b_by = bound(nbytes, ops)
+            (nk, kms), (npk, pkms) = kernels_of(call), kernels_of(plain_call)
+            r = dict(ms=time_ms(call, 20), device_ms=device_ms(call), cold_ms=cold_ms(call),
+                     host_us=host_us(call), kernel_ms=kms, launches_a_call=nk,
+                     plain_ms=time_ms(plain_call, 5), plain_kernel_ms=pkms,
+                     plain_launches_a_call=npk, bound_ms=b_ms, bound_by=b_by,
+                     samples=fa[2].shape[0], errors=errs)
+            limit = fh.TOLERANCE[bool(a[7])][int(backward)]
+            print(f"3g {label} ({r['samples']} samples): {name} {r['ms']:.4f} ms per call, "
+                  f"{r['device_ms']:.5f} ms on the device, cold L2 {r['cold_ms']:.5f}, "
+                  f"{r['host_us']:.1f} us of host, {nk} kernels a call ({kms:.5f} ms); plain "
+                  f"{'forward + backward' if backward else 'forward'} {r['plain_ms']:.4f} ms, "
+                  f"{npk} kernels a call ({pkms:.5f} ms of kernels); bound {b_ms:.5f} ms by "
+                  f"{b_by} ({100 * b_ms / r['device_ms']:.1f}% of it); errors (limit "
+                  f"{limit:.0e}) " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
+            key = "head_bwd" if backward else "head_fwd"
+            if key not in res:
+                res[key] = dict(r, shapes={})
+            res[key]["shapes"][label] = r
+            if a[4] is None or label == "other widths":
+                continue
+            # the control: TF32 products, which the limits must refuse
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                control = fh.run(*args, plain=plain_fn)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+            cerrs = fh.errors(control, want, fh.GRADIENTS if backward else fh.OUTPUTS)
+            coff = fh.off_plain(control, want, a[7], backward)
+            print(f"3g {label}: control, the plain {name} with TF32 products: off the limit "
+                  f"{limit:.0e} at {sorted(coff)}; errors "
+                  + ", ".join(f"{k} {e:.2e}" for k, e in cerrs.items()))
+            if not coff:
+                fail(f"3g {label}: the limits take the plain {name} with TF32 products")
+            res[key]["shapes"][label]["tf32_errors"] = cerrs
+    print(f"phase 3g in {time.time() - t0:.1f} s")
+    return res
+
+
 def bound(nbytes, ops):
     """The least time for the work: the larger of bytes over the memory rate
     and f32 operations over the peak f32 rate, in ms, and which bounds it."""
@@ -1486,8 +1614,8 @@ RENDER_KERNELS = ("march_ts", "composite_fwd", "composite_bwd")
 
 
 def path_kernels():
-    """K1, K2, K1g, K2g, K7a, K7b, K7ag, K7bg, K3, K5a, K5b, K8a and K8b
-    (their launch counters)."""
+    """K1, K2, K1g, K2g, K7a, K7b, K7ag, K7bg, K3, K5a, K5b, K8a, K8b, K9a
+    and K9b (their launch counters)."""
     from lsenerf_tpu_torch.engine import chunk_graph
 
     return chunk_graph.path_kernels()
@@ -2607,6 +2735,8 @@ STATUS = {
     "gather_sum": "ported (a shared-memory redesign was measured and dropped)",
     "rays_fwd": "ported",
     "rays_bwd": "ported",
+    "head_fwd": "ported",
+    "head_bwd": "ported",
 }
 
 
@@ -2619,7 +2749,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from lsenerf_tpu_torch.ops import bundles, combine, composite, cuda_build
-        from lsenerf_tpu_torch.ops import gather, march, ngp
+        from lsenerf_tpu_torch.ops import field_head, gather, march, ngp
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}: {e}")
 
@@ -2649,6 +2779,7 @@ def main() -> int:
     res.update(check_march_composite(dev))
     check_adam(dev)
     res.update(check_bundles(dev))
+    res.update(check_head(dev))
     so3 = CameraOptConfig(mode="SO3xR3")
     check_small_step(dev, "ns SO3xR3", so3, so3)
     check_small_step(dev, "spline + deblur, SE3 event deltas",
@@ -2748,6 +2879,16 @@ def main() -> int:
         kernels.append(dict(
             name=k.name, route="cuda", source="lsenerf_tpu_torch/csrc/bundles.cu",
             replaces="lsenerf_tpu/cameras/cameras.py:95", also_replaces=bundle_chain,
+            launches=launches[k.name], **res[k.name],
+        ))
+    # K9a/K9b stand in for the field's MLP head (no Pallas kernel; XLA fuses
+    # the JAX package's MLPs): the base MLP, trunc_exp, SH, the colour MLP
+    head_chain = ["lsenerf_tpu/models/field.py:34", "lsenerf_tpu/ops/sh.py:16",
+                  "lsenerf_tpu/models/field.py:280", "lsenerf_tpu/models/mlp.py:44"]
+    for k in (field_head.K9A, field_head.K9B):
+        kernels.append(dict(
+            name=k.name, route="cuda", source="lsenerf_tpu_torch/csrc/field_head.cu",
+            replaces="lsenerf_tpu/models/field.py:145", also_replaces=head_chain,
             launches=launches[k.name], **res[k.name],
         ))
     # each gather kernel replaces several probe kernels; `replaces` names the

@@ -51,10 +51,11 @@ from lsenerf_tpu_torch.ops import occupancy as occ_lib
 
 def path_kernels():
     """The launch counters of the train step's kernels: K1, K2, K1g, K2g,
-    K7a, K7b, K7ag, K7bg, K3, K5a, K5b, K8a and K8b."""
-    from lsenerf_tpu_torch.ops import bundles, combine, composite, march, ngp
+    K7a, K7b, K7ag, K7bg, K3, K5a, K5b, K8a, K8b, K9a and K9b."""
+    from lsenerf_tpu_torch.ops import bundles, combine, composite, field_head, march, ngp
 
-    return combine.KERNELS + ngp.KERNELS + march.KERNELS + composite.KERNELS + bundles.KERNELS
+    return (combine.KERNELS + ngp.KERNELS + march.KERNELS + composite.KERNELS + bundles.KERNELS
+            + field_head.KERNELS)
 
 
 def _where(exc: BaseException) -> str:

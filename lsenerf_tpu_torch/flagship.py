@@ -48,6 +48,7 @@ from lsenerf_tpu_torch.engine.trainer import CameraOptConfig, Trainer, TrainerCo
 from lsenerf_tpu_torch.models import embeddings as emb_lib
 from lsenerf_tpu_torch.models import field as field_lib
 from lsenerf_tpu_torch.models import lsenerf as model_lib
+from lsenerf_tpu_torch.models import mlp
 from lsenerf_tpu_torch.ops import combine, ngp
 from lsenerf_tpu_torch.ops import hash_encoding as he
 
@@ -442,3 +443,49 @@ def generic_encode_steps(device=None) -> dict:
     bad = preset_trainer("badnerf", device=device, hash_layout="ngp", compute_dtype="float32",
                          hash_fields=FEATURES_4)
     return {"blocked": blocked, "ngp": ngp_encode_calls(trainer=bad)["step"]}
+
+
+# the field head's shapes (K9a/K9b): (rays, samples a ray, bf16, codes,
+# features a sample, code width) of the three train cells' steps, the
+# occupancy update's density chunk, and widths that take the kernels
+# compiled for no preset (16 levels x F 4, 16-wide codes)
+HEAD_SHAPES = {
+    "lsenerf step": (3510, 16, True, "one", 32, 32),
+    "lsenerf_emb step": (3510, 48, True, "a ray", 32, 32),
+    "badnerf_ngp_f32 step": (3512, 16, False, "one", 32, 32),
+    "occupancy chunk": (131072, 1, True, None, 32, 0),
+    "other widths": (3510, 16, True, "a ray", 64, 16),
+}
+
+
+def head_shapes(device=None, seed: int = 26, names=None) -> dict:
+    """{name: (base MLP, colour MLP, features, selector, directions, codes,
+    average_init_density, bf16, density cotangent, rgb cotangent)}, in
+    field_head.run's order, at HEAD_SHAPES: the MLPs drawn as init_field
+    draws them, N(0, 0.5) features, unit directions, 90% of samples in
+    bounds, N(0, 1) codes (one for every ray, as global_emb's, or one a
+    ray) and cotangents. The occupancy chunk has no directions, codes or
+    cotangents: density alone, forward only."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, (rays, k, bf16, codes, D, E) in HEAD_SHAPES.items():
+        if names is not None and name not in names:
+            continue
+        n = rays * k
+        base = mlp.init_mlp(gen, D, 2, 64, 16)
+        color = mlp.init_mlp(gen, 16 + 15 + E, 3, 64, 3)
+        feats = torch.randn((n, D), generator=gen) * 0.5
+        sel = torch.rand((n,), generator=gen) < 0.9
+        dirs = g_d = g_rgb = c = None
+        if codes is not None:
+            dirs = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=-1)
+            c = torch.randn((1 if codes == "one" else rays, E), generator=gen)
+            g_d, g_rgb = torch.randn((n, 1), generator=gen), torch.randn((n, 3), generator=gen)
+        to = (lambda t: None if t is None else t.to(device))  # noqa: E731
+        c = to(c)
+        if codes == "one":
+            c = c[0].expand(rays, E)
+        base = {key: to(t) for key, t in base.items()}
+        color = None if codes is None else {key: to(t) for key, t in color.items()}
+        out[name] = (base, color, to(feats), to(sel), to(dirs), c, 1.0, bf16, to(g_d), to(g_rgb))
+    return out

@@ -5,7 +5,8 @@ the card, in one process: the A/B tool of every kernel in TABLE.
         [--wrapper OLD.py] [--rays N ...] [--wide] [--only fwd|bwd] [--out DIR]
 
 KERNEL names an entry of TABLE: K1 (K1/K2), K1g (K1g/K2g), K3, K5
-(K5a/K5b), K7a (K7a/K7b) or K7ag (K7ag/K7bg). Each OTHER.cu defines the
+(K5a/K5b), K7a (K7a/K7b), K7ag (K7ag/K7bg) or K9 (K9a/K9b, the field's
+MLP head). Each OTHER.cu defines the
 entry's C entries with the signatures of the package's source: an earlier
 commit's source, for instance, written out by `git show
 <commit>:lsenerf_tpu_torch/csrc/march.cu` into a directory that .gitignore
@@ -55,7 +56,8 @@ from typing import Callable
 import torch
 
 from lsenerf_tpu_torch import flagship
-from lsenerf_tpu_torch.ops import combine, composite, cuda_build, march, ngp
+from lsenerf_tpu_torch.models import field as field_lib
+from lsenerf_tpu_torch.ops import combine, composite, cuda_build, field_head, march, ngp
 from lsenerf_tpu_torch.timing import cold_ms, device_ms, host_us
 
 FEATURES = (1, 3, 4, 6, 8, 16)  # the generic encode kernels' uniform shapes
@@ -188,6 +190,38 @@ def _encode(fwd: str, bwd: str, mod, same_dpos: bool = False) -> tuple:
                    _encode_bwd_holds(bwd, mod.encode_bwd_plain, blocked, same_dpos)))
 
 
+def _head_args(backward: bool):
+    """K9a's or K9b's arguments to field_head.run at a shape's inputs
+    (flagship.head_shapes): K9b's where the shape trains (it has
+    directions), with the cotangents; on CPU tensors, where no kernel runs,
+    run is handed the plain version."""
+
+    def args(a):
+        if backward and a[4] is None:
+            return None
+        plain = None if a[2].is_cuda else field_lib.head_plain
+        return (*a[:8], *(a[8:] if backward else (None, None)), plain)
+
+    return args
+
+
+def _head_holds(name: str, backward: bool):
+    """K9a or K9b: each output within field_head.TOLERANCE of the plain
+    version (relative to its norm), and the same bits on a second call."""
+
+    def holds(fns: dict, a, where: str) -> None:
+        want = field_head.run(*a[:-1], plain=field_lib.head_plain)
+        for label, fn in fns.items():
+            got, again = fn(*a), fn(*a)
+            off = field_head.off_plain(got, want, a[7], backward)
+            if off:
+                _fail(name, label, where, f"off the plain version: {off}")
+            if not all((g is None and h is None) or _bits(g, h) for g, h in zip(got, again)):
+                _fail(name, label, where, "other bits on a second call")
+
+    return holds
+
+
 # -- the shapes -------------------------------------------------------------------
 
 
@@ -230,6 +264,12 @@ def _composite_shapes(dev, wide):
     return {}, {name: a + cot for name, (a, cot) in shapes.items()}
 
 
+def _head_shapes(dev, wide):
+    """K9a/K9b at flagship.head_shapes: the three train cells' steps, the
+    occupancy update's density chunk (K9a alone) and widths of no preset."""
+    return {}, flagship.head_shapes(dev)
+
+
 TABLE = {
     "K1": Entry(combine, ("blocked_encode_fwd", "blocked_encode_bwd"),
                 _encode("K1", "K2", combine), _blocked_steps, host=("step",)),
@@ -251,13 +291,22 @@ TABLE = {
     "K7ag": Entry(ngp, ("ngp_encode_fwd_f", "ngp_encode_bwd_f"),
                   _encode("K7ag", "K7bg", ngp, same_dpos=True), _generic("ngp"),
                   host=("uniform F=4", "one 4v step, F=4")),
+    "K9": Entry(field_head, ("head_fwd", "head_bwd"),
+                (Kernel("K9a", "run", "fwd", _head_args(False), _head_holds("K9a", False)),
+                 Kernel("K9b", "run", "bwd", _head_args(True), _head_holds("K9b", True))),
+                _head_shapes, host=("lsenerf step", "occupancy chunk")),
 }
+
+
+def lead(inputs: tuple) -> torch.Tensor:
+    """The first tensor of a shape's inputs (K9's come after its MLPs)."""
+    return next(t for t in inputs if isinstance(t, torch.Tensor))
 
 
 def rows(inputs: tuple, n: int) -> tuple:
     """inputs with every tensor of the first one's rows repeated or cut to
     n rows; the rest as they are."""
-    m = inputs[0].shape[0]
+    m = lead(inputs).shape[0]
     reps = -(-n // m)
     return tuple(t.repeat(reps, *(1,) * (t.dim() - 1))[:n].contiguous()
                  if isinstance(t, torch.Tensor) and t.dim() and t.shape[0] == m else t
@@ -328,7 +377,7 @@ def abba(fns: dict, shapes: dict, card: str, kernel: str) -> dict:
             r[label]["warm"].append(device_ms(call))
             r[label]["cold"].append(cold_ms(call))
         for label, t in r.items():
-            print(f"{kernel} {label} at {name} {tuple(a[0].shape)}: device ms warm {t['warm']}, "
+            print(f"{kernel} {label} at {name} {tuple(lead(a).shape)}: device ms warm {t['warm']}, "
                   f"cold L2 {t['cold']}; {card}")
     return res
 

@@ -6,7 +6,9 @@ weights stay f32, and `bf16 @ f32` promotes to f32 (field.py:146-147,
 279-282). So the "bf16 MLPs" are f32 matmuls of bf16-rounded inputs, and
 their backward rounds the input cotangent to bf16. The port does the same:
 `x.to(bfloat16).float()` and an f32 matmul (a true bf16 matmul would be a
-different function).
+different function). Every path's MLP head, after the encode, is `head`:
+the plain chain (`head_plain`) on CPU tensors, K9a/K9b
+(ops/field_head.py) on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from lsenerf_tpu_torch.models import embeddings as emb_lib
 from lsenerf_tpu_torch.models import mlp
+from lsenerf_tpu_torch.ops import field_head
 from lsenerf_tpu_torch.ops import hash_encoding as he
 from lsenerf_tpu_torch.ops import sh
 
@@ -105,12 +108,6 @@ def init_field(generator: torch.Generator, config: FieldConfig, num_imgs: int = 
     return params
 
 
-def _mlp_input(x: torch.Tensor, config: FieldConfig) -> torch.Tensor:
-    if config.compute_dtype == "bfloat16":
-        return x.to(torch.bfloat16).float()
-    return x
-
-
 def contract_positions(positions: torch.Tensor, config: FieldConfig):
     """World positions -> (unit-cube field inputs, in-bounds selector): the
     L-inf scene contraction into [-2, 2], then (x + 2) / 4; without
@@ -127,19 +124,66 @@ def contract_positions(positions: torch.Tensor, config: FieldConfig):
     return unit * selector[..., None], selector
 
 
-def _density_head(params: dict, feats: torch.Tensor, selector: torch.Tensor,
-                  config: FieldConfig):
-    h = mlp.apply_mlp(params["base_mlp"], _mlp_input(feats, config))
-    density_before, geo = h[..., :1], h[..., 1:]
-    density = config.average_init_density * trunc_exp(density_before)
-    return density * selector[..., None], geo
+def _mlp_input(x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """x rounded to bf16 and back where bf16 (its cotangent is rounded too)."""
+    return x.to(torch.bfloat16).float() if bf16 else x
 
 
-def field_density(params: dict, positions: torch.Tensor, config: FieldConfig):
-    """(n, 3) world positions -> (density (n, 1), geo_feat (n, geo_feat_dim))."""
+def expand_codes(codes, n: int):
+    """(m, E) codes, one a ray, repeated over each ray's n / m samples."""
+    if codes is None or codes.shape[0] == n:
+        return codes
+    m = codes.shape[0]
+    return codes[:, None, :].expand(m, n // m, codes.shape[1]).reshape(n, codes.shape[1])
+
+
+def head_plain(base: dict, color, feats, selector, dirs, codes, aid: float, bf16: bool,
+               sh_levels: int = 4):
+    """head by torch ops: the base MLP on the features, density =
+    aid * trunc_exp(h[0]) * selector, then (with directions) the colour MLP
+    on [SH(dirs), geo = h[1:], the codes] and a sigmoid."""
+    h = mlp.apply_mlp(base, _mlp_input(feats, bf16))
+    density = aid * trunc_exp(h[..., :1]) * selector[..., None]
+    if dirs is None:
+        return density, None
+    pieces = [sh.sh_encode(dirs, sh_levels), h[..., 1:]]
+    if codes is not None:
+        pieces.append(expand_codes(codes, feats.shape[0]))
+    x = _mlp_input(torch.cat(pieces, dim=-1), bf16)
+    return density, mlp.apply_mlp(color, x, out_activation=torch.sigmoid)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def head(base: dict, color, feats, selector, dirs, codes, aid: float, bf16: bool,
+         sh_levels: int = 4):
+    """(density (n, 1), rgb (n, 3); rgb None without directions) of the
+    encode's features (n, L*F), the selector (n,), the directions (n, 3) or
+    None (density alone), and the codes (m, E), one a ray of n / m samples,
+    or None: head_plain on CPU tensors, K9a/K9b (field_head.head) on CUDA
+    tensors, which raise ValueError for widths they do not take."""
+    if not _on_card(feats):
+        return head_plain(base, color, feats, selector, dirs, codes, aid, bf16, sh_levels)
+    return field_head.head(base, color, feats, selector, dirs, codes, aid, bf16, sh_levels)
+
+
+def _head(params: dict, feats: torch.Tensor, selector: torch.Tensor, directions, codes,
+          config: FieldConfig):
+    """The one head of every path."""
+    color = params["color_mlp"] if directions is not None else None
+    return head(params["base_mlp"], color, feats, selector, directions, codes,
+                config.average_init_density, _bf16(config), config.sh_levels)
+
+
+def _bf16(config: FieldConfig) -> bool:
+    return config.compute_dtype == "bfloat16"
+
+
+def _features(params: dict, positions: torch.Tensor, config: FieldConfig):
     unit, selector = contract_positions(positions, config)
-    feats = he.hash_encode(params["hash_table"], unit, config.hash)
-    return _density_head(params, feats, selector, config)
+    return he.hash_encode(params["hash_table"], unit, config.hash), selector
 
 
 def _strided_encode(params: dict, unit: torch.Tensor, ts: torch.Tensor, config: FieldConfig,
@@ -179,14 +223,21 @@ def _strided_encode(params: dict, unit: torch.Tensor, ts: torch.Tensor, config: 
     return torch.cat([feats_coarse.reshape(n * k, -1), feats_fine], dim=-1)
 
 
-def field_density_strided(params: dict, positions: torch.Tensor, ts: torch.Tensor,
-                          config: FieldConfig):
-    """field_density over (n, k, 3) ray-structured samples with the strided
-    coarse-level encode. Returns flat (n*k, 1) density and (n*k, geo)."""
+def _strided_features(params: dict, positions: torch.Tensor, ts: torch.Tensor,
+                      config: FieldConfig):
     n, k, _ = positions.shape
     unit, selector = contract_positions(positions.reshape(-1, 3), config)
-    feats = _strided_encode(params, unit.reshape(n, k, 3), ts, config, selector)
-    return _density_head(params, feats, selector, config)
+    return _strided_encode(params, unit.reshape(n, k, 3), ts, config, selector), selector
+
+
+def ray_codes(params: dict, appearance_id: torch.Tensor, config: FieldConfig,
+              train: bool = True):
+    """(m, emb_dim) codes of m ids (one a sample, or one a ray of
+    consecutive samples), or None without an appearance embedding."""
+    if "appearance" not in params:
+        return None
+    return emb_lib.apply_embedding(params["appearance"], config.embedding,
+                                   appearance_id.reshape(-1), train=train)
 
 
 def appearance_codes(params: dict, appearance_id: torch.Tensor, n: int, config: FieldConfig,
@@ -195,12 +246,7 @@ def appearance_codes(params: dict, appearance_id: torch.Tensor, n: int, config: 
     id a ray of n / len(ids) consecutive samples: then each ray's code is
     looked up once and repeated, so the table's gradient gathers a sum
     over each ray's samples instead of one addition a sample."""
-    ids = appearance_id.reshape(-1)
-    emb = emb_lib.apply_embedding(params["appearance"], config.embedding, ids, train=train)
-    m = ids.shape[0]
-    if m == n:
-        return emb
-    return emb[:, None, :].expand(m, n // m, emb.shape[1]).reshape(n, emb.shape[1])
+    return expand_codes(ray_codes(params, appearance_id, config, train), n)
 
 
 def field_apply(
@@ -213,16 +259,9 @@ def field_apply(
 ):
     """Full field evaluation -> (density (n, 1), rgb (n, 3)).
     `appearance_id` holds one id a sample or one a ray (appearance_codes)."""
-    density, geo = field_density(params, positions, config)
-    return density, _color(params, geo, directions, appearance_id, config, train)
-
-
-def _color(params, geo, directions, appearance_id, config: FieldConfig, train: bool):
-    pieces = [sh.sh_encode(directions, config.sh_levels), geo]
-    if "appearance" in params:
-        pieces.append(appearance_codes(params, appearance_id, geo.shape[0], config, train))
-    h = torch.cat(pieces, dim=-1)
-    return mlp.apply_mlp(params["color_mlp"], _mlp_input(h, config), out_activation=torch.sigmoid)
+    feats, selector = _features(params, positions, config)
+    return _head(params, feats, selector, directions,
+                 ray_codes(params, appearance_id, config, train), config)
 
 
 def field_apply_strided(
@@ -237,10 +276,12 @@ def field_apply_strided(
     """field_apply over (n, k)-structured samples (positions (n, k, 3), ts
     (n, k)) with the strided coarse-level encode; directions arrive flat
     (n*k, 3) and `appearance_id` as field_apply takes it."""
-    density, geo = field_density_strided(params, positions, ts, config)
-    return density, _color(params, geo, directions, appearance_id, config, train)
+    feats, selector = _strided_features(params, positions, ts, config)
+    return _head(params, feats, selector, directions,
+                 ray_codes(params, appearance_id, config, train), config)
 
 
 def density_fn(params: dict, positions: torch.Tensor, config: FieldConfig) -> torch.Tensor:
     """Density only: the occupancy-grid update's closure."""
-    return field_density(params, positions, config)[0]
+    feats, selector = _features(params, positions, config)
+    return _head(params, feats, selector, None, None, config)[0]

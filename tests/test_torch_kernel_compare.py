@@ -65,12 +65,28 @@ def _composite(gen):
     return (dens, rgb, te - dt, te, mask, 0.01, 1e-4, bg, "random") + cot
 
 
+def _head(gen):
+    """The field head's 10 arguments in field_head.run's order: 4 rays x 6
+    samples, bf16, a code a ray."""
+    n, m = 24, 4
+    base = {"w0": torch.randn((32, 64), generator=gen) / 6, "b0": torch.randn(64, generator=gen),
+            "w1": torch.randn((64, 16), generator=gen) / 8, "b1": torch.randn(16, generator=gen)}
+    color = {"w0": torch.randn((63, 64), generator=gen) / 8, "b0": torch.randn(64, generator=gen),
+             "w1": torch.randn((64, 64), generator=gen) / 8, "b1": torch.randn(64, generator=gen),
+             "w2": torch.randn((64, 3), generator=gen) / 8, "b2": torch.randn(3, generator=gen)}
+    dirs = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=-1)
+    return (base, color, torch.randn((n, 32), generator=gen), torch.rand(n, generator=gen) < 0.8,
+            dirs, torch.randn((m, 32), generator=gen), 0.5, True,
+            torch.randn((n, 1), generator=gen), torch.randn((n, 3), generator=gen))
+
+
 def _small(entry: str):
     """A small shape of the entry's inputs on the CPU."""
     gen = torch.Generator().manual_seed(0)
     return {"K1": lambda: _encode("blocked", 2, gen), "K1g": lambda: _encode("blocked", 4, gen),
             "K7a": lambda: _encode("ngp", 2, gen), "K7ag": lambda: _encode("ngp", 3, gen),
-            "K3": lambda: _march(gen), "K5": lambda: _composite(gen)}[entry]()
+            "K3": lambda: _march(gen), "K5": lambda: _composite(gen),
+            "K9": lambda: _head(gen)}[entry]()
 
 
 def _kernel(entry: str, name: str):
@@ -87,7 +103,8 @@ def _off(out):
 
 def test_the_table_covers_every_kernel_the_tools_compared():
     names = [name for _, name in KERNELS]
-    assert names == ["K1", "K2", "K1g", "K2g", "K3", "K5a", "K5b", "K7a", "K7b", "K7ag", "K7bg"]
+    assert names == ["K1", "K2", "K1g", "K2g", "K3", "K5a", "K5b", "K7a", "K7b", "K7ag", "K7bg",
+                     "K9a", "K9b"]
     assert [e for e, x in kc.TABLE.items() if x.wide] == ["K3"]
 
 

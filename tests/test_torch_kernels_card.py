@@ -27,7 +27,12 @@ their backward (lsenerf_tpu_torch/ops/bundles.py), against their plain
 version on the CPU at the three train cells' presets and for every
 camera-pose source, with query times outside the knots, the slerp's lerp
 branch, zero rotations, a batch on one knot and one camera, a captured
-graph's replay and the render path's forward at fixed poses.
+graph's replay and the render path's forward at fixed poses; and K9a/K9b,
+the field's MLP head (lsenerf_tpu_torch/ops/field_head.py), against its
+plain version on the card at the three train cells' shapes and the
+occupancy update's density chunk, the same bits at a second call, a
+16-step chunk graph holding a launch of each a step, and its dispatch (a
+frozen field, another hidden width).
 
 This file imports neither JAX nor the JAX package, so a machine with the
 card and without JAX runs it on its own, skipping the JAX conftest:
@@ -943,8 +948,9 @@ def test_chunk_graph_matches_eager_steps_on_card():
     the counts and the background generator's state equal after each
     chunk, each loss within rtol 1e-3 (K2's atomics add in no fixed order,
     and Adam's eps of 1e-15 turns their noise into steps of up to lr), and
-    the captured graph holds K1, K2, K3, K5a and K5b once a step, and
-    neither the ngp kernels nor the generic ones of F != 2."""
+    the captured graph holds K1, K2, K3, K5a, K5b, K8a, K8b, K9a and K9b
+    once a step, and neither the ngp kernels nor the generic ones of
+    F != 2."""
     from lsenerf_tpu_torch.engine.chunk_graph import path_kernels
     from lsenerf_tpu_torch.engine.loop import _covered
 
@@ -1487,3 +1493,125 @@ def test_render_rays_forward_only_on_card():
     with pytest.raises(ValueError, match="gradient"):
         tcams.generate_rays(cams, idx.to(dev), coords.to(dev),
                             pose.to(dev).requires_grad_(True).expand(n, 3, 4))
+
+
+# -- K9a/K9b, the field's MLP head -----------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["lsenerf step", "lsenerf_emb step", "badnerf_ngp_f32 step",
+                                   "occupancy chunk", "other widths"])
+def test_head_matches_plain_at_the_cells_on_card(shape):
+    """K9a (and K9b where the shape trains) against the plain version on the
+    card at flagship.head_shapes, the three train cells' shapes, the
+    occupancy chunk and widths that take the kernels compiled for no
+    preset (64 features, 16-wide codes): each output within
+    field_head.TOLERANCE of the plain version's, relative to its norm (set
+    from the readings in PERF.md: the f32 sums' order, and in bf16 a colour
+    input or cotangent an ulp apart rounding to the neighbouring bf16 at a
+    few samples); K9a launched once without a gradient and once more,
+    saving its activations for K9b, with one."""
+    from lsenerf_tpu_torch.flagship import head_shapes
+    from lsenerf_tpu_torch.models import field as tfield
+    from lsenerf_tpu_torch.ops import field_head as fh
+
+    a = head_shapes(_card(), names=[shape])[shape]
+    before = (fh.K9A.launches, fh.K9B.launches)
+    got = fh.run(*a[:8])
+    assert fh.off_plain(got, fh.run(*a[:8], plain=tfield.head_plain), a[7], False) == {}
+    if a[4] is not None:
+        grads = fh.run(*a)
+        assert fh.off_plain(grads, fh.run(*a, plain=tfield.head_plain), a[7], True) == {}
+        assert all(g is not None for g in grads)
+    trains = int(a[4] is not None)
+    assert (fh.K9A.launches - before[0], fh.K9B.launches - before[1]) == (1 + trains, trains)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["lsenerf step", "lsenerf_emb step", "badnerf_ngp_f32 step",
+                                   "other widths"])
+def test_head_is_the_same_bits_twice_on_card(shape):
+    """No atomics: two calls of K9a and of K9b give every output's bits."""
+    from lsenerf_tpu_torch.flagship import head_shapes
+    from lsenerf_tpu_torch.ops import field_head as fh
+
+    a = head_shapes(_card(), names=[shape])[shape]
+    for args in (a[:8], a):
+        one, two = fh.run(*args), fh.run(*args)
+        for x, y in zip(one, two):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["lsenerf step", "lsenerf_emb step", "badnerf_ngp_f32 step"])
+def test_head_tolerance_refuses_tf32_products_on_card(shape):
+    """The control of field_head.TOLERANCE: the plain version with TF32
+    products (the lower precision the kernels must not use) is off the
+    limits, forward and backward, at each train cell's shape."""
+    from lsenerf_tpu_torch.flagship import head_shapes
+    from lsenerf_tpu_torch.models import field as tfield
+    from lsenerf_tpu_torch.ops import field_head as fh
+
+    a = head_shapes(_card(), names=[shape])[shape]
+    for backward, args in ((False, a[:8]), (True, a)):
+        want = fh.run(*args, plain=tfield.head_plain)
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            control = fh.run(*args, plain=tfield.head_plain)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        assert fh.off_plain(control, want, a[7], backward) != {}, (shape, backward)
+
+
+@pytest.mark.cuda
+def test_head_chunk_graph_holds_a_launch_a_step_on_card():
+    """A 16-step chunk graph holds 16 launches of K9a and 16 of K9b."""
+    dev = _card()
+    tr = _scan_trainer(dev)
+    fn = tr.make_train_step_multi(16)
+    for c in range(2):  # the eager warm-up, then the capture and its replay
+        fn(tr.dm.next_train_stack(16 * c, 16))
+    launches = tr._chunks[16].launches
+    assert (launches["head_fwd"], launches["head_bwd"]) == (16, 16), launches
+
+
+@pytest.mark.cuda
+def test_head_dispatch_on_card():
+    """A frozen field's step launches K9b for the cotangents alone (no
+    weight gradient); what the kernels do not take -- another hidden
+    width, more than 64 features or code widths, density alone with a
+    gradient -- raises ValueError naming it, and launches nothing."""
+    from lsenerf_tpu_torch.flagship import head_shapes
+    from lsenerf_tpu_torch.models import field as tfield
+    from lsenerf_tpu_torch.models import mlp
+    from lsenerf_tpu_torch.ops import field_head as fh
+
+    base, color, feats, sel, dirs, codes, aid, bf16, g_d, g_rgb = head_shapes(
+        _card(), names=["lsenerf step"])["lsenerf step"]
+    f = feats.clone().requires_grad_(True)
+    before = fh.K9B.launches
+    density, rgb = tfield.head(base, color, f, sel, dirs, codes, aid, bf16)
+    torch.autograd.backward((density, rgb), (g_d, g_rgb))
+    assert fh.K9B.launches == before + 1 and f.grad is not None
+    assert all(t.grad is None for t in base.values())
+    want = fh.run(base, color, feats, sel, dirs, codes, aid, bf16, g_d, g_rgb,
+                  plain=tfield.head_plain)[0]
+    assert fh.errors([f.grad], [want], ["features"])["features"] <= fh.TOLERANCE[bf16][1]
+    gen = torch.Generator(device=feats.device).manual_seed(0)
+    n = feats.shape[0]
+    wide = torch.zeros((n, 66), device=feats.device)
+    refused = {
+        "32-wide hidden base MLP": (mlp.init_mlp(gen, 32, 2, 32, 16, feats.device), None, feats,
+                                    None, None),
+        "66 features": (mlp.init_mlp(gen, 66, 2, 64, 16, feats.device), None, wide, None, None),
+        "128-wide codes": (base, mlp.init_mlp(gen, 31 + 128, 3, 64, 3, feats.device), feats,
+                           dirs, torch.zeros((n // 16, 128), device=feats.device)),
+        "gradient": (base, None, f, None, None),
+    }
+    before = (fh.K9A.launches, fh.K9B.launches)
+    for what, (b, c, x, d, cd) in refused.items():
+        with pytest.raises(ValueError, match="do not take") as e:
+            tfield.head(b, c, x, sel, d, cd, aid, bf16)
+        assert what.split()[-1] in str(e.value), (what, str(e.value))
+    assert (fh.K9A.launches, fh.K9B.launches) == before

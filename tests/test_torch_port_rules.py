@@ -30,7 +30,8 @@ def test_port_imports_no_jax(path):
 
 
 def test_port_has_its_kernel_sources():
-    for src in ("blocked_encode.cu", "gather.cu", "ngp_encode.cu", "march.cu", "composite.cu"):
+    for src in ("blocked_encode.cu", "gather.cu", "ngp_encode.cu", "march.cu", "composite.cu",
+                "bundles.cu", "field_head.cu"):
         assert (ROOT / "lsenerf_tpu_torch" / "csrc" / src).exists()
     assert len(PORT_FILES) > 20
 
