@@ -1258,20 +1258,19 @@ def head_work(a, backward: bool) -> tuple:
     selector and codes read and density and rgb written once (K9b: the
     cotangents read, the features', directions' and codes' gradients and
     the weights' written)."""
+    from lsenerf_tpu_torch.ops import field_head as fh
+
     base, color, feats, sel, dirs, codes = a[:6]
     n, D = feats.shape
-    macs = D * 64 + 64 * 16
+    E = 0 if codes is None else codes.shape[1]
     nbytes = feats.numel() * 4 + n + n * 4
     if dirs is not None:
-        E = 0 if codes is None else codes.shape[1]
-        macs += (31 + E) * 64 + 64 * 64 + 64 * 3
         nbytes += n * (12 + 12) + (0 if codes is None else codes.shape[0] * E * 4)
     weights = sum(t.numel() * 4 for t in list(base.values()) + list((color or {}).values()))
     nbytes += weights
     if backward:
-        macs *= 2
         nbytes += n * 16 + feats.numel() * 4 + n * 12 + weights + n * 832
-    return nbytes, 2 * macs * n
+    return nbytes, 2 * fh.macs(n, D, E, dirs is not None) * (2 if backward else 1)
 
 
 def check_head(dev) -> dict:
@@ -1286,7 +1285,8 @@ def check_head(dev) -> dict:
     ms, device_ms (graph replay), cold_ms and host_us (K9b: the backward of
     one prepared call, field_head.Call, that saved its activations), the
     plain version's forward (and forward + backward) ms and its kernels in
-    one traced call, beside the bound (head_work: f32 FMA at F32_FLOPS).
+    one traced call, beside the bound (head_work: f32 FMA at F32_FLOPS) and
+    K9b's beside its MMAs at the bf16 tensor-core rate (field_head.bounds_ms).
     Then the control: the plain version with TF32 products against itself
     in f32 must be off the limits at every train shape. Returns
     {"head_fwd": ..., "head_bwd": ...} of the first shape, the others
@@ -1333,19 +1333,24 @@ def check_head(dev) -> dict:
 
             nbytes, ops = head_work(fa, backward)
             b_ms, b_by = bound(nbytes, ops)
+            n, D = fa[2].shape
+            tc_ms = fh.bounds_ms(n, D, 0 if fa[5] is None else fa[5].shape[1], fa[7],
+                                 fa[4] is not None, backward).get("tensor_cores")
             (nk, kms), (npk, pkms) = kernels_of(call), kernels_of(plain_call)
             r = dict(ms=time_ms(call, 20), device_ms=device_ms(call), cold_ms=cold_ms(call),
                      host_us=host_us(call), kernel_ms=kms, launches_a_call=nk,
                      plain_ms=time_ms(plain_call, 5), plain_kernel_ms=pkms,
                      plain_launches_a_call=npk, bound_ms=b_ms, bound_by=b_by,
-                     samples=fa[2].shape[0], errors=errs)
+                     tensor_core_bound_ms=tc_ms, samples=fa[2].shape[0], errors=errs)
             limit = fh.TOLERANCE[bool(a[7])][int(backward)]
             print(f"3g {label} ({r['samples']} samples): {name} {r['ms']:.4f} ms per call, "
                   f"{r['device_ms']:.5f} ms on the device, cold L2 {r['cold_ms']:.5f}, "
                   f"{r['host_us']:.1f} us of host, {nk} kernels a call ({kms:.5f} ms); plain "
                   f"{'forward + backward' if backward else 'forward'} {r['plain_ms']:.4f} ms, "
                   f"{npk} kernels a call ({pkms:.5f} ms of kernels); bound {b_ms:.5f} ms by "
-                  f"{b_by} ({100 * b_ms / r['device_ms']:.1f}% of it); errors (limit "
+                  f"{b_by} ({100 * b_ms / r['device_ms']:.1f}% of it)"
+                  + (f", its MMAs at the bf16 tensor-core rate {tc_ms:.5f} ms "
+                     f"({100 * tc_ms / r['device_ms']:.1f}%)" if tc_ms else "") + "; errors (limit "
                   f"{limit:.0e}) " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
             key = "head_bwd" if backward else "head_fwd"
             if key not in res:

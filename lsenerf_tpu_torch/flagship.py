@@ -49,7 +49,7 @@ from lsenerf_tpu_torch.models import embeddings as emb_lib
 from lsenerf_tpu_torch.models import field as field_lib
 from lsenerf_tpu_torch.models import lsenerf as model_lib
 from lsenerf_tpu_torch.models import mlp
-from lsenerf_tpu_torch.ops import combine, ngp
+from lsenerf_tpu_torch.ops import combine, ngp, sh
 from lsenerf_tpu_torch.ops import hash_encoding as he
 
 # configs/*.sh: rgb_frac, use_map, mapping_method, map_mode,
@@ -448,14 +448,50 @@ def generic_encode_steps(device=None) -> dict:
 # the field head's shapes (K9a/K9b): (rays, samples a ray, bf16, codes,
 # features a sample, code width) of the three train cells' steps, the
 # occupancy update's density chunk, and widths that take the kernels
-# compiled for no preset (16 levels x F 4, 16-wide codes)
+# compiled for no preset (16 levels x F 4, 16-wide codes); then badnerf's
+# f32 step with weights and features spread over six decades (SPREAD)
 HEAD_SHAPES = {
     "lsenerf step": (3510, 16, True, "one", 32, 32),
     "lsenerf_emb step": (3510, 48, True, "a ray", 32, 32),
     "badnerf_ngp_f32 step": (3512, 16, False, "one", 32, 32),
     "occupancy chunk": (131072, 1, True, None, 32, 0),
     "other widths": (3510, 16, True, "a ray", 64, 16),
+    "dynamic range": (3512, 16, False, "one", 32, 32),
 }
+SPREAD = ("dynamic range",)
+
+
+def _spread(gen, base: dict, color: dict, feats, dirs, codes) -> tuple:
+    """(base, color, feats, codes) with every weight, bias, feature and code
+    made positive and times 10^u, u uniform in [-3, 3], then each layer's
+    weight and bias divided by the largest of its outputs on these inputs
+    (computed in f64): the products' operands span six decades while exp
+    and the sigmoid stay near 1, and no sum cancels nor ReLU clips (a
+    unit that changes side between two f32 sums would take the gradients
+    past the f32 limit whatever the products' precision)."""
+    def spread(t):
+        return t.abs() * 10 ** (torch.rand(t.shape, generator=gen) * 6 - 3)
+
+    feats, codes = spread(feats), spread(codes)
+    base = {k: spread(t) for k, t in base.items()}
+    color = {k: spread(t) for k, t in color.items()}
+
+    def layers(params, x, count):
+        for i in range(count):
+            w, b = params[f"w{i}"], params[f"b{i}"]
+            y = x @ w.double() + b.double()
+            top = float(y.abs().max())
+            params[f"w{i}"], params[f"b{i}"] = w / top, b / top
+            x = y / top if i == count - 1 else torch.relu(y / top)
+        return x
+
+    h = layers(base, feats.double(), 2)
+    one = codes.shape[0] == 1  # one code for every ray
+    x = torch.cat([sh.sh_encode(dirs.double(), 4), h[:, 1:],
+                   field_lib.expand_codes(codes.double().expand(feats.shape[0], -1) if one
+                                          else codes.double(), feats.shape[0])], dim=-1)
+    layers(color, x, 3)
+    return base, color, feats, codes
 
 
 def head_shapes(device=None, seed: int = 26, names=None) -> dict:
@@ -465,7 +501,8 @@ def head_shapes(device=None, seed: int = 26, names=None) -> dict:
     draws them, N(0, 0.5) features, unit directions, 90% of samples in
     bounds, N(0, 1) codes (one for every ray, as global_emb's, or one a
     ray) and cotangents. The occupancy chunk has no directions, codes or
-    cotangents: density alone, forward only."""
+    cotangents: density alone, forward only. The SPREAD shapes' weights and
+    features span six decades (_spread)."""
     gen = torch.Generator().manual_seed(seed)
     out = {}
     for name, (rays, k, bf16, codes, D, E) in HEAD_SHAPES.items():
@@ -481,6 +518,8 @@ def head_shapes(device=None, seed: int = 26, names=None) -> dict:
             dirs = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=-1)
             c = torch.randn((1 if codes == "one" else rays, E), generator=gen)
             g_d, g_rgb = torch.randn((n, 1), generator=gen), torch.randn((n, 3), generator=gen)
+        if name in SPREAD:
+            base, color, feats, c = _spread(gen, base, color, feats, dirs, c)
         to = (lambda t: None if t is None else t.to(device))  # noqa: E731
         c = to(c)
         if codes == "one":

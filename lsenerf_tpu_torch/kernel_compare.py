@@ -36,7 +36,10 @@ card's clocks or of its shared host touches each alike (PERF.md §2).
              package, three times).
 
 Prints the card's name and power limit and one line a kernel, shape and
-build, and writes DIR/<KERNEL>.json (default outputs/kernel_compare).
+build (K9's with each shape's least times by operations: at the f32 FMA
+rate, and with K9b's MMAs at the bf16 tensor-core rate,
+field_head.bounds_ms), and writes DIR/<KERNEL>.json (default
+outputs/kernel_compare).
 Needs a CUDA card: exits 1 without one.
 """
 
@@ -67,14 +70,17 @@ FEATURES = (1, 3, 4, 6, 8, 16)  # the generic encode kernels' uniform shapes
 class Kernel:
     """A kernel of an entry: its name, the wrapper function that launches
     it, "fwd" or "bwd", its arguments at a shape's inputs (None where it
-    does not run there) and `holds(fns, args, where)`, which raises
-    SystemExit where a build ({label: wrapper}) is off the plain version."""
+    does not run there), `holds(fns, args, where)`, which raises
+    SystemExit where a build ({label: wrapper}) is off the plain version,
+    and `bounds(args)`, {name: ms} of the least time the work could take,
+    where the entry has them."""
 
     name: str
     wrapper: str
     way: str
     args: Callable
     holds: Callable
+    bounds: Callable = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,6 +211,25 @@ def _head_args(backward: bool):
     return args
 
 
+def _head_bounds(backward: bool):
+    """K9a's bound at its arguments (f32 FMA), or K9b's row's (K9a saving,
+    then K9b with every gradient): both at the f32 FMA rate, and K9a's
+    f32 FMA time plus K9b's MMAs at the bf16 tensor-core rate
+    (field_head.bounds_ms)."""
+
+    def bounds(a):
+        n, D = a[2].shape
+        E, color = 0 if a[5] is None else a[5].shape[1], a[4] is not None
+        fwd = field_head.bounds_ms(n, D, E, a[7], color)
+        if not backward:
+            return fwd
+        bwd = field_head.bounds_ms(n, D, E, a[7], color, True)
+        return {"f32_fma": fwd["f32_fma"] + bwd["f32_fma"],
+                "tensor_cores": fwd["f32_fma"] + bwd["tensor_cores"]}
+
+    return bounds
+
+
 def _head_holds(name: str, backward: bool):
     """K9a or K9b: each output within field_head.TOLERANCE of the plain
     version (relative to its norm), and the same bits on a second call."""
@@ -292,8 +317,10 @@ TABLE = {
                   _encode("K7ag", "K7bg", ngp, same_dpos=True), _generic("ngp"),
                   host=("uniform F=4", "one 4v step, F=4")),
     "K9": Entry(field_head, ("head_fwd", "head_bwd"),
-                (Kernel("K9a", "run", "fwd", _head_args(False), _head_holds("K9a", False)),
-                 Kernel("K9b", "run", "bwd", _head_args(True), _head_holds("K9b", True))),
+                (Kernel("K9a", "run", "fwd", _head_args(False), _head_holds("K9a", False),
+                        _head_bounds(False)),
+                 Kernel("K9b", "run", "bwd", _head_args(True), _head_holds("K9b", True),
+                        _head_bounds(True))),
                 _head_shapes, host=("lsenerf step", "occupancy chunk")),
 }
 
@@ -363,11 +390,12 @@ def builds(module, others, out: Path) -> dict:
     return mods
 
 
-def abba(fns: dict, shapes: dict, card: str, kernel: str) -> dict:
+def abba(fns: dict, shapes: dict, card: str, kernel: str, bounds=None) -> dict:
     """{shape: {label: {"warm": [ms, ms], "cold": [ms, ms]}}}: each fn(*args)
     timed at each shape warm (`timing.device_ms`) and with a cold L2
     (`timing.cold_ms`), the labels in order and then in reverse order.
-    Prints a line a shape and label with the card's line."""
+    Prints a line a shape and label with the card's line, and the shape's
+    bounds (`bounds(args)`, under "bounds") where given."""
     res = {}
     order = list(fns) + list(fns)[::-1]
     for name, a in shapes.items():
@@ -379,6 +407,10 @@ def abba(fns: dict, shapes: dict, card: str, kernel: str) -> dict:
         for label, t in r.items():
             print(f"{kernel} {label} at {name} {tuple(lead(a).shape)}: device ms warm {t['warm']}, "
                   f"cold L2 {t['cold']}; {card}")
+        if bounds is not None:
+            r["bounds"] = bounds(a)
+            print(f"{kernel} bounds at {name}: " + ", ".join(
+                f"{key} {ms:.5f} ms" for key, ms in r["bounds"].items()))
     return res
 
 
@@ -442,7 +474,8 @@ def main(argv=None) -> int:
         for name, a in at.items():
             k.holds(fns, a, name)
         print(f"kernel_compare: {k.name} builds {list(fns)} hold the plain version at {list(at)}")
-        res[k.name] = abba(fns, {name: at[name] for name in timed if name in at}, card, k.name)
+        res[k.name] = abba(fns, {name: at[name] for name in timed if name in at}, card, k.name,
+                           k.bounds)
         if old is not None:
             at_host = {name: at[name] for name in entry.host if name in at}
             for name, a in at_host.items():

@@ -15,6 +15,19 @@ gradients follow `needs_input_grad`: the features' cotangent
 codes' (each ray's k samples summed) and the ten weight and bias
 gradients, none of these where the field is frozen.
 
+K9b runs every product on the tensor cores at f32 accuracy: each f32
+operand is split into three bf16 pieces that sum back to it exactly
+(`split_bf16`), and a product keeps each cross term of 2^-24 of it or
+more (KEPT: six bf16 MMAs, or three where an operand is bf16 already, as
+the bf16-rounded MLP inputs are). Against f64 on an H100, one 64 -> 64
+layer of 56,192 samples reads 4.7e-8 forward and 6.6e-8 for its input
+cotangent (cuBLAS in f32: 1.0e-7 and 1.4e-7), 1.1e-7 and 1.2e-7 with
+weights and activations spread over six decades; one bf16 product reads
+2.3e-3 and TF32 2.7e-4 (PERF.md §6, PR 27). K9a stays f32 FMA in cuBLAS's
+order: on the tensor cores its ReLUs fell the other way from the plain
+chain's at a few units a step, which no product precision cures. Against
+the plain chain the head is held to TOLERANCE.
+
 The kernels take the widths the presets set: hidden 64, geo 15, SH degree
 4, and num_levels * F and emb_dim up to MAX_WIDTH where K9b's layout fits a
 block's shared memory (`refusal` reads the shapes). For anything else --
@@ -64,6 +77,63 @@ class _HeadArgs(ctypes.Structure):
 
 WEIGHTS = ("w0", "b0", "w1", "b1", "v0", "c0", "v1", "c1", "v2", "c2")
 TILE, SAVED_ROWS = 64, 64 + 16 + 64 + 64  # csrc/field_head.cu's kT and kSaved
+
+# the pieces' products K9b's products keep (csrc/field_head.cu's
+# `product`): (i, j), A's piece i by B's piece j, about 2^(-8 (i + j)) of
+# the product; the dropped ones (ml, lm, ll) are under 2^-24 together
+KEPT = ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0))
+MMA_FLOPS = 2 * 16 * 8 * 16  # an m16n8k16 MMA's multiply-adds, 2 operations each
+BF16_FLOPS = 989e12  # the H100's dense bf16 tensor-core rate
+F32_FLOPS = 67e12  # ... and its f32 FMA rate outside the tensor cores
+
+
+def split_bf16(x: torch.Tensor) -> tuple:
+    """float32 x as three bfloat16 pieces (h, m, l), each the remainder
+    before it rounded to nearest even, whose sum in f32 is x exactly (for
+    |x| above 2^-102): csrc/field_head.cu's split2."""
+    h = x.to(torch.bfloat16)
+    r = x - h.float()
+    m = r.to(torch.bfloat16)
+    return h, m, (r - m.float()).to(torch.bfloat16)
+
+
+def macs(n: int, D: int, E: int, color: bool = True) -> int:
+    """The multiply-adds of n samples' forward at their widths (the MLPs'
+    products, unpadded); a backward takes as many again for the input
+    cotangents and for the weight gradients."""
+    per = D * 64 + 64 * 16
+    if color:
+        per += (31 + E) * 64 + 64 * 64 + 64 * 3
+    return n * per
+
+
+def bounds_ms(n: int, D: int, E: int, bf16: bool, color: bool = True,
+              backward: bool = False) -> dict:
+    """The least device ms of K9a (f32 FMA) or K9b (every gradient wanted)
+    on n samples by operations alone: the multiply-adds at the f32 FMA rate,
+    and K9b's MMAs (`mmas`) at the bf16 tensor-core rate."""
+    out = {"f32_fma": 2 * macs(n, D, E, color) * (2 if backward else 1) / F32_FLOPS * 1e3}
+    if backward:
+        out["tensor_cores"] = mmas(n, D, E, bf16) * MMA_FLOPS / BF16_FLOPS * 1e3
+    return out
+
+
+def mmas(n: int, D: int, E: int, bf16: bool, weights: bool = True, features: bool = True) -> int:
+    """The m16n8k16 MMAs K9b issues for n samples of D features and E-wide
+    codes (the weight gradients where `weights`, the features' cotangent
+    where `features`): each product's 16 x 8 output tiles times its depth's
+    steps of 16 times its terms (six, or three where an operand is bf16: the
+    MLP inputs in bf16), per 64-sample tile, padding included; the bias
+    gradients are one more tile column."""
+    Dp, Cp = -(-D // 16) * 16, -(-(31 + E) // 16) * 16
+    t1 = 3 if bf16 else 6
+    tile = 32 * 6 + 32 * 4 * 6 + Cp // 2 * 4 * 6 + 32 * 6
+    if weights:
+        tile += (8 * 4 * 6 + 4 * 3) + (32 * 4 * 6 + 16 * 3) + (Cp // 2 * 4 * t1 + 16 * 3)
+        tile += (8 * 4 * 6 + 4 * 3) + (Dp // 2 * 4 * t1 + 16 * 3)
+    if features:
+        tile += Dp // 2 * 4 * 6
+    return -(-n // TILE) * tile
 
 
 @functools.lru_cache(maxsize=None)

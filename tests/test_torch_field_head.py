@@ -12,7 +12,11 @@ where `head` runs its plain version:
     ValueError naming it (the card never runs the plain version instead);
   - the autograd Function asks K9b for the gradients autograd wants
     (`needs_input_grad`): a frozen field asks for no weight gradient, the
-    codes' and directions' only where they need one.
+    codes' and directions' only where they need one;
+  - the split the kernels' tensor-core products take: three bf16 pieces
+    that sum back to an f32 bit for bit, and the pieces' products they keep
+    (field_head.KEPT) within 2^-23 of the f64 product, which fewer do not
+    hold.
 K9a/K9b themselves run only on the card: tests/test_torch_kernels_card.py.
 
 This file imports neither JAX nor the JAX package.
@@ -375,3 +379,53 @@ def test_fixed_directions_and_table_ask_for_no_cotangent_of_theirs(on_card):
                                                table_grad=False, codes_grad=True)
     assert wanted == (False, False, True) + (False,) * 10
     assert params["appearance"]["table"].grad is not None
+
+
+# -- the split of the kernels' tensor-core products ----------------------------------
+
+
+def _spread(gen, shape):
+    """N(0, 1) times 10^u, u uniform in [-3, 3]: six decades."""
+    return torch.randn(shape, generator=gen) * 10 ** (torch.rand(shape, generator=gen) * 6 - 3)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_pieces_sum_back_bit_for_bit(seed):
+    """split_bf16's pieces sum to x in f32 exactly, each at most 2^-8 of
+    the one before, over sixty decades and at zero and +-1."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(4096, generator=gen) * 10 ** (torch.rand(4096, generator=gen) * 60 - 30)
+    x = torch.cat([x, torch.tensor([0.0, 1.0, -1.0, 3.0e38, -1.5e-30])])
+    h, m, l = fh.split_bf16(x)
+    assert (h.dtype, m.dtype, l.dtype) == (torch.bfloat16,) * 3
+    assert torch.equal((h.float() + m.float()) + l.float(), x)
+    assert (m.float().abs() <= x.abs() * 2.0**-8).all()
+    assert (l.float().abs() <= x.abs() * 2.0**-16).all()
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 64), (256, 32, 64), (64, 96, 16)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kept_terms_hold_f32_accuracy(shape, seed):
+    """The pieces' products the kernels keep, each exact and summed in f64,
+    are within 2^-23 of the f64 product of the f32 operands at every
+    element, relative to sum |a||b| (the dropped ml, lm, ll are under
+    2^-24 together), on operands spread over six decades; hh alone and hh
+    + hm + mh are not. An operand that is bf16 already takes three terms,
+    exactly."""
+    M, K, N = shape
+    gen = torch.Generator().manual_seed(seed)
+    a, b = _spread(gen, (M, K)), _spread(gen, (K, N))
+    exact = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    pa, pb = fh.split_bf16(a), fh.split_bf16(b)
+
+    def worst(terms):
+        got = sum(pa[i].double() @ pb[j].double() for i, j in terms)
+        return float(((got - exact).abs() / scale).max())
+
+    assert worst(fh.KEPT) <= 2.0**-23
+    assert worst(((0, 0),)) > 2.0**-23
+    assert worst(((0, 0), (0, 1), (1, 0))) > 2.0**-23
+    ab = a.bfloat16().double()
+    three = sum(ab @ p.double() for p in pb)
+    torch.testing.assert_close(three, ab @ b.double(), rtol=0, atol=float(scale.max()) * 2.0**-45)

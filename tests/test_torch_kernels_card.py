@@ -29,8 +29,10 @@ camera-pose source, with query times outside the knots, the slerp's lerp
 branch, zero rotations, a batch on one knot and one camera, a captured
 graph's replay and the render path's forward at fixed poses; and K9a/K9b,
 the field's MLP head (lsenerf_tpu_torch/ops/field_head.py), against its
-plain version on the card at the three train cells' shapes and the
-occupancy update's density chunk, the same bits at a second call, a
+plain version on the card at the three train cells' shapes, the
+occupancy update's density chunk and operands spread over six decades
+(where the plain version with one bf16 or TF32 product a layer is off the
+limits), the same bits at a second call, a
 16-step chunk graph holding a launch of each a step, and its dispatch (a
 frozen field, another hidden width).
 
@@ -1500,12 +1502,13 @@ def test_render_rays_forward_only_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", ["lsenerf step", "lsenerf_emb step", "badnerf_ngp_f32 step",
-                                   "occupancy chunk", "other widths"])
+                                   "occupancy chunk", "other widths", "dynamic range"])
 def test_head_matches_plain_at_the_cells_on_card(shape):
     """K9a (and K9b where the shape trains) against the plain version on the
     card at flagship.head_shapes, the three train cells' shapes, the
-    occupancy chunk and widths that take the kernels compiled for no
-    preset (64 features, 16-wide codes): each output within
+    occupancy chunk, widths that take the kernels compiled for no
+    preset (64 features, 16-wide codes) and badnerf's f32 step with weights
+    and features spread over six decades: each output within
     field_head.TOLERANCE of the plain version's, relative to its norm (set
     from the readings in PERF.md: the f32 sums' order, and in bf16 a colour
     input or cotangent an ulp apart rounding to the neighbouring bf16 at a
@@ -1529,7 +1532,7 @@ def test_head_matches_plain_at_the_cells_on_card(shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", ["lsenerf step", "lsenerf_emb step", "badnerf_ngp_f32 step",
-                                   "other widths"])
+                                   "other widths", "dynamic range"])
 def test_head_is_the_same_bits_twice_on_card(shape):
     """No atomics: two calls of K9a and of K9b give every output's bits."""
     from lsenerf_tpu_torch.flagship import head_shapes
@@ -1543,11 +1546,13 @@ def test_head_is_the_same_bits_twice_on_card(shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["lsenerf step", "lsenerf_emb step", "badnerf_ngp_f32 step"])
+@pytest.mark.parametrize("shape", ["lsenerf step", "lsenerf_emb step", "badnerf_ngp_f32 step",
+                                   "dynamic range"])
 def test_head_tolerance_refuses_tf32_products_on_card(shape):
     """The control of field_head.TOLERANCE: the plain version with TF32
     products (the lower precision the kernels must not use) is off the
-    limits, forward and backward, at each train cell's shape."""
+    limits, forward and backward, at each train cell's shape and where the
+    operands span six decades."""
     from lsenerf_tpu_torch.flagship import head_shapes
     from lsenerf_tpu_torch.models import field as tfield
     from lsenerf_tpu_torch.ops import field_head as fh
@@ -1561,6 +1566,28 @@ def test_head_tolerance_refuses_tf32_products_on_card(shape):
             control = fh.run(*args, plain=tfield.head_plain)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = saved
+        assert fh.off_plain(control, want, a[7], backward) != {}, (shape, backward)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["badnerf_ngp_f32 step", "dynamic range"])
+def test_head_split_is_what_holds_the_tolerance_on_card(shape):
+    """What keeps the kernels' tensor-core products at f32 accuracy is the
+    split (field_head.KEPT): the plain version with each product taken once
+    in bf16 (autocast), the product a kernel would take unsplit, is off
+    field_head.TOLERANCE forward and backward in f32, at badnerf's step and
+    where weights and features span six decades, while K9a/K9b stay within
+    it there."""
+    from lsenerf_tpu_torch.flagship import head_shapes
+    from lsenerf_tpu_torch.models import field as tfield
+    from lsenerf_tpu_torch.ops import field_head as fh
+
+    a = head_shapes(_card(), names=[shape])[shape]
+    for backward, args in ((False, a[:8]), (True, a)):
+        want = fh.run(*args, plain=tfield.head_plain)
+        assert fh.off_plain(fh.run(*args), want, a[7], backward) == {}, (shape, backward)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            control = fh.run(*args, plain=tfield.head_plain)
         assert fh.off_plain(control, want, a[7], backward) != {}, (shape, backward)
 
 
